@@ -1,0 +1,70 @@
+"""The PyTorch port never imports JAX: every module of ldm_tpu_torch, and
+chip_smoke.py, imported in a fresh interpreter, leaves jax and flax out of
+sys.modules.  And chip_smoke.py refuses to run without a CUDA card."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import ldm_tpu_torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def port_modules():
+    return ["ldm_tpu_torch"] + [
+        m.name for m in pkgutil.walk_packages(ldm_tpu_torch.__path__, "ldm_tpu_torch.")
+    ]
+
+
+def test_port_modules_are_found():
+    mods = port_modules()
+    for want in ("ldm_tpu_torch.ops.linear_attention", "ldm_tpu_torch.ops.build",
+                 "ldm_tpu_torch.models.unet", "ldm_tpu_torch.utils.flax_import",
+                 "ldm_tpu_torch.diffusion.schedule", "ldm_tpu_torch.diffusion.ddpm",
+                 "ldm_tpu_torch.factory", "ldm_tpu_torch.registry",
+                 "ldm_tpu_torch.generate", "ldm_tpu_torch.profile_sampler"):
+        assert want in mods
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {port_modules() + ['chip_smoke']!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_chip_smoke_imports_only_the_port():
+    """chip_smoke.py reaches the JAX package's config only through the port:
+    it imports no ``ldm_tpu`` module, nor jax or flax, itself."""
+    import ast
+
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            roots.add(node.module.split(".")[0])
+    assert "ldm_tpu_torch" in roots
+    assert not roots & {"ldm_tpu", "jax", "jaxlib", "flax"}, roots
+
+
+def test_chip_smoke_fails_without_cuda():
+    """No CPU fallback: without a card it exits nonzero and prints no result."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout and "kernels" not in r.stdout
+    assert "is_available() is False" in r.stderr
