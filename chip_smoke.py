@@ -3,25 +3,39 @@
 
     python3 chip_smoke.py
 
-Runs from the root of a checkout and drives the port's main path, the
-class-conditional ancestral DDPM sampler with classifier-free guidance at the
+Runs from the root of a checkout and drives the port's two main paths at the
 flagship width (configs/pixel_diffusion_model_cifar10.yaml, random weights
-from a seed), through its entry point ``ldm_tpu_torch.generate.main``.
-Phases, each printing its own lines; any failure raises and exits nonzero:
+from a seed), through their entry points: the class-conditional ancestral
+DDPM sampler with classifier-free guidance (``ldm_tpu_torch.generate.main``)
+and the diffusion trainer (``ldm_tpu_torch.train.run``).  Phases, each
+printing its own lines; any failure raises and exits nonzero:
 
 1. device: a CUDA card or exit; its name and power limit; TF32 off.
-2. build: nvcc builds the linear-attention kernel from ldm_tpu_torch/csrc/.
-3. kernel vs plain: the kernel against its plain PyTorch version at the 8
-   attention sites of the 32px UNet at 2B=20 and 2B=128, and at the 64px
-   and 128px sites at 2B=4; fp32 (<= 1e-4) and bf16 (<= 3e-2 + one bf16
-   spacing of the output); both timed with CUDA events at 2B=128 bf16.
-4. full-width UNet: 20,350,915 parameters; kernel-path vs plain-path forward
-   (fp32 <= 1e-3; the bf16 difference is printed).
-5. the slice: generate.main at T=400, CFG 3, B=10 (2B=20), bf16; the kernel
-   must launch exactly 8 x 400 times; uint8 (10, 32, 32, 3) images from a
-   finite x0; a 10-step fp32 trajectory through the kernel against the plain
-   path; ms/step of 20 sampler steps at B=64 (median of 5 runs).
-6. one JSON line of per-kernel results, the card's line, and last
+2. build: nvcc builds every kernel source of ldm_tpu_torch/csrc/, one
+   compiler per source, started together; ptxas registers and spills.
+3. forward kernel vs plain: at the 8 attention sites of the 32px UNet at
+   2B=20 and 2B=128, and at the 64px and 128px sites at 2B=4; fp32 (<= 1e-4)
+   and bf16 (<= 3e-2 + one bf16 spacing of the output); both timed with CUDA
+   events at 2B=128 bf16.
+4. backward kernels vs plain: the 8 sites at B=64 and the 64px sites at
+   B=4, fp32 and bf16, each of the 8 grads within its stated tolerance, two
+   launches bit-identical; both timed at B=64 bf16.
+5. full-width UNet: 20,350,915 parameters; kernel-path vs plain-path
+   forward (fp32 <= 1e-3; the bf16 difference is printed) and loss
+   gradients at B=8 (fp32: every grad within 1e-3 x its leaf's max; every
+   to_qkv / to_out grad non-zero; the bf16 difference is printed).
+6. the sampling slice: generate.main at T=400, CFG 3, B=10 (2B=20), bf16;
+   the forward kernel must launch exactly 8 x 400 times; uint8 (10, 32, 32,
+   3) images from a finite x0; a 10-step fp32 trajectory through the kernel
+   against the plain path; ms/step of 20 sampler steps at B=64 (median of 5
+   runs).
+7. the training slice: train.run for 3 epochs of 9 steps at B=64, bf16, on
+   the synthetic fallback data, with the T=400 sample grid at epoch 2; the
+   backward kernels must launch exactly 8 x (train steps) times; finite
+   losses, the last epoch's below the first's; checkpoint and metrics files;
+   a --resume run restores the step; ms/step of the train step at B=64
+   (median of 5 runs of 10 steps).
+8. one JSON line of per-kernel results, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
 No CPU fallback: without a card it exits nonzero before printing a result.
@@ -31,14 +45,16 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from ldm_tpu_torch import generate
+from ldm_tpu_torch import generate, train
 from ldm_tpu_torch.diffusion.ddpm import GaussianDiffusion
 from ldm_tpu_torch.factory import build_model, load_config
 from ldm_tpu_torch.ops import build
@@ -59,6 +75,18 @@ LARGE_SITES = [("64px-l0", 4096, 64), ("64px-l1", 1024, 128), ("64px-l2", 256, 2
 # in [4, 8), so a sum that rounds to the neighbouring value is one spacing off
 TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (3e-2, 2.0**-7)}
 UNET_FP32_TOL = 1e-3
+# backward, per grad: |kernel - plain| <= tol * max|plain|.  fp32: the sums
+# run in another order (weight grads over up to 65,536 rows at B=64,
+# N=1024); the JAX suite holds its backward kernel to 2e-5 of the same
+# scale.  bf16: both round every intermediate to bf16 at the same points,
+# but an fp32 sum in another order can round an intermediate (q, k, v, do,
+# dq, dk, dv, h) to the neighbouring bf16 value, 2^-8 of it, and dx is
+# itself bf16: 2e-2 is five bf16 spacings at the largest entry.
+BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+GRADS = ("dx", "dwqkv", "dwout", "dbout", "dg1s", "dg1b", "dg2s", "dg2b")
+TRAIN_B = 64
+# the synthetic fallback's train split is (1 - val_split) of it: 9 steps of 64
+SYNTHETIC_SIZE = 640
 T_STEPS = 400
 DEV = torch.device("cuda")
 
@@ -144,6 +172,144 @@ def check_kernel(tag: str) -> dict:
             "ms": ms, "plain_ms": plain_ms}
 
 
+def check_bwd_kernel(tag: str) -> dict:
+    """Phase 4: backward kernels vs plain at the 8 sites (B=64) and the 64px
+    sites (B=4); timings at B=64 bf16."""
+    kw = dict(heads=4, dim_head=32)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    cases = [(TRAIN_B, site) for site in SITES] + [(4, site) for site in LARGE_SITES[:4]]
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, (site, n, c) in cases:
+            x, p = site_inputs(b, n, c, dtype, seed=b + n + c)
+            dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(n + c)).to(DEV, dtype)
+            kw_d = dict(kw, compute_dtype=dtype)
+            got = la.linear_attention_block_bwd(x, dy, *p, **kw_d)
+            again = la.linear_attention_block_bwd(x, dy, *p, **kw_d)
+            want = la.linear_attention_block_bwd_torch(x, dy, *p, **kw_d)
+            torch.cuda.synchronize()
+            errs, rels = [], []
+            for name, g, a, w in zip(GRADS, got, again, want):
+                err = (g.float() - w.float()).abs().max().item()
+                scale = w.float().abs().max().item()
+                rels.append(err / scale)
+                errs.append(f"{name} {err:.3e}/{scale:.3e}")
+                if not torch.isfinite(g).all() or err > BWD_TOL[dtype] * scale:
+                    raise AssertionError(f"bwd {site} B={b} {dtype} {name}: err {err}, "
+                                         f"max|plain| {scale}")
+                if not torch.equal(g, a):
+                    raise AssertionError(f"bwd {site} B={b} {dtype} {name}: not deterministic")
+            print(f"bwd kernel vs plain {site} (N={n}, C={c}) B={b} {str(dtype)[6:]}: "
+                  f"max_abs_err/max|plain| {'; '.join(errs)} (tol {BWD_TOL[dtype]:g} x "
+                  f"max|plain|, worst ratio {max(rels):.2e}; bit-identical rerun)")
+            worst[dtype] = max(worst[dtype], max(rels))
+
+    ms = plain_ms = 0.0
+    for i, (site, n, c) in enumerate(SITES):
+        x, p = site_inputs(TRAIN_B, n, c, torch.bfloat16, seed=i)
+        dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(i)).to(DEV, x.dtype)
+        kw_b = dict(kw, compute_dtype=torch.bfloat16)
+        k = cuda_ms(lambda: la.linear_attention_block_bwd(x, dy, *p, **kw_b), iters=10)
+        t = cuda_ms(lambda: la.linear_attention_block_bwd_torch(x, dy, *p, **kw_b), iters=10)
+        ms, plain_ms = ms + k, plain_ms + t
+        print(f"time bwd {site} (N={n}, C={c}) B={TRAIN_B} bf16: kernel {k:.4f} ms, "
+              f"plain {t:.4f} ms, kernel/plain {k / t:.2f} [{tag}]")
+    print(f"time bwd all 8 sites B={TRAIN_B} bf16: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms [{tag}]")
+    return {"max_rel_err": worst[torch.bfloat16], "max_rel_err_fp32": worst[torch.float32],
+            "ms": ms, "plain_ms": plain_ms}
+
+
+def check_unet_grads(config) -> None:
+    """Phase 5, gradients: the loss gradient of every parameter, kernel path
+    (LinearAttentionBlockFn) vs plain path (torch autograd), B=8."""
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(8, 32, 32, 3, generator=g).to(DEV)
+    eps = torch.randn(8, 32, 32, 3, generator=g).to(DEV)
+    t = torch.randint(0, T_STEPS, (8,), generator=g).to(DEV)
+    y = torch.arange(8).to(DEV)
+    for use_amp in (False, True):
+        m_kernel, m_plain = seeded_pair(dataclasses.replace(config, use_amp=use_amp), seed=5)
+        before = la.linear_attention_block_bwd.launches
+        for m in (m_kernel, m_plain):
+            m.train().zero_grad(set_to_none=True)
+            torch.mean((eps - m(x, t, y)) ** 2).backward()
+        torch.cuda.synchronize()
+        if la.linear_attention_block_bwd.launches - before != 8:
+            raise AssertionError("the kernel-path backward did not launch the kernels 8 times")
+        worst, dead = 0.0, []
+        plain = dict(m_plain.named_parameters())
+        for name, p in m_kernel.named_parameters():
+            w = plain[name].grad
+            rel = ((p.grad - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+            worst = max(worst, rel)
+            if ("to_qkv" in name or "to_out.0" in name) and not p.grad.abs().max() > 0:
+                dead.append(name)
+            if not use_amp and rel > UNET_FP32_TOL:
+                raise AssertionError(f"fp32 grad {name}: {rel} x max|grad| > {UNET_FP32_TOL}")
+        if dead:
+            raise AssertionError(f"zero gradient on {dead}")
+        dt = "bf16" if use_amp else "fp32"
+        print(f"full-width UNet loss gradients B=8 {dt}: kernel path vs plain path, worst "
+              f"max_abs_err / max|grad| over the parameters {worst:.3e}; every to_qkv and "
+              f"to_out weight has a non-zero gradient")
+
+
+def check_training(config, tag: str) -> dict:
+    """Phase 7: the training slice through train.run, then a resume and the
+    train step's time."""
+    with tempfile.TemporaryDirectory() as workdir:
+        cfg = dataclasses.replace(
+            config, workdir=workdir, epochs=3,
+            data=dataclasses.replace(config.data, synthetic_size=SYNTHETIC_SIZE))
+        counts = (la.linear_attention_block, la.linear_attention_block_bwd)
+        for f in counts:
+            f.launches = 0
+        res = train.run(cfg, DEV)
+        fwd_launches, bwd_launches = (f.launches for f in counts)
+        steps = res.trainer.state.step
+        hist = res.history
+        print(f"training run: {steps} steps in 3 epochs at B={TRAIN_B} bf16; train loss by "
+              f"epoch {hist['train_loss']}, val loss {hist['val_loss']}; kernel launches: "
+              f"backward {bwd_launches} (want {8 * steps}), forward {fwd_launches}")
+        if steps != 27 or bwd_launches != 8 * steps:
+            raise AssertionError(f"{steps} steps, {bwd_launches} backward launches")
+        losses = hist["train_loss"] + hist["val_loss"]
+        if not np.isfinite(losses).all() or not hist["train_loss"][-1] < hist["train_loss"][0]:
+            raise AssertionError(f"losses {hist}")
+        run_dir = cfg.dirpath
+        files = ["metrics.jsonl", "summary.json", "results/sample_step2.npy",
+                 "checkpoints/state.pt", "checkpoints/best_state.pt",
+                 "checkpoints/diffusion_model.pt", "checkpoints/diffusion_model_ema.pt"]
+        missing = [f for f in files if not os.path.isfile(os.path.join(run_dir, f))]
+        if missing:
+            raise AssertionError(f"missing run files {missing}")
+        grid = np.load(os.path.join(run_dir, "results/sample_step2.npy"))
+        print(f"run files present; sample grid {grid.shape} {grid.dtype}")
+        again = train.run(dataclasses.replace(cfg, epochs=0), DEV, resume=True)
+        if again.resumed_from != steps:
+            raise AssertionError(f"resume restored step {again.resumed_from}, want {steps}")
+        print(f"--resume restored step {again.resumed_from}")
+
+        trainer = res.trainer
+        gen = torch.Generator().manual_seed(6)
+        batch = {"image": torch.rand(TRAIN_B, 32, 32, 3, generator=gen) * 2 - 1,
+                 "label": torch.randint(0, 10, (TRAIN_B,), generator=gen)}
+        trainer.train_step(batch)  # warm-up
+        runs = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                trainer.train_step(batch)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) / 10 * 1e3)
+        step_ms = float(np.median(runs))
+        print(f"train step B={TRAIN_B} bf16: {step_ms:.3f} ms/step, median of 5 runs of 10 "
+              f"steps ({' '.join(f'{r:.3f}' for r in runs)}), {1e3 / step_ms:.3f} steps/s "
+              f"[{tag}]")
+    return {"fwd_launches": fwd_launches, "bwd_launches": bwd_launches, "step_ms": step_ms}
+
+
 def seeded_pair(config, seed: int = 0):
     """A kernel-path and a plain-path UNet with the same random weights."""
     with torch.random.fork_rng(devices=[]):
@@ -207,30 +373,41 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     phase("2 build")
-    lib, log, seconds = build.build()
-    print(f"built {lib} from {[str(s) for s in build.sources()]} in {seconds:.1f} s "
-          f"with nvcc {' '.join(build.NVCC_FLAGS)}")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            print(f"  ptxas: {line.strip()}")
+    t0 = time.perf_counter()
+    for name, (lib, log, seconds) in build.build().items():
+        print(f"built {lib} from {name} in {seconds:.1f} s with nvcc "
+              f"{' '.join(build.NVCC_FLAGS)}")
+        for line in log.splitlines():
+            if "Compiling entry" in line:
+                print(f"  ptxas: {line.strip().split(chr(39))[1]}")
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"  ptxas: {line.strip()}")
+    print(f"build wall time {time.perf_counter() - t0:.1f} s (sources compiled in parallel)")
     build.load()
 
-    phase("3 kernel vs plain")
+    phase("3 forward kernel vs plain")
     kernel = check_kernel(tag)
 
-    phase("4 full-width UNet")
+    phase("4 backward kernels vs plain")
+    bwd = check_bwd_kernel(tag)
+
+    phase("5 full-width UNet")
     config = load_config(FLAGSHIP)
     check_unet(config)
+    check_unet_grads(config)
 
-    phase("5 the slice: generate.main, T=400, CFG 3, B=10, bf16")
+    phase("6 the sampling slice: generate.main, T=400, CFG 3, B=10, bf16")
     if config.diffusion.n_steps != T_STEPS or not config.use_amp:
         raise AssertionError("flagship config is not T=400 with use_amp")
     la.linear_attention_block.launches = 0
+    la.linear_attention_block_bwd.launches = 0
     res = generate.main([FLAGSHIP, "--per-class", "1", "--device", "cuda"])
     launches = la.linear_attention_block.launches
-    print(f"kernel launches in the sampler run: {launches} (want {8 * T_STEPS})")
-    if launches != 8 * T_STEPS:
-        raise AssertionError(f"kernel launched {launches} times, want {8 * T_STEPS}")
+    sample_bwd = la.linear_attention_block_bwd.launches
+    print(f"kernel launches in the sampler run: forward {launches} (want {8 * T_STEPS}), "
+          f"backward {sample_bwd} (want 0)")
+    if launches != 8 * T_STEPS or sample_bwd != 0:
+        raise AssertionError(f"kernel launched {launches} / {sample_bwd} times")
     if res.images.dtype != np.uint8 or res.images.shape != (10, 32, 32, 3):
         raise AssertionError(f"images {res.images.dtype} {res.images.shape}")
     if not np.isfinite(res.x0).all():
@@ -266,7 +443,10 @@ def main() -> None:
           f"20 steps ({' '.join(f'{r:.3f}' for r in runs)}), "
           f"{64 / (step_ms * 1e-3 * T_STEPS):.3f} img/s at T=400 [{tag}]")
 
-    phase("6 result")
+    phase("7 the training slice: train.run, 3 epochs, B=64, bf16")
+    training = check_training(config, tag)
+
+    phase("8 result")
     print(json.dumps({"kernels": [{
         "name": "linear_attention_fwd",
         "route": "cuda",
@@ -274,12 +454,27 @@ def main() -> None:
         "replaces": "ldm_tpu/ops/linear_attention.py:220",
         "also_replaces": "ldm_tpu/ops/linear_attention.py:333",
         "launches": launches,
+        "launches_by_path": {"sample": launches, "train": training["fwd_launches"]},
         "max_abs_err": kernel["max_abs_err"],
         "max_abs_err_fp32": kernel["max_abs_err_fp32"],
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
         "timed": "sum over the 8 sites, one launch each, 2B=128, bf16",
-    }]}))
+    }, {
+        "name": "linear_attention_bwd",
+        "route": "cuda",
+        "source": "ldm_tpu_torch/csrc/linear_attention_bwd.cu",
+        "replaces": "ldm_tpu/ops/linear_attention.py:476",
+        "also_replaces": "ldm_tpu/ops/linear_attention.py:858",
+        "launches": training["bwd_launches"],
+        "launches_by_path": {"sample": sample_bwd, "train": training["bwd_launches"]},
+        "max_abs_err": bwd["max_rel_err"],
+        "max_abs_err_fp32": bwd["max_rel_err_fp32"],
+        "err_unit": "max_abs_err / max|plain| of the worst of the 8 grads",
+        "ms": bwd["ms"],
+        "plain_ms": bwd["plain_ms"],
+        "timed": "sum over the 8 sites, one backward (3 kernels) each, B=64, bf16",
+    }], "train_step_ms": training["step_ms"]}))
     print(card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-"""The DDPM process: forward noising, one reverse step, and the ancestral
-sampler with classifier-free guidance (port of ldm_tpu/diffusion/ddpm.py).
+"""The DDPM process: forward noising (and the training batch's noising), one
+reverse step, and the ancestral sampler with classifier-free guidance (port
+of ldm_tpu/diffusion/ddpm.py).
 
 Images are NHWC, as in the JAX package.  The sampler is a Python loop over
 the timesteps as Python ints: the ``t == 0`` noise mask is built from a
@@ -7,9 +8,10 @@ tensor made on the device from that int, so no step waits for the device.
 CFG runs the conditional and unconditional passes as ONE forward on a 2B
 batch.
 
-Randomness is an input: ``x_init`` (x_T) and ``noise`` (the per-step draws)
-can be given, so a test can feed the JAX key stream; what is not given is
-drawn from the ``torch.Generator`` the caller passes.
+Randomness is an input: ``x_init`` (x_T) and ``noise`` (the per-step
+draws), and ``t`` and ``eps`` of a training batch, can be given, so a test
+can feed the JAX key stream; what is not given is drawn from the
+``torch.Generator`` the caller passes.
 """
 
 from __future__ import annotations
@@ -53,6 +55,29 @@ class GaussianDiffusion:
         """Sample x_t ~ q(x_t | x_0)."""
         mean, var = self.q_xt_x0(x0, t)
         return mean + torch.sqrt(var) * eps.to(mean.dtype)
+
+    def noise_batch(self, x0: torch.Tensor, t: Optional[torch.Tensor] = None,
+                    eps: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None,
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Per-sample t ~ U[0, T) and eps ~ N(0, I); returns (eps, x_t, t).
+
+        The training-time noising of the diffusion trainer's step.  ``t``
+        (int, (B,)) and ``eps`` (x0's shape) can be given, so a test can feed
+        the JAX draws; what is not given is drawn from ``generator`` on x0's
+        device, t first.
+        """
+        if (t is None or eps is None) and generator is None:
+            raise ValueError("pass a generator, or both t and eps")
+        if t is None:
+            t = torch.randint(0, self.n_steps, (x0.shape[0],), generator=generator,
+                              device=x0.device)
+        if eps is None:
+            eps = torch.randn(x0.shape, generator=generator, device=x0.device,
+                              dtype=x0.dtype)
+        t = t.to(x0.device, torch.int64)
+        eps = eps.to(x0.device, x0.dtype)
+        return eps, self.q_sample(x0, t, eps), t
 
     # ------------------------------------------------------------ reverse (p)
     def p_sample(self, xt: torch.Tensor, t: torch.Tensor, eps_theta: torch.Tensor,

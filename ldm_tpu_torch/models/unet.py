@@ -215,9 +215,10 @@ class LinearAttention(nn.Module):
 class LinAttnBlock(Residual):
     """The whole per-level block, Residual(PreNorm(LinearAttention)), as ONE op.
 
-    ``impl=None`` runs :func:`linear_attention_block` (the Hopper kernel on a
-    CUDA tensor, the plain version on a CPU tensor); ``impl="torch"`` runs the
-    plain version on any device.
+    ``impl=None`` runs :func:`linear_attention_block` (the Hopper kernels on a
+    CUDA tensor, the plain versions on a CPU tensor; in grad mode through the
+    autograd op ``LinearAttentionBlockFn``); ``impl="torch"`` runs the plain
+    forward under torch autograd on any device.
     """
 
     def __init__(self, dim: int, heads: int = 4, dim_head: int = 32,
@@ -230,9 +231,10 @@ class LinAttnBlock(Residual):
 
     def kernel_weights(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The (3H, C, 1, 1) / (C, H, 1, 1) conv weights as the kernel reads
-        them, row-major (C, 3H) / (H, C).  The copies are made once and again
-        only when a weight changes (load_state_dict and in-place updates bump
-        its version) or moves, not on every call of the sampler's loop."""
+        them, row-major (C, 3H) / (H, C), for calls that autograd does not
+        track (sampling).  The copies are made once and again only when a
+        weight changes (load_state_dict and in-place updates bump its
+        version) or moves, not on every call of the sampler's loop."""
         wq, wo = self.fn.fn.to_qkv.weight, self.fn.fn.to_out[0].weight
         key = (wq.data_ptr(), wq._version, wo.data_ptr(), wo._version)
         if key != self._kernel_w_key:
@@ -247,17 +249,19 @@ class LinAttnBlock(Residual):
         b, c, hh, ww = x.shape
         pre, attn = self.fn.norm, self.fn.fn
         out_conv, out_norm = attn.to_out
-        if self.impl is None and x.is_cuda:
-            op = linear_attention_block
+        params = (out_conv.bias, pre.weight, pre.bias, out_norm.weight, out_norm.bias)
+        op = linear_attention_block_torch if self.impl == "torch" else linear_attention_block
+        tracked = torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters()))
+        if op is linear_attention_block and x.is_cuda and not tracked:
             wqkv, wout = self.kernel_weights()
         else:
-            # the plain version takes the weights as views, so autograd sees them
-            op = linear_attention_block_torch
+            # views of the conv weights, inside the graph: their grads reach
+            # to_qkv.weight and to_out.0.weight
             wqkv, wout = attn.to_qkv.weight.view(-1, c).t(), out_conv.weight.view(c, -1).t()
         y = op(
             x.permute(0, 2, 3, 1).reshape(b, hh * ww, c).contiguous(),
-            wqkv, wout, out_conv.bias, pre.weight, pre.bias,
-            out_norm.weight, out_norm.bias,
+            wqkv, wout, *params,
             heads=self.heads, dim_head=self.dim_head, eps=1e-5,
             compute_dtype=x.dtype,
         )

@@ -1,12 +1,13 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-The counterpart of ldm_tpu/native/build.py: ``nvcc`` compiles every source
-under ``ldm_tpu_torch/csrc/`` into one shared library with a plain C
+The counterpart of ldm_tpu/native/build.py: ``nvcc`` compiles each source
+under ``ldm_tpu_torch/csrc/`` into its own shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds, not minutes), for
-Hopper's ``sm_90a`` target.  The library lands in :func:`build_dir`, named
-by a hash of the sources and the flags, so an edited source never loads a
-stale build.  It is written to a temporary name and renamed into place, so
-concurrent processes never load a half-written file.
+Hopper's ``sm_90a`` target; the sources' compilers run at the same time.
+Each library lands in :func:`build_dir`, named by a hash of its source, the
+shared headers and the flags, so an edited file never loads a stale build.
+It is written to a temporary name and renamed into place, so concurrent
+processes never load a half-written file.
 
 Nothing here runs at import: the CPU tests import every module on machines
 without ``nvcc``.
@@ -22,6 +23,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+import types
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -64,53 +66,82 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def lib_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
+def lib_path(source: Path) -> Path:
+    """Where the library built from ``source`` (with the current headers and
+    flags) lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in [source, *headers()]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return build_dir() / f"libldm_tpu_torch_{h.hexdigest()[:16]}.so"
+    return build_dir() / f"libldm_tpu_torch_{source.stem}_{h.hexdigest()[:16]}.so"
 
 
 @functools.lru_cache(maxsize=None)
-def build() -> tuple[Path, str, float]:
-    """Compile the library unless it is already built.
+def build() -> dict[str, tuple[Path, str, float]]:
+    """Compile every source's library that is not built yet, one ``nvcc`` per
+    source, all started together.
 
-    Returns its path, the compiler's output (``-Xptxas -v`` reports each
-    kernel's registers, shared memory and spills; empty when the library was
-    already there) and the seconds the build took.  Raises if ``nvcc`` fails.
+    Returns, for each source's name: the library's path, the compiler's output
+    (``-Xptxas -v`` reports each kernel's registers, shared memory and
+    spills; empty when the library was already there) and the seconds its
+    build took.  Raises if an ``nvcc`` fails.
     """
-    out = lib_path()
-    if out.exists():
-        return out, "", 0.0
-    out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
+    jobs, done, tmps = {}, {}, []
     try:
-        t0 = time.perf_counter()
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-        r = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-        seconds = time.perf_counter() - t0
-        if r.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n{r.stdout}{r.stderr}"
-            )
-        os.replace(tmp, out)
+        for src in sources():
+            out = lib_path(src)
+            if out.exists():
+                done[src.name] = (out, "", 0.0)
+                continue
+            out.parent.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+            os.close(fd)
+            tmps.append(tmp)
+            cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+            jobs[src.name] = (proc, cmd, tmp, out, time.perf_counter())
+        for name, (proc, cmd, tmp, out, t0) in jobs.items():
+            log, _ = proc.communicate(timeout=900)
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+            os.replace(tmp, out)
+            done[name] = (out, log, seconds)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out, r.stdout + r.stderr, seconds
+        for proc, *_ in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for tmp in tmps:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return done
 
 
 @functools.lru_cache(maxsize=None)
-def load() -> ctypes.CDLL:
-    """The built library, with every entry point's C signature declared."""
-    lib = ctypes.CDLL(str(build()[0]))
+def load() -> types.SimpleNamespace:
+    """Every source's built library, loaded, with every entry point's C
+    signature declared; the entry points are the namespace's attributes."""
+    libs = {name: ctypes.CDLL(str(path)) for name, (path, _, _) in build().items()}
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = lib.ldm_lin_attn_fwd
-    # dtype, x, wqkv_t, wout_t, bout, g1s, g1b, g2s, g2b, y, qkv scratch,
+    fwd = libs["linear_attention_fwd.cu"].ldm_lin_attn_fwd
+    # dtype, x, wqkv, wout, bout, g1s, g1b, g2s, g2b, y, qkv scratch,
     # ctx@Wout scratch, B, N, C, eps, stream
-    fn.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, f, p]
-    fn.restype = i
-    return lib
+    fwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, f, p]
+    fwd.restype = i
+    bwd_lib = libs["linear_attention_bwd.cu"]
+    splits = bwd_lib.ldm_lin_attn_bwd_splits
+    splits.argtypes = [i, i, i]  # B, N, C
+    splits.restype = i
+    bwd = bwd_lib.ldm_lin_attn_bwd
+    # dtype, x, dy, wqkv, wout, bout, g1s, g1b, g2s, g2b, wqkv_t, dx, dwqkv,
+    # dwout, dvec, 10 scratch buffers, B, N, C, splits, eps, stream
+    bwd.argtypes = [i] + [p] * 24 + [i, i, i, i, f, p]
+    bwd.restype = i
+    return types.SimpleNamespace(ldm_lin_attn_fwd=fwd, ldm_lin_attn_bwd=bwd,
+                                 ldm_lin_attn_bwd_splits=splits)

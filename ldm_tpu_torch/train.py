@@ -1,0 +1,79 @@
+"""Training entry point of the port (scripts/train_diffusion_model.py).
+
+config -> data loaders -> UNet + diffusion -> DiffusionTrainer -> train().
+
+    python -m ldm_tpu_torch.train configs/pixel_diffusion_model_cifar10.yaml \\
+        [--epochs N] [--resume] [--device cuda] [--strict-data]
+
+Data come from the JAX package's JAX-free loaders (``ldm_tpu.data``): when the
+dataset's files are not under the config's ``data_path`` they fall back to
+seeded synthetic images at the config's shape, unless ``--strict-data``.
+The UNet's initial weights are a seeded random init (the config's seed).
+Metrics go to ``<workdir>/<type>/<project>/metrics.jsonl``, checkpoints to
+its ``checkpoints/`` and sample grids to its ``results/``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import NamedTuple, Optional, Sequence
+
+import torch
+
+from ldm_tpu.config import Config
+from ldm_tpu.data.loader import create_dataloaders
+from ldm_tpu_torch.factory import build_diffusion, build_model, load_config
+from ldm_tpu_torch.training.diffusion_trainer import DiffusionTrainer
+
+
+class Run(NamedTuple):
+    trainer: DiffusionTrainer
+    history: dict
+    resumed_from: Optional[int]  # the step a --resume run restored, else None
+
+
+def build_trainer(config: Config, device, strict_data: bool = False) -> DiffusionTrainer:
+    train_loader, val_loader, _test_loader, classes = create_dataloaders(
+        config, allow_synthetic_fallback=not strict_data
+    )
+    with torch.random.fork_rng(devices=[]):  # seeded init, caller's RNG untouched
+        torch.manual_seed(config.seed)
+        model = build_model(config)
+    model.to(device)
+    return DiffusionTrainer(config, model, build_diffusion(config, device),
+                            train_loader, val_loader, classes, device=device)
+
+
+def run(config: Config, device="cuda", resume: bool = False,
+        strict_data: bool = False) -> Run:
+    """Build the trainer for ``config`` on ``device``, resume from the latest
+    checkpoint if asked and one exists, and train ``config.epochs`` epochs."""
+    device = torch.device(device)
+    trainer = build_trainer(config, device, strict_data)
+    resumed = None
+    if resume and trainer.resume_latest():
+        resumed = trainer.state.step
+        print(f"resumed from step {resumed}")
+    return Run(trainer, trainer.train(), resumed)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Run:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("config")
+    ap.add_argument("--epochs", type=int, default=None,
+                    help="override the config's epoch count")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the latest full-state checkpoint")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--strict-data", action="store_true",
+                    help="fail instead of falling back to synthetic data")
+    args = ap.parse_args(argv)
+    config = load_config(args.config)
+    if args.epochs is not None:
+        config = dataclasses.replace(config, epochs=args.epochs)
+    return run(config, args.device, resume=args.resume, strict_data=args.strict_data)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,264 @@
+"""Diffusion model trainer (port of ldm_tpu/training/diffusion_trainer.py).
+
+One training step (the JAX ``_step_body``): noise the batch (``noise_batch``),
+drop labels for classifier-free guidance (the whole batch at once, or per
+sample), the MSE of fp32 eps against the UNet's output, backward, Adam, EMA,
+and the global L2 norm of the grads.  Under ``use_amp`` the UNet computes in
+bf16 with fp32 parameters, as in the JAX package.  On a CUDA device every
+linear-attention block of the step runs the Hopper forward kernel and, in the
+backward, the Hopper backward kernel (``LinearAttentionBlockFn``).
+
+Randomness is an input: ``train_step`` and ``eval_step`` take t, eps and the
+drop mask, so a test can hand over the JAX draws.  What is not given is
+drawn from a generator on the device seeded from (seed, step), the
+counterpart of ``fold_in(key, step)``; eval batches and the sample grid have
+streams of their own (salted as the JAX trainer salts them).
+
+The epoch is a Python loop over the batches (the JAX trainer's non-scan
+path); per-step losses stay on the device and are read once an epoch.  The
+validation loss applies the CFG lerp; every ``sample_every`` epochs a sample
+grid is drawn from the EMA weights through the ancestral CFG sampler;
+early stopping keeps the best state, and full-state checkpoints are written
+at the ``checkpoint_every`` cadence and at the end.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ldm_tpu.config import Config
+from ldm_tpu.data.transforms import reverse_transform
+from ldm_tpu_torch.diffusion.ddpm import GaussianDiffusion
+from ldm_tpu_torch.training import checkpoint as ckpt
+from ldm_tpu_torch.training.early_stopping import EarlyStopping
+from ldm_tpu_torch.training.state import TrainState, step_generator
+from ldm_tpu_torch.utils.logging import MetricsLogger, Throughput, global_norm
+
+EVAL_SALT = 0x5EED     # the JAX trainer's salts: eval batches and sample grids
+SAMPLE_SALT = 0x5A7712
+
+
+class DiffusionTrainer:
+    def __init__(
+        self,
+        config: Config,
+        model,  # ldm_tpu_torch.models.unet.UNet, on `device`
+        diffusion: GaussianDiffusion,
+        train_loader,
+        val_loader,
+        classes,
+        device=None,
+        logger: Optional[MetricsLogger] = None,
+        cfg_scale: Optional[float] = None,
+    ):
+        if config.loss_fn != "mse":
+            raise ValueError("diffusion training uses MSE")
+        self.config = config
+        self.device = torch.device(device) if device is not None else next(
+            model.parameters()).device
+        self.diffusion = diffusion
+        self.train_loader = train_loader
+        self.val_loader = val_loader
+        self.classes = np.asarray(classes, np.int64)
+        self.cfg_scale = config.diffusion.cfg_scale if cfg_scale is None else cfg_scale
+        self.logger = logger or MetricsLogger(config.dirpath)
+        config.create_dirs()
+        d = config.data
+        self.image_shape = (d.image_size, d.image_size, d.image_channels)
+        self.state = TrainState(model, config.lr, config.ema_decay)
+        self.early_stopping = EarlyStopping(
+            patience=config.early_stopping_patience, verbose=True,
+            save_fn=self._save_best, min_delta_rel=config.early_stopping_min_delta_rel,
+        )
+        self._best: Optional[dict] = None
+        self._warmed_up = False
+        self._last_rates: Dict[str, float] = {}
+        self._last_grad_norm = 0.0
+
+    @property
+    def model(self):
+        return self.state.model
+
+    # ------------------------------------------------------------ the step
+    def dropped_labels(self, y: torch.Tensor, drop: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """CFG label drop to the null label: one Bernoulli(p) for the whole
+        batch (``label_drop_mode: batch``, the reference's) or one per sample
+        (``sample``).  ``drop`` (bool, () or (B,)) overrides the draw."""
+        dc = self.config.diffusion
+        if drop is None:
+            shape = tuple(y.shape) if dc.label_drop_mode == "sample" else ()
+            drop = torch.rand(shape, generator=generator, device=y.device) < dc.label_drop_prob
+        return torch.where(drop.to(y.device), self.model.null_label, y)
+
+    def _batch(self, batch: dict) -> Tuple[torch.Tensor, torch.Tensor]:
+        image = torch.as_tensor(batch["image"]).to(self.device, torch.float32)
+        label = torch.as_tensor(batch["label"]).to(self.device, torch.int64)
+        return image, label
+
+    def train_step(self, batch: dict, t: Optional[torch.Tensor] = None,
+                   eps: Optional[torch.Tensor] = None,
+                   drop: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """One optimisation step on ``{"image": NHWC [-1, 1], "label": int}``.
+
+        Returns ``{"loss", "grad_norm"}`` as device scalars (no host sync).
+        The parameters' ``.grad`` keep this step's gradients afterwards.
+        """
+        state = self.state
+        x0, y = self._batch(batch)  # encode is the identity for pixel DDPM
+        gen = None
+        if t is None or eps is None or drop is None:
+            gen = step_generator(self.config.seed, state.step, self.device)
+        eps, xt, t = self.diffusion.noise_batch(x0, t=t, eps=eps, generator=gen)
+        y = self.dropped_labels(y, drop=drop, generator=gen)
+
+        state.model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        eps_theta = state.model(xt, t, y)
+        loss = torch.mean((eps.to(torch.float32) - eps_theta) ** 2)
+        loss.backward()
+        gnorm = global_norm([p.grad for p in state.params()])
+        state.apply_gradients()
+        return {"loss": loss.detach(), "grad_norm": gnorm}
+
+    @torch.no_grad()
+    def eval_step(self, batch: dict, index: int, t: Optional[torch.Tensor] = None,
+                  eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Validation loss of one batch (the current weights), with the CFG
+        lerp ``uncond + cfg * (cond - uncond)`` when cfg > 0."""
+        x0, y = self._batch(batch)
+        gen = None
+        if t is None or eps is None:
+            gen = step_generator(self.config.seed, index, self.device, EVAL_SALT)
+        eps, xt, t = self.diffusion.noise_batch(x0, t=t, eps=eps, generator=gen)
+        model = self.model.eval()
+        eps_theta = model(xt, t, y)
+        if self.cfg_scale > 0:
+            eps_uncond = model(xt, t, torch.full_like(y, model.null_label))
+            eps_theta = eps_uncond + self.cfg_scale * (eps_theta - eps_uncond)
+        return torch.mean((eps.to(torch.float32) - eps_theta) ** 2)
+
+    # ------------------------------------------------------------ persistence
+    def _save_best(self, _state) -> None:
+        """Improvement hook: keep the best state as a copy on the device;
+        it is written at the checkpoint cadence and at the end of train()."""
+        self._best = _clone(self.state.state_dict())
+
+    def _flush_best(self) -> None:
+        if self._best is None:
+            return
+        d = self.config.checkpoints
+        ckpt.atomic_save(self._best["model"], f"{d}/diffusion_model.pt")
+        ckpt.atomic_save(self._best["ema"], f"{d}/diffusion_model_ema.pt")
+        ckpt.save_state(f"{d}/best_state.pt", self._best, self.early_stopping.val_loss_min)
+        self._best = None
+
+    def save_latest(self) -> str:
+        return ckpt.save_state(f"{self.config.checkpoints}/state.pt",
+                               self.state.state_dict(), self.early_stopping.val_loss_min)
+
+    def load_state(self, path: str) -> None:
+        sd = ckpt.load_state(path, map_location=self.device)
+        self.state.load_state_dict(sd)
+        self.early_stopping.restore(sd.get("best_val_loss", float("inf")))
+
+    def resume_latest(self) -> bool:
+        path = ckpt.latest_checkpoint(self.config.checkpoints)
+        if path is None:
+            return False
+        self.load_state(path)
+        return True
+
+    # ----------------------------------------------------------------- epochs
+    def _train_epoch(self) -> float:
+        tput = Throughput()
+        losses, gnorms = [], []
+        for batch in self.train_loader:
+            m = self.train_step(batch)
+            losses.append(m["loss"])
+            gnorms.append(m["grad_norm"])
+            tput.update(len(batch["label"]))
+        if not losses:
+            raise ValueError("train loader yielded no batches")
+        loss = torch.stack(losses).mean().item()  # the epoch's one host sync
+        self._last_grad_norm = torch.stack(gnorms).mean().item()
+        # the first epoch of the process pays for builds and warm-up: no rate
+        self._last_rates = tput.rates() if self._warmed_up else {}
+        self._warmed_up = True
+        return loss
+
+    def _val_epoch(self) -> float:
+        losses = [self.eval_step(batch, i) for i, batch in enumerate(self.val_loader)]
+        if not losses:
+            raise ValueError("validation loader yielded no batches")
+        return torch.stack(losses).mean().item()
+
+    def train(self) -> dict:
+        """Epoch loop: train, validate, log, sample grid, early stopping,
+        checkpoints (the JAX trainer's ``train``)."""
+        cfg = self.config
+        self.logger.define_summaries({
+            "diffusion_model train_loss": "min",
+            "diffusion_model val_loss": "min",
+        })
+        history = {"train_loss": [], "val_loss": []}
+        for epoch in range(cfg.epochs):
+            train_loss = self._train_epoch()
+            val_loss = self._val_epoch()
+            history["train_loss"].append(train_loss)
+            history["val_loss"].append(val_loss)
+            self.logger.log({
+                "diffusion_model train_loss": train_loss,
+                "diffusion_model val_loss": val_loss,
+                "grad_global_norm": self._last_grad_norm,
+                "epoch": epoch,
+                **{k: round(v, 3) for k, v in self._last_rates.items()},
+            }, step=epoch)
+            self.logger.log_norms("params", self.state.params(), step=epoch)
+            we = cfg.watch_histograms_every
+            if we > 0 and (epoch + 1) % we == 0:
+                self.logger.log_histograms("params", self.model.named_parameters(), step=epoch)
+            se = cfg.sample_every
+            # 0 = never; epoch 0 is skipped: its grid would show untrained noise
+            if se > 0 and epoch > 0 and epoch % se == 0:
+                images = self.sample(self.classes, cfg_scale=self.cfg_scale)
+                self.logger.log_images(images, step=epoch, mode="sample", dirpath=cfg.results)
+            self.early_stopping(val_loss, self.state)
+            ce = cfg.checkpoint_every
+            if ce > 0 and (epoch + 1) % ce == 0:
+                self.save_latest()
+                self._flush_best()
+            if self.early_stopping.early_stop:
+                print("Early stopping")
+                break
+        # leave both the best and the latest state on disk whatever the cadence
+        self.save_latest()
+        self._flush_best()
+        return history
+
+    # ----------------------------------------------------------------- sample
+    def sample(self, classes, cfg_scale: float = 0.0, use_ema: bool = True,
+               generator: Optional[torch.Generator] = None) -> np.ndarray:
+        """One image per entry of ``classes`` through the ancestral CFG
+        sampler, from the EMA weights by default; uint8 NHWC."""
+        model = (self.state.ema if use_ema else self.model).eval()
+        if generator is None:
+            generator = step_generator(self.config.seed, 0, self.device, SAMPLE_SALT)
+        classes = torch.as_tensor(np.asarray(classes), dtype=torch.int64, device=self.device)
+        x0 = self.diffusion.sample(model, classes, self.image_shape, cfg_scale=cfg_scale,
+                                   null_label=model.null_label, generator=generator)
+        return reverse_transform(x0.cpu().numpy())
+
+
+def _clone(sd):
+    """A deep copy of a state_dict-like tree (tensors cloned on their device)."""
+    if isinstance(sd, torch.Tensor):
+        return sd.detach().clone()
+    if isinstance(sd, dict):
+        return {k: _clone(v) for k, v in sd.items()}
+    if isinstance(sd, (list, tuple)):
+        return type(sd)(_clone(v) for v in sd)
+    return sd

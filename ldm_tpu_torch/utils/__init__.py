@@ -1,1 +1,1 @@
-"""Utilities (weight bridge from the JAX package)."""
+"""Utilities: the weight bridge from the JAX package, metrics logging."""

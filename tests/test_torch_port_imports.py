@@ -24,7 +24,13 @@ def test_port_modules_are_found():
                  "ldm_tpu_torch.models.unet", "ldm_tpu_torch.utils.flax_import",
                  "ldm_tpu_torch.diffusion.schedule", "ldm_tpu_torch.diffusion.ddpm",
                  "ldm_tpu_torch.factory", "ldm_tpu_torch.registry",
-                 "ldm_tpu_torch.generate", "ldm_tpu_torch.profile_sampler"):
+                 "ldm_tpu_torch.generate", "ldm_tpu_torch.profile_sampler",
+                 "ldm_tpu_torch.train", "ldm_tpu_torch.profile_train",
+                 "ldm_tpu_torch.training.state",
+                 "ldm_tpu_torch.training.diffusion_trainer",
+                 "ldm_tpu_torch.training.checkpoint",
+                 "ldm_tpu_torch.training.early_stopping",
+                 "ldm_tpu_torch.utils.logging"):
         assert want in mods
 
 

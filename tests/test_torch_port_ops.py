@@ -136,25 +136,29 @@ def test_kernel_argument_checks_raise(case):
 
 
 def test_kernel_refuses_grad():
-    """The kernel is forward-only: a call that autograd would track raises."""
+    """The raw kernel launchers are not differentiable: a call that autograd
+    would track raises there.  The dispatching op sends such calls through
+    LinearAttentionBlockFn instead, whose forward runs with grad mode off."""
     x, *p = torch_args(make_inputs(2, 16, 64, seed=6))
     p[0].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward-only"):
+    with pytest.raises(RuntimeError, match="not differentiable"):
         la._check_cuda_args(x, p, HEADS, DIM_HEAD, torch.float32)
     with torch.no_grad():
         la._check_cuda_args(x, p, HEADS, DIM_HEAD, torch.float32)
+    y = la.linear_attention_block(x, *p, **KW)
+    assert type(y.grad_fn).__name__ == "LinearAttentionBlockFnBackward"
 
 
 def test_kernel_module_imports_without_nvcc(tmp_path):
-    """Importing the kernel's modules builds nothing and needs no nvcc."""
+    """Importing the kernels' modules builds nothing and needs no nvcc."""
     env = dict(os.environ, PATH="/usr/bin:/bin", CUDA_HOME=str(tmp_path))
     code = ("import ldm_tpu_torch.ops.linear_attention as la, ldm_tpu_torch.ops.build as b; "
             "assert b.build.cache_info().currsize == b.load.cache_info().currsize == 0; "
-            "print(la.linear_attention_block.launches)")
+            "print(la.linear_attention_block.launches, la.linear_attention_block_bwd.launches)")
     r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                        text=True, timeout=120, cwd=os.path.dirname(os.path.dirname(__file__)))
     assert r.returncode == 0, r.stderr
-    assert r.stdout.strip() == "0"
+    assert r.stdout.strip() == "0 0"
 
 
 def test_unet_block_reshapes_its_weights_once_per_version():
@@ -201,4 +205,21 @@ def test_build_dir(where, tmp_path, monkeypatch):
         monkeypatch.setattr(build, "CHECKOUT", tmp_path / "lib" / "python3" / "site-packages")
         want = tmp_path / "home" / ".cache" / "ldm_tpu_torch"
     assert build.build_dir() == want
-    assert build.lib_path().parent == want
+    assert all(build.lib_path(src).parent == want for src in build.sources())
+
+
+def test_build_without_nvcc_raises_and_leaves_no_files(tmp_path, monkeypatch):
+    """No nvcc: build() raises with what to set, and leaves no temporary
+    library behind in the build directory."""
+    from ldm_tpu_torch.ops import build
+
+    monkeypatch.setenv("LDM_TPU_TORCH_BUILD_DIR", str(tmp_path / "b"))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path / "no_bin"))
+    build.build.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            build.build()
+    finally:
+        build.build.cache_clear()
+    assert list((tmp_path / "b").iterdir()) == []
