@@ -35,7 +35,19 @@ printing its own lines; any failure raises and exits nonzero:
    losses, the last epoch's below the first's; checkpoint and metrics files;
    a --resume run restores the step; ms/step of the train step at B=64
    (median of 5 runs of 10 steps).
-8. one JSON line of per-kernel results, the card's line, and last
+8. the fused ResNet-block kernel (``ops/resnet_block.py``) vs plain: at
+   the 11 ResNet sites of the 32px flagship UNet at 2B=20 and 2B=128, at
+   probe 13's four sites at 2B=256 and at the 64px (4096, 64->64) site at
+   2B=4; fp32 (<= 1e-4 x max|plain|) and bf16 (<= 2e-2 x max|plain|); two
+   launches bit-identical; both timed at 2B=128 bf16, summed over the 11
+   sites.  Then ``ResNetBlockFn`` at B=8 on a decoder site: its input and
+   weight gradients against plain autograd, and the kernel launched.
+9. the probes' entry points, each with the counts set to 0 just before it:
+   ``perf.probe13.main`` (the kernel launched at each of its sites),
+   ``perf.probe13b.main`` (every mode vs its plain version; ``full`` bit
+   for bit the production kernel) and ``perf.probe7.main`` (stages 1-5 vs
+   plain, stage 6 bit for bit the production forward kernel).
+10. one JSON line of per-kernel results, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
 No CPU fallback: without a card it exits nonzero before printing a result.
@@ -46,7 +58,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -59,6 +70,9 @@ from ldm_tpu_torch.diffusion.ddpm import GaussianDiffusion
 from ldm_tpu_torch.factory import build_model, load_config
 from ldm_tpu_torch.ops import build
 from ldm_tpu_torch.ops import linear_attention as la
+from ldm_tpu_torch.ops import resnet_block as rb
+from ldm_tpu_torch.perf import probe7, probe13, probe13b
+from ldm_tpu_torch.perf.common import card, cuda_ms
 
 FLAGSHIP = "configs/pixel_diffusion_model_cifar10.yaml"
 N_PARAMS = 20_350_915
@@ -89,33 +103,21 @@ TRAIN_B = 64
 SYNTHETIC_SIZE = 640
 T_STEPS = 400
 DEV = torch.device("cuda")
+# (site, side, C_in, C_out) of the 11 ResNet blocks of the 32px flagship UNet;
+# the head block has no time MLP (zero time rows)
+RB_SITES = [("enc0", 32, 64, 64), ("enc1", 16, 64, 128), ("enc2", 8, 128, 256),
+            ("enc3", 4, 256, 512), ("mid0", 2, 512, 512), ("mid1", 2, 512, 512),
+            ("dec0", 4, 768, 256), ("dec1", 8, 384, 128), ("dec2", 16, 192, 64),
+            ("dec3", 32, 128, 64), ("head", 32, 64, 64)]
+# |kernel - plain| <= tol x max|plain|.  fp32: summation order only, over up
+# to 9 x 768 products.  bf16: the kernel rounds at the TPU kernel's points
+# (SiLU in fp32, conv2 + bias + shortcut in fp32), the plain version at the
+# XLA path's (SiLU in bf16, each conv output in bf16), a few bf16 spacings.
+RB_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
-
-
-def card() -> str:
-    r = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return r.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() in ms, from CUDA events around `iters` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def site_inputs(b: int, n: int, c: int, dtype: torch.dtype, seed: int):
@@ -321,7 +323,7 @@ def seeded_pair(config, seed: int = 0):
 
 
 def check_unet(config) -> None:
-    """Phase 4: parameter count; kernel-path vs plain-path forward."""
+    """Phase 5: parameter count; kernel-path vs plain-path forward."""
     g = torch.Generator().manual_seed(1)
     x = torch.randn(20, 32, 32, 3, generator=g).to(DEV)
     t = torch.randint(0, T_STEPS, (20,), generator=g).to(DEV)
@@ -359,6 +361,121 @@ def check_trajectory(config) -> None:
     print(f"10-step fp32 CFG trajectory B=2: kernel path vs plain path max_abs_err {err:.3e}")
     if not (torch.isfinite(out[0]).all() and err <= UNET_FP32_TOL):
         raise AssertionError(f"trajectory err {err}")
+
+
+def rb_inputs(b: int, site: str, side: int, cin: int, cout: int, dtype, seed: int):
+    """The block's arguments at one site (probe13's recipe); zero time rows
+    for the head block.  Returns (args, keyword arguments)."""
+    args, use_sc = probe13.site_args(b, side, cin, cout, dtype, DEV, seed=seed)
+    if site == "head":
+        args = (args[0], torch.zeros_like(args[1])) + args[2:]
+    return args, dict(groups=8, compute_dtype=dtype, use_shortcut=use_sc)
+
+
+def check_resnet_block(tag: str) -> dict:
+    """Phase 8: the ResNet-block kernel vs plain at the 11 flagship sites
+    (2B=20, 2B=128), probe13's sites (2B=256) and the 64px site (2B=4);
+    timings at 2B=128 bf16."""
+    cases = [(b, site) for b in (20, 128) for site in RB_SITES]
+    cases += [(probe13.B, site) for site in probe13.SITES]
+    cases += [(4, ("64px-l0", 64, 64, 64))]
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, (site, side, cin, cout) in cases:
+            args, kw = rb_inputs(b, site, side, cin, cout, dtype, seed=b + side + cin + cout)
+            with torch.inference_mode():
+                got = rb.resnet_block(*args, **kw)
+                again = rb.resnet_block(*args, **kw)
+                want = rb.resnet_block_torch(*args, **kw)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            print(f"resnet kernel vs plain {site} ({side}x{side}, {cin}->{cout}) 2B={b} "
+                  f"{str(dtype)[6:]}: max_abs_err {err:.3e}, max|plain| {scale:.3e} "
+                  f"(tol {RB_TOL[dtype]:g} x max|plain|, ratio {err / scale:.2e})")
+            if not (torch.isfinite(got).all() and err <= RB_TOL[dtype] * scale):
+                raise AssertionError(f"resnet {site} 2B={b} {dtype}: err {err}, scale {scale}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"resnet {site} 2B={b} {dtype}: not deterministic")
+            worst[dtype] = max(worst[dtype], err / scale)
+
+    ms = plain_ms = 0.0
+    for i, (site, side, cin, cout) in enumerate(RB_SITES):
+        args, kw = rb_inputs(128, site, side, cin, cout, torch.bfloat16, seed=i)
+        with torch.inference_mode():
+            k = cuda_ms(lambda: rb.resnet_block(*args, **kw), iters=10)
+            t = cuda_ms(lambda: rb.resnet_block_torch(*args, **kw), iters=10)
+        ms, plain_ms = ms + k, plain_ms + t
+        print(f"time resnet {site} ({side}x{side}, {cin}->{cout}) 2B=128 bf16: kernel "
+              f"{k:.4f} ms, plain {t:.4f} ms, kernel/plain {k / t:.2f} [{tag}]")
+    print(f"time resnet all 11 sites 2B=128 bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+          f"[{tag}]")
+    return {"max_rel_err": worst[torch.bfloat16], "max_rel_err_fp32": worst[torch.float32],
+            "ms": ms, "plain_ms": plain_ms}
+
+
+def check_resnet_block_fn() -> int:
+    """Phase 8, gradients: ResNetBlockFn at B=8 on the decoder site
+    (16x16, 192->64), fp32: the kernel forward and the recomputed backward
+    against plain autograd of resnet_block_torch; returns the launches."""
+    args, kw = rb_inputs(8, "dec2", 16, 192, 64, torch.float32, seed=7)
+    dy = torch.randn(8, 16, 16, 64, generator=torch.Generator().manual_seed(8)).to(DEV)
+    grads = []
+    rb.resnet_block.launches = 0
+    for fn in (rb.resnet_block, rb.resnet_block_torch):
+        leaves = [a.detach().clone().requires_grad_() for a in args]
+        y = fn(*leaves, **kw)
+        (y * dy).sum().backward()
+        grads.append([leaf.grad for leaf in leaves])
+    torch.cuda.synchronize()
+    launches = rb.resnet_block.launches
+    names = ("x", "temb", "n1s", "n1b", "w1", "b1", "n2s", "n2b", "w2", "b2", "ws", "bs")
+    worst = 0.0
+    for name, g, w in zip(names, *grads):
+        rel = ((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+        worst = max(worst, rel)
+        if not torch.isfinite(g).all() or rel > RB_TOL[torch.float32]:
+            raise AssertionError(f"ResNetBlockFn grad {name}: {rel} x max|grad|")
+    print(f"ResNetBlockFn B=8 (16x16, 192->64) fp32: gradients of x, temb and the 10 "
+          f"weights vs plain autograd, worst max_abs_err / max|grad| {worst:.3e}; kernel "
+          f"launches {launches} (want 1)")
+    if launches != 1:
+        raise AssertionError(f"ResNetBlockFn launched the kernel {launches} times")
+    return launches
+
+
+def check_probes() -> dict:
+    """Phase 9: the three probe entry points, counts set to 0 before each."""
+    rb.resnet_block.launches = 0
+    rows13 = probe13.main(["--iters", "5"])
+    launches13 = rb.resnet_block.launches
+    for r in rows13:
+        if r["launches"] < 1 or not r["rel_err"] <= RB_TOL[torch.bfloat16]:
+            raise AssertionError(f"probe13 {r}")
+
+    probe13b.probe_block.launches = 0
+    rows13b = probe13b.main(["--iters", "5"])
+    launches13b = probe13b.probe_block.launches
+    bad = [r["mode"] for r in rows13b if not r["ok"]]
+    if bad or launches13b < len(probe13b.MODES):
+        raise AssertionError(f"probe13b modes {bad} off their plain versions, "
+                             f"{launches13b} launches")
+    args, _ = probe13.site_args(8, 32, 64, 64, torch.bfloat16, DEV, seed=3)
+    with torch.inference_mode():
+        full = probe13b.probe_block("full", *args[:10])
+        prod = rb.resnet_block(*args, groups=8, compute_dtype=torch.bfloat16)
+    if not torch.equal(full, prod):
+        raise AssertionError("probe13b full mode differs from the production kernel")
+    print("probe13b full mode bit-identical to the production ResNet-block kernel (B=8)")
+
+    probe7.stage_block.launches = 0
+    rows7 = probe7.main(["--iters", "5"])
+    launches7 = probe7.stage_block.launches
+    bad = [r["stage"] for r in rows7 if not r["ok"]]
+    if bad or launches7 < len(probe7.STAGES):
+        raise AssertionError(f"probe7 stages {bad} failed, {launches7} launches")
+    return {"probe13": (rows13, launches13), "probe13b": (rows13b, launches13b),
+            "probe7": (rows7, launches7)}
 
 
 def main() -> None:
@@ -446,7 +563,18 @@ def main() -> None:
     phase("7 the training slice: train.run, 3 epochs, B=64, bf16")
     training = check_training(config, tag)
 
-    phase("8 result")
+    phase("8 the ResNet-block kernel vs plain, and ResNetBlockFn")
+    t_rb = time.perf_counter()
+    resnet = check_resnet_block(tag)
+    fn_launches = check_resnet_block_fn()
+
+    phase("9 the probes: probe13, probe13b, probe7")
+    probes = check_probes()
+    print(f"phases 8-9 wall time {time.perf_counter() - t_rb:.1f} s")
+    rows13b, launches13b = probes["probe13b"]
+    rows7, launches7 = probes["probe7"]
+
+    phase("10 result")
     print(json.dumps({"kernels": [{
         "name": "linear_attention_fwd",
         "route": "cuda",
@@ -474,6 +602,42 @@ def main() -> None:
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],
         "timed": "sum over the 8 sites, one backward (3 kernels) each, B=64, bf16",
+    }, {
+        "name": "resnet_block_fwd",
+        "route": "cuda",
+        "source": "ldm_tpu_torch/csrc/resnet_block_fwd.cu",
+        "replaces": "ldm_tpu/ops/resnet_block.py:133",
+        "launches": probes["probe13"][1],
+        "launches_by_path": {"probe13": probes["probe13"][1], "resnet_block_fn": fn_launches},
+        "max_abs_err": resnet["max_rel_err"],
+        "max_abs_err_fp32": resnet["max_rel_err_fp32"],
+        "err_unit": "max_abs_err / max|plain|",
+        "ms": resnet["ms"],
+        "plain_ms": resnet["plain_ms"],
+        "timed": "sum over the 11 ResNet sites, one block (4 kernels) each, 2B=128, bf16",
+    }, {
+        "name": "resnet_block_probe",
+        "route": "cuda",
+        "source": "ldm_tpu_torch/csrc/resnet_block_probe.cu",
+        "replaces": "perf/probe13b.py:40",
+        "launches": launches13b,
+        "max_abs_err": max(r["rel_err"] for r in rows13b),
+        "err_unit": "max_abs_err / max|plain|, worst mode",
+        "ms": rows13b[-1]["ms"],
+        "plain_ms": rows13b[-1]["plain_ms"],
+        "ms_by_mode": {r["mode"]: r["ms"] for r in rows13b},
+        "timed": "mode full, (1024, 64->64), 2B=256, bf16",
+    }, {
+        "name": "linear_attention_fwd_stage",
+        "route": "cuda",
+        "source": "ldm_tpu_torch/csrc/linear_attention_fwd.cu",
+        "replaces": "perf/probe7.py:30",
+        "launches": launches7,
+        "max_abs_err": max(r["max_abs_err"] for r in rows7),
+        "ms": rows7[-1]["ms"],
+        "plain_ms": rows7[-1]["plain_ms"],
+        "ms_by_stage": {r["stage"]: r["ms"] for r in rows7},
+        "timed": "stage 6 (the whole block), (1024, 64), 2B=128, bf16",
     }], "train_step_ms": training["step_ms"]}))
     print(card())
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,9 @@
 // Shared device helpers of the fused linear-attention kernels
-// (linear_attention_fwd.cu, linear_attention_bwd.cu): the block shape,
-// conversions between the compute type T (float or bf16) and fp32, warp and
-// CTA reductions in a fixed order, and the register-tiled row-tile matmul.
+// (linear_attention_fwd.cu, linear_attention_bwd.cu): the block shape, the
+// CTA reduction in a fixed order and the register-tiled row-tile matmul.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "numeric.cuh"
 
 namespace {
 
@@ -15,32 +13,6 @@ constexpr int CPT = 4;        // columns per thread in a tile matmul
 constexpr int HIDDEN = 128;   // heads * dim_head
 constexpr int DH = 32;        // dim_head
 constexpr int QKV = 3 * HIDDEN;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch and XLA
-}
-
-// Round an fp32 value to T and back: the plain version's cast points.
-template <typename T> __device__ __forceinline__ float rnd(float v) {
-  return to_f(from_f<T>(v));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 // Sum of one value per thread over the CTA, in a fixed order; every thread
 // gets the same result.  `red` holds NT/32 floats.

@@ -52,13 +52,68 @@
 //     small batches, where one CTA per item leaves most SMs idle) are
 //     later work.
 //
+// STAGE (1-6, compile time) also builds the stage ablation that replaces
+// the TPU probe kernel `_kernel` of perf/probe7.py:30 (launched at :128): the
+// kernel cut after stage 1 GN1, 2 + qkv, 3 + q softmax, 4 + k path (k's max,
+// exp and sum; the ctx products are skipped), 5 + ctx / ctx@Wout / out, and
+// 6 the whole block (+ GN2 and the residual).  Stages 1-5 write
+// y = x + (what the stage has made), so each depends on every stage it
+// keeps; STAGE = 6 is the production kernel, and the `if constexpr` cuts
+// leave its code as it was.
+//
 // Plain C interface, loaded with ctypes; returns cudaGetLastError().
 
 #include "linear_attention_common.cuh"
 
 namespace {
 
+constexpr float SCALE = 0.17677669529663688f;  // dim_head ** -0.5, correctly rounded
+
+// q softmax of rows n0 .. n0 + rv of the qkv scratch, per head over its 32
+// lanes (shifted by the row max over all 128), times SCALE, into `tile`
+// (rv x 128, fp32 values of T): one warp a row.
 template <typename T>
+__device__ __forceinline__ void q_softmax_tile(const T* __restrict__ qkv, int n0, int rv,
+                                               float* tile) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < rv; r += NT / 32) {
+    const T* row = qkv + (size_t)(n0 + r) * QKV;
+    float qv[4];
+#pragma unroll
+    for (int hh = 0; hh < 4; ++hh) qv[hh] = to_f(row[hh * DH + lane]);
+    const float m = warp_max(fmaxf(fmaxf(qv[0], qv[1]), fmaxf(qv[2], qv[3])));
+#pragma unroll
+    for (int hh = 0; hh < 4; ++hh) {
+      const float e = rnd<T>(expf(rnd<T>(qv[hh] - m)));
+      const float sum = warp_sum(e);
+      tile[r * HIDDEN + hh * DH + lane] = rnd<T>(e / sum * SCALE);
+    }
+  }
+}
+
+// Stages 3 and 4 of the ablation: y = x + qn + k + v, lane c % 128 of each,
+// with k replaced by kn = exp(k - kmax) / ksum when KN (stage 4).
+template <typename T, bool KN>
+__device__ void q_softmax_out(const T* __restrict__ xb, const T* __restrict__ qkv,
+                              const float* kmax, const float* ksum, T* __restrict__ yb,
+                              float* tile, int N, int C) {
+  for (int n0 = 0; n0 < N; n0 += TILE_R) {
+    const int rv = min(TILE_R, N - n0);
+    __syncthreads();
+    q_softmax_tile<T>(qkv, n0, rv, tile);
+    __syncthreads();
+    for (int i = threadIdx.x; i < rv * C; i += NT) {
+      const int r = i / C, j = (i % C) % HIDDEN;
+      const T* row = qkv + (size_t)(n0 + r) * QKV;
+      float kv = to_f(row[HIDDEN + j]);
+      if constexpr (KN) kv = rnd<T>(rnd<T>(expf(rnd<T>(kv - kmax[j]))) / ksum[j]);
+      const size_t e = (size_t)n0 * C + i;
+      yb[e] = from_f<T>(to_f(xb[e]) + tile[r * HIDDEN + j] + kv + to_f(row[2 * HIDDEN + j]));
+    }
+  }
+}
+
+template <typename T, int STAGE>
 __global__ void __launch_bounds__(NT)
 lin_attn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ wqkv,
                     const float* __restrict__ wout, const float* __restrict__ bout,
@@ -94,6 +149,14 @@ lin_attn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ wqkv,
     s = fmaf(d, d, s);
   }
   const float rstd1 = rsqrtf(block_sum(s, red) / fnc + eps);
+  if constexpr (STAGE == 1) {  // y = x + GN1(x)
+    for (size_t i = tid; i < nc; i += NT) {
+      const int c = (int)(i % C);
+      const float xv = to_f(xb[i]);
+      yb[i] = from_f<T>(xv + rnd<T>((xv - mean1) * rstd1 * g1s[c] + g1b[c]));
+    }
+    return;
+  }
 
   // ---- pass 2: h = GN1(x) tile by tile, qkv = h @ Wqkv into the scratch
   for (int n0 = 0; n0 < N; n0 += TILE_R) {
@@ -110,6 +173,19 @@ lin_attn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ wqkv,
     });
   }
   __syncthreads();  // scratch writes visible to the whole CTA
+  if constexpr (STAGE == 2) {  // y = x + q + k + v (lane c % 128 of each)
+    for (size_t i = tid; i < nc; i += NT) {
+      const int j = (int)(i % C) % HIDDEN;
+      const T* row = qkv + (i / C) * QKV;
+      yb[i] = from_f<T>(to_f(xb[i]) + to_f(row[j]) + to_f(row[HIDDEN + j]) +
+                        to_f(row[2 * HIDDEN + j]));
+    }
+    return;
+  }
+  if constexpr (STAGE == 3) {  // y = x + qn + k + v
+    q_softmax_out<T, false>(xb, qkv, nullptr, nullptr, yb, tile, N, C);
+    return;
+  }
 
   // k's per-column max over the item's N rows: two row-parity halves
   {
@@ -143,16 +219,18 @@ lin_attn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ wqkv,
     }
     __syncthreads();
     const int kcol = ch * DH + cd_;
-    for (int r = 0; r < rv; ++r) {
-      const float kv = ke_t[r * HIDDEN + kcol];
-      const float4* vr = reinterpret_cast<const float4*>(v_t + r * HIDDEN + ch * DH + ce0);
+    if constexpr (STAGE >= 5) {  // the ctx products: stage 5 on
+      for (int r = 0; r < rv; ++r) {
+        const float kv = ke_t[r * HIDDEN + kcol];
+        const float4* vr = reinterpret_cast<const float4*>(v_t + r * HIDDEN + ch * DH + ce0);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 v4 = vr[i];
-        cacc[4 * i] = fmaf(kv, v4.x, cacc[4 * i]);
-        cacc[4 * i + 1] = fmaf(kv, v4.y, cacc[4 * i + 1]);
-        cacc[4 * i + 2] = fmaf(kv, v4.z, cacc[4 * i + 2]);
-        cacc[4 * i + 3] = fmaf(kv, v4.w, cacc[4 * i + 3]);
+        for (int i = 0; i < 4; ++i) {
+          const float4 v4 = vr[i];
+          cacc[4 * i] = fmaf(kv, v4.x, cacc[4 * i]);
+          cacc[4 * i + 1] = fmaf(kv, v4.y, cacc[4 * i + 1]);
+          cacc[4 * i + 2] = fmaf(kv, v4.z, cacc[4 * i + 2]);
+          cacc[4 * i + 3] = fmaf(kv, v4.w, cacc[4 * i + 3]);
+        }
       }
     }
     if (tid < HIDDEN)
@@ -160,6 +238,10 @@ lin_attn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ wqkv,
   }
   if (tid < HIDDEN) ksum[tid] = ks;
   __syncthreads();
+  if constexpr (STAGE == 4) {  // y = x + qn + kn + v
+    q_softmax_out<T, true>(xb, qkv, kmax, ksum, yb, tile, N, C);
+    return;
+  }
   {
     // ctx rounded to T, times 1/k_sum of its row, rounded to T again
     const float inv = 1.f / ksum[ch * DH + cd_];
@@ -182,25 +264,11 @@ lin_attn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ wqkv,
   __syncthreads();
 
   // ---- pass 4: q softmax per head, out = q @ ctx_w + bout into y
-  const float scale = 0.17677669529663688f;  // dim_head ** -0.5, correctly rounded
-  const int warp = tid >> 5, lane = tid & 31;
   float s2 = 0.f;
   for (int n0 = 0; n0 < N; n0 += TILE_R) {
     const int rv = min(TILE_R, N - n0);
     __syncthreads();
-    for (int r = warp; r < rv; r += NT / 32) {
-      const T* row = qkv + (size_t)(n0 + r) * QKV;
-      float qv[4];
-#pragma unroll
-      for (int hh = 0; hh < 4; ++hh) qv[hh] = to_f(row[hh * DH + lane]);
-      const float m = warp_max(fmaxf(fmaxf(qv[0], qv[1]), fmaxf(qv[2], qv[3])));
-#pragma unroll
-      for (int hh = 0; hh < 4; ++hh) {
-        const float e = rnd<T>(expf(rnd<T>(qv[hh] - m)));
-        const float sum = warp_sum(e);
-        tile[r * HIDDEN + hh * DH + lane] = rnd<T>(e / sum * scale);
-      }
-    }
+    q_softmax_tile<T>(qkv, n0, rv, tile);
     __syncthreads();
     tile_matmul<4, T>(tile, HIDDEN, HIDDEN, cw, C, C, rv, [&](int r, int c, float acc) {
       const float o = rnd<T>(rnd<T>(acc) + rnd<T>(bout[c]));
@@ -211,6 +279,10 @@ lin_attn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ wqkv,
   // block_sum's leading barrier also orders pass 4's writes of y before the
   // reads below
   const float mean2 = block_sum(s2, red) / fnc;
+  if constexpr (STAGE == 5) {  // y = x + out
+    for (size_t i = tid; i < nc; i += NT) yb[i] = from_f<T>(to_f(xb[i]) + to_f(yb[i]));
+    return;
+  }
 
   // ---- pass 5: GN2 variance, then y = x + GN2(out), in place
   s = 0.f;
@@ -236,28 +308,28 @@ constexpr size_t smem_bytes(int C) {
 
 // Raise the kernel's dynamic shared-memory limit to what MAX_C takes, once
 // per device (the attribute belongs to the device's context), not per launch.
-template <typename T> cudaError_t raise_smem_limit() {
+template <typename T, int STAGE> cudaError_t raise_smem_limit() {
   static bool raised[MAX_DEVICES] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < MAX_DEVICES && raised[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(lin_attn_fwd_kernel<T>,
+  err = cudaFuncSetAttribute(lin_attn_fwd_kernel<T, STAGE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_bytes(MAX_C));
   if (err == cudaSuccess && dev < MAX_DEVICES) raised[dev] = true;
   return err;
 }
 
-template <typename T>
+template <typename T, int STAGE>
 int launch(const void* x, const float* wqkv, const float* wout, const float* bout,
            const float* g1s, const float* g1b, const float* g2s, const float* g2b,
            void* y, void* qkv_scratch, void* cw_scratch, int B, int N, int C,
            float eps, cudaStream_t stream) {
   if (C > MAX_C) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = raise_smem_limit<T>();
+  const cudaError_t err = raise_smem_limit<T, STAGE>();
   if (err != cudaSuccess) return (int)err;
-  lin_attn_fwd_kernel<T><<<B, NT, smem_bytes(C), stream>>>(
+  lin_attn_fwd_kernel<T, STAGE><<<B, NT, smem_bytes(C), stream>>>(
       static_cast<const T*>(x), wqkv, wout, bout, g1s, g1b, g2s, g2b,
       static_cast<T*>(y), static_cast<T*>(qkv_scratch), static_cast<T*>(cw_scratch),
       N, C, eps);
@@ -279,10 +351,50 @@ extern "C" int ldm_lin_attn_fwd(int dtype, const void* x, const float* wqkv,
                                 int C, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(x, wqkv, wout, bout, g1s, g1b, g2s, g2b, y, qkv_scratch,
-                         cw_scratch, B, N, C, eps, s);
+    return launch<float, 6>(x, wqkv, wout, bout, g1s, g1b, g2s, g2b, y, qkv_scratch,
+                            cw_scratch, B, N, C, eps, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, wqkv, wout, bout, g1s, g1b, g2s, g2b, y,
-                                 qkv_scratch, cw_scratch, B, N, C, eps, s);
+    return launch<__nv_bfloat16, 6>(x, wqkv, wout, bout, g1s, g1b, g2s, g2b, y,
+                                    qkv_scratch, cw_scratch, B, N, C, eps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+namespace {
+
+template <typename T>
+int launch_stage(int stage, const void* x, const float* wqkv, const float* wout,
+                 const float* bout, const float* g1s, const float* g1b, const float* g2s,
+                 const float* g2b, void* y, void* qkv, void* cw, int B, int N, int C,
+                 float eps, cudaStream_t s) {
+#define LA_ARGS x, wqkv, wout, bout, g1s, g1b, g2s, g2b, y, qkv, cw, B, N, C, eps, s
+  switch (stage) {
+    case 1: return launch<T, 1>(LA_ARGS);
+    case 2: return launch<T, 2>(LA_ARGS);
+    case 3: return launch<T, 3>(LA_ARGS);
+    case 4: return launch<T, 4>(LA_ARGS);
+    case 5: return launch<T, 5>(LA_ARGS);
+    case 6: return launch<T, 6>(LA_ARGS);
+  }
+#undef LA_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// The stage ablation (perf/probe7.py's stages 1-6): stage 6 is
+// ldm_lin_attn_fwd itself; the other arguments as ldm_lin_attn_fwd's.
+extern "C" int ldm_lin_attn_fwd_stage(int stage, int dtype, const void* x, const float* wqkv,
+                                      const float* wout, const float* bout,
+                                      const float* g1s, const float* g1b,
+                                      const float* g2s, const float* g2b, void* y,
+                                      void* qkv_scratch, void* cw_scratch, int B, int N,
+                                      int C, float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_stage<float>(stage, x, wqkv, wout, bout, g1s, g1b, g2s, g2b, y,
+                               qkv_scratch, cw_scratch, B, N, C, eps, s);
+  if (dtype == 1)
+    return launch_stage<__nv_bfloat16>(stage, x, wqkv, wout, bout, g1s, g1b, g2s, g2b, y,
+                                       qkv_scratch, cw_scratch, B, N, C, eps, s);
   return (int)cudaErrorInvalidValue;
 }

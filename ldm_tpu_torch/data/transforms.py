@@ -1,0 +1,51 @@
+"""Image resize without JAX (the port of ldm_tpu/data/transforms.py:37-52).
+
+``ldm_tpu.data.transforms.resize_images`` resizes once at dataset load with
+``jax.image.resize(method="bilinear")``, which imports JAX; the machine with
+the card has none.  This module computes the same resize in numpy.
+
+``jax.image.resize`` is a separable scale-and-translate: for each spatial
+axis a weight matrix (in, out), contracted with the image in float32.  Per
+output pixel o, the sample point in input coordinates is the half-pixel
+centre ``(o + 0.5) / scale - 0.5``; input pixel i weighs
+``max(0, 1 - |s - i| / k)`` with ``k = max(1 / scale, 1)`` (the triangle
+kernel, widened by the scale when downsampling: JAX's ``antialias=True``);
+each column is divided by its sum (renormalised at the borders, where
+``F.interpolate(align_corners=False)`` clamps instead).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def bilinear_weights(in_size: int, out_size: int) -> np.ndarray:
+    """The (in_size, out_size) float32 weight matrix of one axis, as
+    ``jax._src.image.scale.compute_weight_mat`` builds it for the triangle
+    kernel with antialiasing and no translation."""
+    f32 = np.float32
+    scale = f32(out_size) / f32(in_size)
+    inv_scale = f32(1.0) / scale
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample = (np.arange(out_size, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(in_size, dtype=f32)[:, None]) / kernel_scale
+    w = np.maximum(f32(0.0), f32(1.0) - x)
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    ok = np.abs(total) > 1000.0 * np.finfo(np.float32).eps
+    w = np.where(ok, w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+
+
+def resize_images(images: np.ndarray, size: int) -> np.ndarray:
+    """Resize an NHWC uint8 batch to (size, size), bilinear, on the host once
+    (the same signature and result as ``ldm_tpu.data.transforms.resize_images``)."""
+    if images.shape[1] == size and images.shape[2] == size:
+        return images
+    out = images.astype(np.float32)
+    for axis in (1, 2):
+        if out.shape[axis] == size:
+            continue
+        w = bilinear_weights(out.shape[axis], size)
+        out = np.moveaxis(np.tensordot(out, w, axes=([axis], [0])), -1, axis)
+    return np.clip(out, 0, 255).astype(np.uint8)

@@ -134,6 +134,9 @@ def load() -> types.SimpleNamespace:
     # ctx@Wout scratch, B, N, C, eps, stream
     fwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, f, p]
     fwd.restype = i
+    stage = libs["linear_attention_fwd.cu"].ldm_lin_attn_fwd_stage
+    stage.argtypes = [i] + fwd.argtypes  # stage, then the forward's arguments
+    stage.restype = i
     bwd_lib = libs["linear_attention_bwd.cu"]
     splits = bwd_lib.ldm_lin_attn_bwd_splits
     splits.argtypes = [i, i, i]  # B, N, C
@@ -143,5 +146,14 @@ def load() -> types.SimpleNamespace:
     # dwout, dvec, 10 scratch buffers, B, N, C, splits, eps, stream
     bwd.argtypes = [i] + [p] * 24 + [i, i, i, i, f, p]
     bwd.restype = i
-    return types.SimpleNamespace(ldm_lin_attn_fwd=fwd, ldm_lin_attn_bwd=bwd,
-                                 ldm_lin_attn_bwd_splits=splits)
+    rb = libs["resnet_block_fwd.cu"].ldm_resnet_block_fwd
+    # dtype, x, temb, n1s, n1b, w1, b1, n2s, n2b, w2, b2, ws, bs, y, h1 scratch,
+    # stats1, stats2, B, H, W, C_in, C_out, groups, eps, stream
+    rb.argtypes = [i] + [p] * 16 + [i] * 6 + [f, p]
+    rb.restype = i
+    rb_probe = libs["resnet_block_probe.cu"].ldm_resnet_block_probe
+    rb_probe.argtypes = [i] + rb.argtypes  # mode, then the block's arguments
+    rb_probe.restype = i
+    return types.SimpleNamespace(ldm_lin_attn_fwd=fwd, ldm_lin_attn_fwd_stage=stage,
+                                 ldm_lin_attn_bwd=bwd, ldm_lin_attn_bwd_splits=splits,
+                                 ldm_resnet_block_fwd=rb, ldm_resnet_block_probe=rb_probe)

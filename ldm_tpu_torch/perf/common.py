@@ -1,0 +1,42 @@
+"""What the probes share: the card check and CUDA-event timing."""
+
+from __future__ import annotations
+
+import subprocess
+
+import torch
+
+
+def require_cuda(name: str) -> torch.device:
+    """The card, or exit: a probe measures the card and has no CPU result.
+    Products in fp32 stay fp32 (TF32 off), as the plain versions assume."""
+    if not torch.cuda.is_available():
+        raise SystemExit(f"{name}: torch.cuda.is_available() is False; "
+                         "this probe runs only on a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    r = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return r.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() in ms, from CUDA events around `iters` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters

@@ -5,9 +5,10 @@ config -> data loaders -> UNet + diffusion -> DiffusionTrainer -> train().
     python -m ldm_tpu_torch.train configs/pixel_diffusion_model_cifar10.yaml \\
         [--epochs N] [--resume] [--device cuda] [--strict-data]
 
-Data come from the JAX package's JAX-free loaders (``ldm_tpu.data``): when the
-dataset's files are not under the config's ``data_path`` they fall back to
-seeded synthetic images at the config's shape, unless ``--strict-data``.
+Data come from ``ldm_tpu_torch.data`` (the JAX package's numpy readers and
+loaders, resized without JAX): when the dataset's files are not under the
+config's ``data_path`` they fall back to seeded synthetic images at the
+config's shape, unless ``--strict-data``.
 The UNet's initial weights are a seeded random init (the config's seed).
 Metrics go to ``<workdir>/<type>/<project>/metrics.jsonl``, checkpoints to
 its ``checkpoints/`` and sample grids to its ``results/``.
@@ -22,7 +23,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from ldm_tpu.config import Config
-from ldm_tpu.data.loader import create_dataloaders
+from ldm_tpu_torch.data.loader import create_dataloaders
 from ldm_tpu_torch.factory import build_diffusion, build_model, load_config
 from ldm_tpu_torch.training.diffusion_trainer import DiffusionTrainer
 

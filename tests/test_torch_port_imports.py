@@ -30,7 +30,11 @@ def test_port_modules_are_found():
                  "ldm_tpu_torch.training.diffusion_trainer",
                  "ldm_tpu_torch.training.checkpoint",
                  "ldm_tpu_torch.training.early_stopping",
-                 "ldm_tpu_torch.utils.logging"):
+                 "ldm_tpu_torch.utils.logging", "ldm_tpu_torch.ops.resnet_block",
+                 "ldm_tpu_torch.data.transforms", "ldm_tpu_torch.data.datasets",
+                 "ldm_tpu_torch.data.loader", "ldm_tpu_torch.perf.common",
+                 "ldm_tpu_torch.perf.probe13", "ldm_tpu_torch.perf.probe13b",
+                 "ldm_tpu_torch.perf.probe7"):
         assert want in mods
 
 
