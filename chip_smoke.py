@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (ldm_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Runs from the root of a checkout and drives the port's two main paths at the
 flagship width (configs/pixel_diffusion_model_cifar10.yaml, random weights
@@ -12,26 +12,34 @@ printing its own lines; any failure raises and exits nonzero:
 
 1. device: a CUDA card or exit; its name and power limit; TF32 off.
 2. build: nvcc builds every kernel source of ldm_tpu_torch/csrc/, one
-   compiler per source, started together; ptxas registers and spills.
+   compiler per source, started together; ptxas registers, shared memory
+   and spills per kernel; from cuobjdump's SASS, the tensor-core (HMMA) and
+   atomic instructions of each linear-attention kernel: the bf16 kernels
+   must have the first and none of the second.
 3. forward kernel vs plain: at the 8 attention sites of the 32px UNet at
    2B=20 and 2B=128, and at the 64px and 128px sites at 2B=4; fp32 (<= 1e-4)
-   and bf16 (<= 3e-2 + one bf16 spacing of the output); both timed with CUDA
-   events at 2B=128 bf16.
+   and bf16 (<= 3e-2 + one bf16 spacing of the output); each line names
+   the path its plan took (cluster: the item kept in shared memory; tiled:
+   through global scratch) and the CTAs an item; timed at 2B=128 bf16, the
+   kernel and the plain version alike by CUDA-graph replay (device time, no
+   host in it); the bound from the shapes.
 4. backward kernels vs plain: the 8 sites at B=64 and the 64px sites at
    B=4, fp32 and bf16, each of the 8 grads within its stated tolerance, two
-   launches bit-identical; both timed at B=64 bf16.
+   launches bit-identical; timed at B=64 bf16 as the forward.
 5. full-width UNet: 20,350,915 parameters; kernel-path vs plain-path
    forward (fp32 <= 1e-3; the bf16 difference is printed) and loss
    gradients at B=8 (fp32: every grad within 1e-3 x its leaf's max; every
    to_qkv / to_out grad non-zero; the bf16 difference is printed).
 6. the sampling slice: generate.main at T=400, CFG 3, B=10 (2B=20), bf16;
-   the forward kernel must launch exactly 8 x 400 times; uint8 (10, 32, 32,
-   3) images from a finite x0; a 10-step fp32 trajectory through the kernel
+   every kernel's count is set to 0 just before and read just after: the
+   forward kernel must launch exactly 8 x 400 times, the others not at all;
+   uint8 (10, 32, 32, 3) images from a finite x0; a 10-step fp32 trajectory through the kernel
    against the plain path; ms/step of 20 sampler steps at B=64 (median of 5
    runs).
 7. the training slice: train.run for 3 epochs of 9 steps at B=64, bf16, on
    the synthetic fallback data, with the T=400 sample grid at epoch 2; the
-   backward kernels must launch exactly 8 x (train steps) times; finite
+   backward kernels must launch exactly 8 x (train steps) times (all counts
+   set to 0 before, read after, again around one counted train step); finite
    losses, the last epoch's below the first's; checkpoint and metrics files;
    a --resume run restores the step; ms/step of the train step at B=64
    (median of 5 runs of 10 steps).
@@ -47,17 +55,23 @@ printing its own lines; any failure raises and exits nonzero:
    ``perf.probe13b.main`` (every mode vs its plain version; ``full`` bit
    for bit the production kernel) and ``perf.probe7.main`` (stages 1-5 vs
    plain, stage 6 bit for bit the production forward kernel).
-10. one JSON line of per-kernel results, the card's line, and last
-   ``{"ok": true, "device": {...}}``.
+10. with ``--parent DIR`` (another commit's tree, unpacked): that tree's
+   linear-attention kernels and this one's timed in turns
+   (``perf.compare_parent``); skipped, and said so, without it.
+11. one JSON line of per-kernel results (each with its launches on the main
+   paths, its time, the plain version's and its bound), the card's line,
+   and last ``{"ok": true, "device": {...}}``.
 
 No CPU fallback: without a card it exits nonzero before printing a result.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
+import subprocess
 import sys
 import tempfile
 import time
@@ -71,8 +85,8 @@ from ldm_tpu_torch.factory import build_model, load_config
 from ldm_tpu_torch.ops import build
 from ldm_tpu_torch.ops import linear_attention as la
 from ldm_tpu_torch.ops import resnet_block as rb
-from ldm_tpu_torch.perf import probe7, probe13, probe13b
-from ldm_tpu_torch.perf.common import card, cuda_ms
+from ldm_tpu_torch.perf import compare_parent, probe7, probe13, probe13b
+from ldm_tpu_torch.perf.common import card, cuda_graph_ms, cuda_ms
 
 FLAGSHIP = "configs/pixel_diffusion_model_cifar10.yaml"
 N_PARAMS = 20_350_915
@@ -103,6 +117,9 @@ TRAIN_B = 64
 SYNTHETIC_SIZE = 640
 T_STEPS = 400
 DEV = torch.device("cuda")
+# the H100's published peaks (SXM, dense, at its full 700 W): the bounds' rates
+PEAK_BYTES = 3.35e12
+PEAK_BF16 = 989e12
 # (site, side, C_in, C_out) of the 11 ResNet blocks of the 32px flagship UNet;
 # the head block has no time MLP (zero time rows)
 RB_SITES = [("enc0", 32, 64, 64), ("enc1", 16, 64, 128), ("enc2", 8, 128, 256),
@@ -116,8 +133,88 @@ RB_SITES = [("enc0", 32, 64, 64), ("enc1", 16, 64, 128), ("enc2", 8, 128, 256),
 RB_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
+# every kernel wrapper's count of launches, by the kernel's name in the result
+COUNTED = {"linear_attention_fwd": la.linear_attention_block,
+           "linear_attention_bwd": la.linear_attention_block_bwd,
+           "resnet_block_fwd": rb.resnet_block,
+           "resnet_block_probe": probe13b.probe_block,
+           "linear_attention_fwd_stage": probe7.stage_block}
+# the kernels neither main path runs (the ResNet block is wired into no UNet)
+OFF_PATH = ("resnet_block_fwd", "resnet_block_probe", "linear_attention_fwd_stage")
+
+
+def zero_counts() -> None:
+    for f in COUNTED.values():
+        f.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: f.launches for name, f in COUNTED.items()}
+
+
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: the bytes the function must move
+    (each input read once, each output written once) over its memory rate,
+    or its operations over its bf16 tensor-core rate, whichever is longer."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16 * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else
+            "operations", "bound_bytes": nbytes, "bound_flops": flops}
+
+
+def add_bounds(*bounds: dict) -> dict:
+    """The bound of several launches in a row: times, bytes and operations add."""
+    nbytes = sum(b["bound_bytes"] for b in bounds)
+    flops = sum(b["bound_flops"] for b in bounds)
+    ms = sum(b["bound_ms"] for b in bounds)
+    by = "bytes" if nbytes / PEAK_BYTES >= flops / PEAK_BF16 else "operations"
+    return {"bound_ms": ms, "bound_by": by, "bound_bytes": nbytes, "bound_flops": flops}
+
+
+def la_bound(b: int, n: int, c: int, backward: bool) -> dict:
+    """The linear-attention block's bound at (B, N, C) in bf16.  Bytes: x in
+    and y out (backward: x and dy in, dx out) in bf16, the fp32 parameters in
+    (backward: their grads out too).  Operations: the products alone, 2 per
+    multiply-add: h @ Wqkv, the four 32x32 blocks of k^T v, ctx @ Wout and
+    q @ ctx_w; backward: those again, then do @ cw^T, qn^T do, dcw @ Wout^T,
+    ctx^T dcw, v @ dctx^T, kn @ dctx, d[qkv] @ Wqkv^T and h^T d[qkv]."""
+    params = 4 * (c * 384 + 128 * c + 5 * c)
+    small = 2 * 128 * 32 * c  # a (128, 32) block product with a (32, C) weight, an item
+    fwd = 2 * n * c * 384 + 2 * n * 128 * 32 + small + 2 * n * 128 * c
+    if not backward:
+        return bound(2 * b * n * c * 2 + params, b * fwd)
+    bwd = fwd + 2 * (2 * n * 128 * c) + 2 * small + 2 * (2 * n * 128 * 32) + 2 * (2 * n * c * 384)
+    return bound(3 * b * n * c * 2 + 2 * params, b * bwd)
+
+
+def rb_bound(b: int, side: int, cin: int, cout: int) -> dict:
+    """The ResNet block's bound in bf16: x in, y out, the fp32 weights in;
+    two 3x3 convolutions and the 1x1 shortcut where C_in != C_out."""
+    px = b * side * side
+    weights = 4 * (9 * cin * cout + 9 * cout * cout + (cin * cout if cin != cout else 0))
+    flops = 2 * px * (9 * cin * cout + 9 * cout * cout + (cin * cout if cin != cout else 0))
+    return bound(px * (cin + cout) * 2 + weights, flops)
+
+
+def sass_counts(lib: str) -> dict:
+    """Per kernel of a built library, from cuobjdump's SASS: how many
+    tensor-core (HMMA) and atomic (ATOM, ATOMS, ATOMG, RED) instructions."""
+    exe = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    sass = subprocess.run([exe, "-sass", lib], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name, _, body = chunk.partition("\n")
+        ops = [ln.split("*/")[1].split()[0:2] for ln in body.splitlines()
+               if ln.lstrip().startswith("/*") and "*/" in ln and len(ln.split("*/")) > 2]
+        flat = [w for op in ops for w in op]
+        counts[name.strip()] = {
+            "hmma": sum(w.startswith("HMMA") for w in flat),
+            "atomics": sum(w.split(".")[0] in ("ATOM", "ATOMS", "ATOMG", "RED") for w in flat)}
+    return counts
 
 
 def site_inputs(b: int, n: int, c: int, dtype: torch.dtype, seed: int):
@@ -136,6 +233,7 @@ def check_kernel(tag: str) -> dict:
     """Phase 3: kernel vs plain at every site; timings at 2B=128 bf16."""
     kw = dict(heads=4, dim_head=32)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    paths = {}
     cases = [(b, site) for b in (20, 128) for site in SITES]
     cases += [(4, site) for site in LARGE_SITES]
     for dtype in (torch.float32, torch.bfloat16):
@@ -150,8 +248,11 @@ def check_kernel(tag: str) -> dict:
             err = diff.max().item()
             atol, rtol = TOL[dtype]
             excess = (diff - atol - rtol * want.float().abs()).max().item()
+            plan = la.plan_fwd(n, c, dtype)
+            paths.setdefault(plan.path, set()).add((n, c, str(dtype)[6:], plan.cs))
             print(f"kernel vs plain {site} (N={n}, C={c}) 2B={b} "
-                  f"{str(dtype)[6:]}: max_abs_err {err:.3e} "
+                  f"{str(dtype)[6:]} [{plan.path} path, {plan.cs} CTAs an item, "
+                  f"{plan.smem_bytes} B shared]: max_abs_err {err:.3e} "
                   f"(tol {atol:g} + {rtol:g}|y|, excess {excess:.3e})")
             if not (torch.isfinite(got).all() and excess <= 0):
                 raise AssertionError(f"{site} 2B={b} {dtype}: err {err}")
@@ -159,19 +260,30 @@ def check_kernel(tag: str) -> dict:
                 raise AssertionError(f"{site} 2B={b} {dtype}: not deterministic")
             worst[dtype] = max(worst[dtype], err)
 
+    for path, shapes in sorted(paths.items()):
+        print(f"forward {path} path took (N, C, type, CTAs an item): {sorted(shapes)}")
+    if set(paths) != {"cluster", "tiled"}:
+        raise AssertionError(f"the shapes took only the paths {sorted(paths)}")
+
     ms = plain_ms = 0.0
+    bounds = []
     for i, (site, n, c) in enumerate(SITES):
         x, p = site_inputs(128, n, c, torch.bfloat16, seed=i)
         kw_b = dict(kw, compute_dtype=torch.bfloat16)
         with torch.inference_mode():
-            k = cuda_ms(lambda: la.linear_attention_block(x, *p, **kw_b))
-            t = cuda_ms(lambda: la.linear_attention_block_torch(x, *p, **kw_b))
+            k = cuda_graph_ms(lambda: la.linear_attention_block(x, *p, **kw_b))
+            t = cuda_graph_ms(lambda: la.linear_attention_block_torch(x, *p, **kw_b))
+        bd = la_bound(128, n, c, backward=False)
+        bounds.append(bd)
         ms, plain_ms = ms + k, plain_ms + t
-        print(f"time {site} (N={n}, C={c}) 2B=128 bf16: kernel {k:.4f} ms, "
-              f"plain {t:.4f} ms, kernel/plain {k / t:.2f} [{tag}]")
-    print(f"time all 8 sites 2B=128 bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{tag}]")
+        print(f"time {site} (N={n}, C={c}) 2B=128 bf16: kernel {k:.4f} ms, bound "
+              f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}, kernel/bound "
+              f"{k / bd['bound_ms']:.1f}, plain {t:.4f} ms [{tag}]")
+    total = add_bounds(*bounds)
+    print(f"time all 8 sites 2B=128 bf16: kernel {ms:.4f} ms, bound {total['bound_ms']:.4f} ms, "
+          f"plain {plain_ms:.4f} ms [{tag}]")
     return {"max_abs_err": worst[torch.bfloat16], "max_abs_err_fp32": worst[torch.float32],
-            "ms": ms, "plain_ms": plain_ms}
+            "ms": ms, "plain_ms": plain_ms, **total}
 
 
 def check_bwd_kernel(tag: str) -> dict:
@@ -179,6 +291,7 @@ def check_bwd_kernel(tag: str) -> dict:
     sites (B=4); timings at B=64 bf16."""
     kw = dict(heads=4, dim_head=32)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    paths = {}
     cases = [(TRAIN_B, site) for site in SITES] + [(4, site) for site in LARGE_SITES[:4]]
     for dtype in (torch.float32, torch.bfloat16):
         for b, (site, n, c) in cases:
@@ -200,25 +313,39 @@ def check_bwd_kernel(tag: str) -> dict:
                                          f"max|plain| {scale}")
                 if not torch.equal(g, a):
                     raise AssertionError(f"bwd {site} B={b} {dtype} {name}: not deterministic")
-            print(f"bwd kernel vs plain {site} (N={n}, C={c}) B={b} {str(dtype)[6:]}: "
+            plan = la.plan_bwd(n, c, dtype)
+            paths.setdefault(plan.path, set()).add((n, c, str(dtype)[6:], plan.cs))
+            print(f"bwd kernel vs plain {site} (N={n}, C={c}) B={b} {str(dtype)[6:]} "
+                  f"[{plan.path} path, {plan.cs} CTAs an item, {plan.smem_bytes} B shared]: "
                   f"max_abs_err/max|plain| {'; '.join(errs)} (tol {BWD_TOL[dtype]:g} x "
                   f"max|plain|, worst ratio {max(rels):.2e}; bit-identical rerun)")
             worst[dtype] = max(worst[dtype], max(rels))
 
+    for path, shapes in sorted(paths.items()):
+        print(f"backward {path} path took (N, C, type, CTAs an item): {sorted(shapes)}")
+    if set(paths) != {"cluster", "tiled"}:
+        raise AssertionError(f"the shapes took only the paths {sorted(paths)}")
+
     ms = plain_ms = 0.0
+    bounds = []
     for i, (site, n, c) in enumerate(SITES):
         x, p = site_inputs(TRAIN_B, n, c, torch.bfloat16, seed=i)
         dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(i)).to(DEV, x.dtype)
         kw_b = dict(kw, compute_dtype=torch.bfloat16)
-        k = cuda_ms(lambda: la.linear_attention_block_bwd(x, dy, *p, **kw_b), iters=10)
-        t = cuda_ms(lambda: la.linear_attention_block_bwd_torch(x, dy, *p, **kw_b), iters=10)
+        k = cuda_graph_ms(lambda: la.linear_attention_block_bwd(x, dy, *p, **kw_b), iters=10)
+        t = cuda_graph_ms(lambda: la.linear_attention_block_bwd_torch(x, dy, *p, **kw_b),
+                          iters=10)
+        bd = la_bound(TRAIN_B, n, c, backward=True)
+        bounds.append(bd)
         ms, plain_ms = ms + k, plain_ms + t
-        print(f"time bwd {site} (N={n}, C={c}) B={TRAIN_B} bf16: kernel {k:.4f} ms, "
-              f"plain {t:.4f} ms, kernel/plain {k / t:.2f} [{tag}]")
-    print(f"time bwd all 8 sites B={TRAIN_B} bf16: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms [{tag}]")
+        print(f"time bwd {site} (N={n}, C={c}) B={TRAIN_B} bf16: kernels {k:.4f} ms, bound "
+              f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}, kernels/bound "
+              f"{k / bd['bound_ms']:.1f}, plain {t:.4f} ms [{tag}]")
+    total = add_bounds(*bounds)
+    print(f"time bwd all 8 sites B={TRAIN_B} bf16: kernels {ms:.4f} ms, bound "
+          f"{total['bound_ms']:.4f} ms, plain {plain_ms:.4f} ms [{tag}]")
     return {"max_rel_err": worst[torch.bfloat16], "max_rel_err_fp32": worst[torch.float32],
-            "ms": ms, "plain_ms": plain_ms}
+            "ms": ms, "plain_ms": plain_ms, **total}
 
 
 def check_unet_grads(config) -> None:
@@ -263,18 +390,19 @@ def check_training(config, tag: str) -> dict:
         cfg = dataclasses.replace(
             config, workdir=workdir, epochs=3,
             data=dataclasses.replace(config.data, synthetic_size=SYNTHETIC_SIZE))
-        counts = (la.linear_attention_block, la.linear_attention_block_bwd)
-        for f in counts:
-            f.launches = 0
+        zero_counts()
         res = train.run(cfg, DEV)
-        fwd_launches, bwd_launches = (f.launches for f in counts)
+        run_counts = read_counts()
+        fwd_launches = run_counts["linear_attention_fwd"]
+        bwd_launches = run_counts["linear_attention_bwd"]
         steps = res.trainer.state.step
         hist = res.history
         print(f"training run: {steps} steps in 3 epochs at B={TRAIN_B} bf16; train loss by "
               f"epoch {hist['train_loss']}, val loss {hist['val_loss']}; kernel launches: "
-              f"backward {bwd_launches} (want {8 * steps}), forward {fwd_launches}")
-        if steps != 27 or bwd_launches != 8 * steps:
-            raise AssertionError(f"{steps} steps, {bwd_launches} backward launches")
+              f"backward {bwd_launches} (want {8 * steps}), forward {fwd_launches}; "
+              f"all counts {run_counts}")
+        if steps != 27 or bwd_launches != 8 * steps or any(run_counts[k] for k in OFF_PATH):
+            raise AssertionError(f"{steps} steps, launches {run_counts}")
         losses = hist["train_loss"] + hist["val_loss"]
         if not np.isfinite(losses).all() or not hist["train_loss"][-1] < hist["train_loss"][0]:
             raise AssertionError(f"losses {hist}")
@@ -297,6 +425,13 @@ def check_training(config, tag: str) -> dict:
         batch = {"image": torch.rand(TRAIN_B, 32, 32, 3, generator=gen) * 2 - 1,
                  "label": torch.randint(0, 10, (TRAIN_B,), generator=gen)}
         trainer.train_step(batch)  # warm-up
+        zero_counts()
+        trainer.train_step(batch)
+        per_step = read_counts()
+        print(f"one train step launches: {per_step}")
+        if per_step != dict.fromkeys(OFF_PATH, 0) | {"linear_attention_fwd": 8,
+                                                     "linear_attention_bwd": 8}:
+            raise AssertionError(f"a train step launched the kernels {per_step} times")
         runs = []
         for _ in range(5):
             torch.cuda.synchronize()
@@ -309,7 +444,7 @@ def check_training(config, tag: str) -> dict:
         print(f"train step B={TRAIN_B} bf16: {step_ms:.3f} ms/step, median of 5 runs of 10 "
               f"steps ({' '.join(f'{r:.3f}' for r in runs)}), {1e3 / step_ms:.3f} steps/s "
               f"[{tag}]")
-    return {"fwd_launches": fwd_launches, "bwd_launches": bwd_launches, "step_ms": step_ms}
+    return {"run_counts": run_counts, "step_ms": step_ms, "per_step": per_step}
 
 
 def seeded_pair(config, seed: int = 0):
@@ -400,18 +535,23 @@ def check_resnet_block(tag: str) -> dict:
             worst[dtype] = max(worst[dtype], err / scale)
 
     ms = plain_ms = 0.0
+    bounds = []
     for i, (site, side, cin, cout) in enumerate(RB_SITES):
         args, kw = rb_inputs(128, site, side, cin, cout, torch.bfloat16, seed=i)
         with torch.inference_mode():
-            k = cuda_ms(lambda: rb.resnet_block(*args, **kw), iters=10)
-            t = cuda_ms(lambda: rb.resnet_block_torch(*args, **kw), iters=10)
+            k = cuda_ms(lambda: rb.resnet_block(*args, **kw), iters=5)
+            t = cuda_ms(lambda: rb.resnet_block_torch(*args, **kw), iters=5)
+        bd = rb_bound(128, side, cin, cout)
+        bounds.append(bd)
         ms, plain_ms = ms + k, plain_ms + t
         print(f"time resnet {site} ({side}x{side}, {cin}->{cout}) 2B=128 bf16: kernel "
-              f"{k:.4f} ms, plain {t:.4f} ms, kernel/plain {k / t:.2f} [{tag}]")
-    print(f"time resnet all 11 sites 2B=128 bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-          f"[{tag}]")
+              f"{k:.4f} ms, bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}, plain {t:.4f} ms "
+              f"[{tag}]")
+    total = add_bounds(*bounds)
+    print(f"time resnet all 11 sites 2B=128 bf16: kernel {ms:.4f} ms, bound "
+          f"{total['bound_ms']:.4f} ms, plain {plain_ms:.4f} ms [{tag}]")
     return {"max_rel_err": worst[torch.bfloat16], "max_rel_err_fp32": worst[torch.float32],
-            "ms": ms, "plain_ms": plain_ms}
+            "ms": ms, "plain_ms": plain_ms, **total}
 
 
 def check_resnet_block_fn() -> int:
@@ -478,7 +618,11 @@ def check_probes() -> dict:
             "probe7": (rows7, launches7)}
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", help="another commit's tree, unpacked: its linear-attention "
+                    "kernels are timed in turns with this tree's")
+    a = ap.parse_args(argv)
     phase("1 device")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -500,6 +644,16 @@ def main() -> None:
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  ptxas: {line.strip()}")
     print(f"build wall time {time.perf_counter() - t0:.1f} s (sources compiled in parallel)")
+    for name in ("linear_attention_fwd.cu", "linear_attention_bwd.cu"):
+        for kernel_name, n in sass_counts(str(build.build()[name][0])).items():
+            bf16 = "bfloat16" in kernel_name
+            # the production kernels with products: the whole forward (STAGE 6;
+            # the stage-1 cut has none), the backward's item and dWqkv kernels
+            product = any(s in kernel_name for s in ("bfloat16Li6E", "bwd_item", "bwd_wqkv"))
+            print(f"  sass {name}: {kernel_name[-70:]}: {n['hmma']} HMMA (tensor-core) "
+                  f"instructions, {n['atomics']} atomics")
+            if n["atomics"] or (bf16 and product and not n["hmma"]) or (not bf16 and n["hmma"]):
+                raise AssertionError(f"{kernel_name}: {n}")
     build.load()
 
     phase("3 forward kernel vs plain")
@@ -516,15 +670,14 @@ def main() -> None:
     phase("6 the sampling slice: generate.main, T=400, CFG 3, B=10, bf16")
     if config.diffusion.n_steps != T_STEPS or not config.use_amp:
         raise AssertionError("flagship config is not T=400 with use_amp")
-    la.linear_attention_block.launches = 0
-    la.linear_attention_block_bwd.launches = 0
+    zero_counts()
     res = generate.main([FLAGSHIP, "--per-class", "1", "--device", "cuda"])
-    launches = la.linear_attention_block.launches
-    sample_bwd = la.linear_attention_block_bwd.launches
-    print(f"kernel launches in the sampler run: forward {launches} (want {8 * T_STEPS}), "
-          f"backward {sample_bwd} (want 0)")
-    if launches != 8 * T_STEPS or sample_bwd != 0:
-        raise AssertionError(f"kernel launched {launches} / {sample_bwd} times")
+    sample_counts = read_counts()
+    launches = sample_counts["linear_attention_fwd"]
+    print(f"kernel launches in the sampler run of {T_STEPS} steps: {sample_counts} "
+          f"(want {8 * T_STEPS} of the forward kernel and no other)")
+    if sample_counts != dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": 8 * T_STEPS}:
+        raise AssertionError(f"the sampler run launched {sample_counts}")
     if res.images.dtype != np.uint8 or res.images.shape != (10, 32, 32, 3):
         raise AssertionError(f"images {res.images.dtype} {res.images.shape}")
     if not np.isfinite(res.x0).all():
@@ -574,7 +727,32 @@ def main() -> None:
     rows13b, launches13b = probes["probe13b"]
     rows7, launches7 = probes["probe7"]
 
-    phase("10 result")
+    phase("10 this tree's kernels and another commit's, in turns")
+    if a.parent:
+        compare_parent.main(["--parent", a.parent])
+    else:
+        print("skipped: no --parent DIR given (python -m ldm_tpu_torch.perf.compare_parent "
+              "--parent DIR runs it alone)")
+
+    phase("11 result")
+
+    def times(res: dict) -> dict:
+        return {"ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+                "bound_by": res["bound_by"], "bound_bytes": res["bound_bytes"],
+                "bound_flops": res["bound_flops"],
+                "bound_peaks": "3.35 TB/s, 989 TFLOP/s bf16 (H100 SXM at 700 W)",
+                "library_ms": None, "library": "no single PyTorch call computes the block"}
+
+    def per_step(name: str) -> dict:
+        """Launches a sampler step and a train step, from the counts read
+        around the T-step request and around the one counted train step."""
+        if sample_counts[name] % T_STEPS:
+            raise AssertionError(f"{name}: {sample_counts[name]} launches in {T_STEPS} steps")
+        return {"sampler": sample_counts[name] // T_STEPS, "train": training["per_step"][name]}
+
+    train_counts = training["run_counts"]
+    probe_full = rb_bound(probe13.B, 32, 64, 64)
+    stage6 = la_bound(probe7.B, probe7.N, probe7.C, backward=False)
     print(json.dumps({"kernels": [{
         "name": "linear_attention_fwd",
         "route": "cuda",
@@ -582,49 +760,55 @@ def main() -> None:
         "replaces": "ldm_tpu/ops/linear_attention.py:220",
         "also_replaces": "ldm_tpu/ops/linear_attention.py:333",
         "launches": launches,
-        "launches_by_path": {"sample": launches, "train": training["fwd_launches"]},
+        "launches_by_path": {"sample": launches, "train": train_counts["linear_attention_fwd"]},
+        "launches_per_step": per_step("linear_attention_fwd"),
         "max_abs_err": kernel["max_abs_err"],
         "max_abs_err_fp32": kernel["max_abs_err_fp32"],
-        "ms": kernel["ms"],
-        "plain_ms": kernel["plain_ms"],
-        "timed": "sum over the 8 sites, one launch each, 2B=128, bf16",
+        **times(kernel),
+        "timed": "sum over the 8 sites, one launch each, 2B=128, bf16; the kernel by "
+                 "CUDA-graph replay, the plain version too",
     }, {
         "name": "linear_attention_bwd",
         "route": "cuda",
         "source": "ldm_tpu_torch/csrc/linear_attention_bwd.cu",
         "replaces": "ldm_tpu/ops/linear_attention.py:476",
         "also_replaces": "ldm_tpu/ops/linear_attention.py:858",
-        "launches": training["bwd_launches"],
-        "launches_by_path": {"sample": sample_bwd, "train": training["bwd_launches"]},
+        "launches": train_counts["linear_attention_bwd"],
+        "launches_by_path": {"sample": sample_counts["linear_attention_bwd"],
+                             "train": train_counts["linear_attention_bwd"]},
+        "launches_per_step": per_step("linear_attention_bwd"),
         "max_abs_err": bwd["max_rel_err"],
         "max_abs_err_fp32": bwd["max_rel_err_fp32"],
         "err_unit": "max_abs_err / max|plain| of the worst of the 8 grads",
-        "ms": bwd["ms"],
-        "plain_ms": bwd["plain_ms"],
-        "timed": "sum over the 8 sites, one backward (3 kernels) each, B=64, bf16",
+        **times(bwd),
+        "timed": "sum over the 8 sites, one backward (3 kernels) each, B=64, bf16; the "
+                 "kernels by CUDA-graph replay, the plain version too",
     }, {
         "name": "resnet_block_fwd",
         "route": "cuda",
         "source": "ldm_tpu_torch/csrc/resnet_block_fwd.cu",
         "replaces": "ldm_tpu/ops/resnet_block.py:133",
         "launches": probes["probe13"][1],
-        "launches_by_path": {"probe13": probes["probe13"][1], "resnet_block_fn": fn_launches},
+        "launches_by_path": {"probe13": probes["probe13"][1], "resnet_block_fn": fn_launches,
+                             "sample": sample_counts["resnet_block_fwd"],
+                             "train": train_counts["resnet_block_fwd"]},
+        "launches_per_step": per_step("resnet_block_fwd"),
         "max_abs_err": resnet["max_rel_err"],
         "max_abs_err_fp32": resnet["max_rel_err_fp32"],
         "err_unit": "max_abs_err / max|plain|",
-        "ms": resnet["ms"],
-        "plain_ms": resnet["plain_ms"],
-        "timed": "sum over the 11 ResNet sites, one block (4 kernels) each, 2B=128, bf16",
+        **times(resnet),
+        "timed": "sum over the 11 ResNet sites, one block (4 kernels) each, 2B=128, bf16; "
+                 "kernel and plain version both by CUDA events around eager calls",
     }, {
         "name": "resnet_block_probe",
         "route": "cuda",
         "source": "ldm_tpu_torch/csrc/resnet_block_probe.cu",
         "replaces": "perf/probe13b.py:40",
         "launches": launches13b,
+        "launches_per_step": per_step("resnet_block_probe"),
         "max_abs_err": max(r["rel_err"] for r in rows13b),
         "err_unit": "max_abs_err / max|plain|, worst mode",
-        "ms": rows13b[-1]["ms"],
-        "plain_ms": rows13b[-1]["plain_ms"],
+        **times({"ms": rows13b[-1]["ms"], "plain_ms": rows13b[-1]["plain_ms"], **probe_full}),
         "ms_by_mode": {r["mode"]: r["ms"] for r in rows13b},
         "timed": "mode full, (1024, 64->64), 2B=256, bf16",
     }, {
@@ -633,11 +817,12 @@ def main() -> None:
         "source": "ldm_tpu_torch/csrc/linear_attention_fwd.cu",
         "replaces": "perf/probe7.py:30",
         "launches": launches7,
+        "launches_per_step": per_step("linear_attention_fwd_stage"),
         "max_abs_err": max(r["max_abs_err"] for r in rows7),
-        "ms": rows7[-1]["ms"],
-        "plain_ms": rows7[-1]["plain_ms"],
+        **times({"ms": rows7[-1]["ms"], "plain_ms": rows7[-1]["plain_ms"], **stage6}),
         "ms_by_stage": {r["stage"]: r["ms"] for r in rows7},
-        "timed": "stage 6 (the whole block), (1024, 64), 2B=128, bf16",
+        "timed": "stage 6 (the whole block), (1024, 64), 2B=128, bf16; kernel and plain "
+                 "version both by CUDA-graph replay",
     }], "train_step_ms": training["step_ms"]}))
     print(card())
     print(json.dumps({"ok": True, "device": {

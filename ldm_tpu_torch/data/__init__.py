@@ -1,2 +1,2 @@
-"""Data of the port: the JAX package's numpy readers and loaders, with a
-JAX-free resize."""
+"""Data of the port: numpy readers, synthetic generators, loaders and
+transforms; the twins of ``ldm_tpu/data/``, with a resize in numpy."""

@@ -1,4 +1,12 @@
-"""Image resize without JAX (the port of ldm_tpu/data/transforms.py:37-52).
+"""Image transforms of the port (the twin of ``ldm_tpu/data/transforms.py``),
+numpy only; images are NHWC throughout.
+
+* forward: ToTensor-style scaling to [0, 1], then ``t*2 - 1`` to [-1, 1]
+  (:func:`scale_to_minus_one_one`; :func:`scale_to_zero_one` for the BCE
+  autoencoder);
+* reverse: ``(t+1)/2``, ``*255``, uint8 (:func:`reverse_transform`);
+* :func:`to_grayscale` for synthetic image-folder data;
+* :func:`resize_images`, once at dataset load, without JAX:
 
 ``ldm_tpu.data.transforms.resize_images`` resizes once at dataset load with
 ``jax.image.resize(method="bilinear")``, which imports JAX; the machine with
@@ -49,3 +57,30 @@ def resize_images(images: np.ndarray, size: int) -> np.ndarray:
         w = bilinear_weights(out.shape[axis], size)
         out = np.moveaxis(np.tensordot(out, w, axes=([axis], [0])), -1, axis)
     return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def scale_to_minus_one_one(images_uint8: np.ndarray) -> np.ndarray:
+    """uint8 [0,255] -> float32 [-1,1]."""
+    return (images_uint8.astype(np.float32) / 255.0) * 2.0 - 1.0
+
+
+def scale_to_zero_one(images_uint8: np.ndarray) -> np.ndarray:
+    """uint8 [0,255] -> float32 [0,1] (for BCE-based ELBO autoencoder training)."""
+    return images_uint8.astype(np.float32) / 255.0
+
+
+def reverse_transform(images: np.ndarray) -> np.ndarray:
+    """float [-1,1] NHWC -> uint8 [0,255] NHWC."""
+    images = np.asarray(images)
+    images = np.clip((images + 1.0) / 2.0, 0.0, 1.0) * 255.0
+    return images.astype(np.uint8)
+
+
+def to_grayscale(images_uint8: np.ndarray) -> np.ndarray:
+    """RGB NHWC uint8 -> single-channel, ITU-R 601 weights like torchvision
+    ``Grayscale``."""
+    if images_uint8.shape[-1] == 1:
+        return images_uint8
+    w = np.array([0.299, 0.587, 0.114], np.float32)
+    g = (images_uint8.astype(np.float32) @ w)[..., None]
+    return np.clip(g, 0, 255).astype(np.uint8)

@@ -1,8 +1,7 @@
 """Config -> component builders (port of ldm_tpu/factory.py).
 
-The config is ``ldm_tpu.config.Config``, reused by import (the module is
-JAX-free); ``use_amp`` selects bf16 compute with fp32 parameters, as in the
-JAX package.  ``load_config`` is re-exported here so that the port's callers
+The config is the port's own ``ldm_tpu_torch.config.Config``; ``use_amp``
+selects bf16 compute with fp32 parameters, as in the JAX package.  ``load_config`` is re-exported here so that the port's callers
 reach the config through the port alone.
 """
 
@@ -10,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from ldm_tpu.config import Config, load_config
+from ldm_tpu_torch.config import Config, load_config
 from ldm_tpu_torch.diffusion.ddpm import GaussianDiffusion
 from ldm_tpu_torch.registry import instantiate_from_config
 

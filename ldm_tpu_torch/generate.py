@@ -23,7 +23,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ldm_tpu.data.transforms import reverse_transform
+from ldm_tpu_torch.data.transforms import reverse_transform
 from ldm_tpu_torch.factory import build_diffusion, build_model, load_config
 
 

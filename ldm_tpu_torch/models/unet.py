@@ -33,8 +33,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ldm_tpu_torch.ops.linear_attention import (
+    KernelWeights,
     linear_attention_block,
     linear_attention_block_torch,
+    make_kernel_weights,
 )
 
 _CL = torch.channels_last
@@ -229,19 +231,24 @@ class LinAttnBlock(Residual):
         self.heads, self.dim_head, self.impl = heads, dim_head, impl
         self._kernel_w_key, self._kernel_w = None, None
 
-    def kernel_weights(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """The (3H, C, 1, 1) / (C, H, 1, 1) conv weights as the kernel reads
-        them, row-major (C, 3H) / (H, C), for calls that autograd does not
-        track (sampling).  The copies are made once and again only when a
-        weight changes (load_state_dict and in-place updates bump its
-        version) or moves, not on every call of the sampler's loop."""
+    def _weights_key(self) -> tuple:
         wq, wo = self.fn.fn.to_qkv.weight, self.fn.fn.to_out[0].weight
-        key = (wq.data_ptr(), wq._version, wo.data_ptr(), wo._version)
-        if key != self._kernel_w_key:
+        return (wq.data_ptr(), wq._version, wo.data_ptr(), wo._version)
+
+    def kernel_weights(self, dtype: torch.dtype, backward: bool = False) -> KernelWeights:
+        """The (3H, C, 1, 1) / (C, H, 1, 1) conv weights as the kernels read
+        them (:class:`KernelWeights`: contiguous, in the compute type, both
+        orientations; the forward's two alone until a backward asks).  Made
+        once per weight version and compute type: again only when a weight
+        changes (an optimizer step, a load_state_dict and any in-place update
+        bump its version) or moves, not on every call of the sampler's loop."""
+        key = (self._weights_key(), dtype)
+        kw = self._kernel_w
+        if key != self._kernel_w_key or (backward and kw.wqkv is None):
+            wq, wo = self.fn.fn.to_qkv.weight, self.fn.fn.to_out[0].weight
             c = wo.shape[0]
-            with torch.no_grad():
-                self._kernel_w = (wq.view(-1, c).t().contiguous(),
-                                  wo.view(c, -1).t().contiguous())
+            self._kernel_w = make_kernel_weights(wq.view(-1, c).t(), wo.view(c, -1).t(),
+                                                  dtype, backward=backward)
             self._kernel_w_key = key
         return self._kernel_w
 
@@ -250,20 +257,23 @@ class LinAttnBlock(Residual):
         pre, attn = self.fn.norm, self.fn.fn
         out_conv, out_norm = attn.to_out
         params = (out_conv.bias, pre.weight, pre.bias, out_norm.weight, out_norm.bias)
-        op = linear_attention_block_torch if self.impl == "torch" else linear_attention_block
         tracked = torch.is_grad_enabled() and (
             x.requires_grad or any(p.requires_grad for p in self.parameters()))
-        if op is linear_attention_block and x.is_cuda and not tracked:
-            wqkv, wout = self.kernel_weights()
+        kw = {}
+        if self.impl == "torch":
+            op = linear_attention_block_torch
         else:
-            # views of the conv weights, inside the graph: their grads reach
-            # to_qkv.weight and to_out.0.weight
-            wqkv, wout = attn.to_qkv.weight.view(-1, c).t(), out_conv.weight.view(c, -1).t()
+            op = linear_attention_block
+            if x.is_cuda:
+                kw["weights"] = self.kernel_weights(x.dtype, backward=tracked)
+        # views of the conv weights, inside the graph when it is tracked: their
+        # grads reach to_qkv.weight and to_out.0.weight
+        wqkv, wout = attn.to_qkv.weight.view(-1, c).t(), out_conv.weight.view(c, -1).t()
         y = op(
             x.permute(0, 2, 3, 1).reshape(b, hh * ww, c).contiguous(),
             wqkv, wout, *params,
             heads=self.heads, dim_head=self.dim_head, eps=1e-5,
-            compute_dtype=x.dtype,
+            compute_dtype=x.dtype, **kw,
         )
         return y.view(b, hh, ww, c).permute(0, 3, 1, 2)
 

@@ -28,12 +28,24 @@ block, Residual(PreNorm(LinearAttention)), runs as one op:
   CUDA tensor launches a kernel or raises: there is no fallback to the plain
   versions.  ``linear_attention_block.launches`` and
   ``linear_attention_block_bwd.launches`` count the kernels' launches.
+* :func:`plan_fwd` and :func:`plan_bwd` choose, from (N, C, dtype) alone, how
+  many CTAs share an item (a thread-block cluster), which of the kernels'
+  buffers stay in shared memory (the cluster path) or go through global
+  scratch (the tiled path), and where each lies; the kernels follow the plan.
+* :class:`KernelWeights` holds the two projection weights in the compute
+  type, in both orientations, as the kernels read them; a caller that keeps
+  its weights (``models.unet.LinAttnBlock``) makes them once per weight
+  version, a bare call makes them on the way.
 
 The plain versions also take float64 (statistics then in float64 too), so
 ``torch.autograd.gradcheck`` can hold the backward against the forward.
 """
 
 from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -219,11 +231,190 @@ def linear_attention_block_bwd_torch(
     return (dx.to(x.dtype),) + tuple(g.to(p.dtype) for g, p in zip(grads, params))
 
 
-MAX_C_BWD = 512  # the backward kernel's widest C (its shared-memory tiles)
+MAX_C_FWD = 768  # the forward kernel's widest C: a 64-row fp32 tile of C values
+MAX_C_BWD = 512  # the backward kernel's: that tile beside the fp32 dqn tile
+SMEM_LIMIT = 232_448  # dynamic shared memory one CTA can take on an H100
+TILE_R = 64  # rows of a tile
+MAX_CLUSTER = 8  # the portable cluster size
+MIN_ROWS = 128  # the fewest rows of an item a CTA of a cluster takes
+_VEC_FWD = (4 * HIDDEN + 8 + 8) * 4  # kmax, ksum and their partials; red; slots
+_VEC_BWD = (6 * HIDDEN + 256 + 8 + 16) * 4  # + inner and its partial; sred
 
 
-def _check_cuda_args(x, params, heads, dim_head, compute_dtype, max_c=768) -> None:
-    """Raise on anything the kernels do not take."""
+def cluster_size(n: int) -> int:
+    """CTAs that share one item of N rows: doubled while the rows still
+    split evenly into at least 128 a CTA, up to the portable 8.  1024 -> 8
+    CTAs of 128 rows, 256 -> 2 of 128, 64 and 16 -> 1.  A CTA's time is
+    mostly the latencies of its phases, not its rows, so at a batch that
+    fills the card several times over 64-row CTAs only add waves (timed by
+    perf/plan_sweep.py: at N=256 two CTAs an item beat four at 2B=128 and at
+    B=64, and lose only where the batch leaves SMs idle, 2B=20)."""
+    cs = 1
+    while cs < MAX_CLUSTER and n % (2 * cs) == 0 and n // (2 * cs) >= MIN_ROWS:
+        cs *= 2
+    return cs
+
+
+def _row_pad(dtype: torch.dtype) -> int:
+    """Padding of a shared-memory row, in elements: 16 bytes."""
+    return 16 // dtype.itemsize
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """The forward kernel's launch plan (``FwdPlan`` in
+    csrc/linear_attention_fwd.cu): cluster size, rows a CTA, what stays in
+    shared memory, byte offsets of the buffers there, and the total."""
+
+    cs: int
+    rows: int
+    keep: int      # q | k | v, out and (ctx @ Wout)^T in shared memory
+    stage_w: int   # Wqkv^T staged in shared memory
+    off_tile: int
+    off_ctxn: int
+    off_vec: int
+    off_u: int     # Wqkv^T, later (ctx @ Wout)^T and out
+    off_out: int
+    off_qkv: int
+    smem_bytes: int
+
+    @property
+    def path(self) -> str:
+        return "cluster" if self.keep else "tiled"
+
+    def ints(self):
+        return dataclasses.astuple(self)[:-1]
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """The backward item kernel's launch plan (``BwdPlan`` in
+    csrc/linear_attention_bwd.cu)."""
+
+    cs: int
+    rows: int
+    keep: int      # qn | kn | v of the CTA's rows in shared memory
+    keep_cw: int   # cw, cw^T and dcw in shared memory
+    off_tile: int
+    off_ctxn: int
+    off_dctx: int
+    off_dctxt: int
+    off_vec: int
+    off_cw: int
+    off_cwt: int
+    off_qkv: int
+    smem_bytes: int
+
+    @property
+    def path(self) -> str:
+        return "cluster" if self.keep else "tiled"
+
+    def ints(self):
+        return dataclasses.astuple(self)[:-1]
+
+
+def _check_plan_shape(n: int, c: int, dtype: torch.dtype, max_c: int) -> None:
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"kernel takes float32 or bfloat16, got {dtype}")
+    if n < 1 or not 16 <= c <= max_c or c % 16:
+        raise ValueError(
+            f"kernel takes N >= 1 and C a multiple of 16 in [16, {max_c}], got {n, c}")
+
+
+# (keep, stage_w) in the order plan_fwd tries them
+FWD_OPTIONS = ((1, 1), (1, 0), (0, 1), (0, 0))
+
+
+def plan_fwd(n: int, c: int, dtype: torch.dtype, options=FWD_OPTIONS) -> FwdPlan:
+    """The forward kernel's plan for items of (N, C) in ``dtype``, from the
+    shape alone.  Of the buffers that may stay in shared memory it keeps
+    what fits, tried in a fixed order: first q | k | v with out and
+    (ctx @ Wout)^T (the cluster path; without them the tiled path through
+    global scratch), then the staged Wqkv^T (worth 4.0-8.5% where the CTA has
+    128 rows or more, 2% at 64: perf/plan_sweep.py).  Raises where not
+    even the bare tiles fit.  ``options``: the (keep, stage_w) to try, for
+    perf/plan_sweep.py, which times the kernel under each."""
+    _check_plan_shape(n, c, dtype, MAX_C_FWD)
+    es, pad = dtype.itemsize, _row_pad(dtype)
+    cs = cluster_size(n)
+    rows = n // cs
+    tile = TILE_R * max(c + pad, 2 * (HIDDEN + pad)) * es
+    ctxn = HIDDEN * (DIM_HEAD + pad) * es
+    w = 3 * HIDDEN * (c + pad) * es
+    cwt = c * (HIDDEN + pad) * es
+    out = rows * (c + pad) * es
+    qkv = rows * (3 * HIDDEN + pad) * es
+    base = tile + ctxn + _VEC_FWD
+    for keep, stage_w in options:
+        u = max(w if stage_w else 0, cwt + out if keep else 0)
+        total = base + u + (qkv if keep else 0)
+        if total <= SMEM_LIMIT:
+            return FwdPlan(cs, rows, keep, stage_w, 0, tile, tile + ctxn, base, base + cwt,
+                           base + u, total)
+    raise ValueError(f"the forward kernel's tiles do not fit in shared memory at {n, c, dtype}")
+
+
+def plan_bwd(n: int, c: int, dtype: torch.dtype) -> BwdPlan:
+    """The backward item kernel's plan for items of (N, C) in ``dtype``:
+    qn | kn | v of the CTA's rows in shared memory where they fit (the
+    cluster path), then cw, cw^T and dcw."""
+    _check_plan_shape(n, c, dtype, MAX_C_BWD)
+    es, pad = dtype.itemsize, _row_pad(dtype)
+    cs = cluster_size(n)
+    rows = n // cs
+    tile = TILE_R * max((3 * HIDDEN + pad) * es, (c + pad) * es + (HIDDEN + 4) * 4,
+                        2 * (HIDDEN + pad) * es)
+    ctx = HIDDEN * (DIM_HEAD + pad) * es
+    cw = HIDDEN * (c + pad) * es
+    cwt = c * (HIDDEN + pad) * es
+    qkv = rows * (3 * HIDDEN + pad) * es
+    base = tile + 3 * ctx + _VEC_BWD
+    for keep, keep_cw in ((1, 1), (1, 0), (0, 1), (0, 0)):
+        total = base + (cw + cwt if keep_cw else 0) + (qkv if keep else 0)
+        if total <= SMEM_LIMIT:
+            off_cw = base
+            off_qkv = off_cw + (cw + cwt if keep_cw else 0)
+            return BwdPlan(cs, rows, keep, keep_cw, 0, tile, tile + ctx, tile + 2 * ctx,
+                           tile + 3 * ctx, off_cw, off_cw + (cw if keep_cw else 0), off_qkv,
+                           total)
+    raise ValueError(f"the backward kernel's tiles do not fit in shared memory at {n, c, dtype}")
+
+
+class KernelWeights(NamedTuple):
+    """The two projection weights as the kernels read them: contiguous, in
+    the compute type, in both orientations.  The forward reads the
+    transposes; the backward all four."""
+
+    wqkv: Optional[torch.Tensor]  # (C, 3H)
+    wqkv_t: torch.Tensor          # (3H, C)
+    wout: Optional[torch.Tensor]  # (H, C)
+    wout_t: torch.Tensor          # (C, H)
+
+
+def _copy_as(src: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``src`` contiguous in ``dtype``: itself where it already is, else one
+    cast-and-copy kernel."""
+    if src.dtype == dtype and src.is_contiguous():
+        return src.detach()
+    return torch.empty(src.shape, dtype=dtype, device=src.device).copy_(src.detach())
+
+
+def make_kernel_weights(wqkv: torch.Tensor, wout: torch.Tensor, dtype: torch.dtype,
+                        backward: bool = True) -> KernelWeights:
+    """``wqkv`` (C, 3H) and ``wout`` (H, C), of any strides (the UNet hands in
+    transposed views of its 1x1-conv weights), as :class:`KernelWeights` in
+    ``dtype``; without ``backward`` only the forward's two."""
+    with torch.no_grad():
+        return KernelWeights(
+            _copy_as(wqkv, dtype) if backward else None, _copy_as(wqkv.t(), dtype),
+            _copy_as(wout, dtype) if backward else None, _copy_as(wout.t(), dtype))
+
+
+def _check_cuda_args(x, params, heads, dim_head, compute_dtype, max_c=MAX_C_FWD,
+                     weights: Optional[KernelWeights] = None) -> None:
+    """Raise on anything the kernels do not take.  With ``weights`` the two
+    projections in ``params`` may be views of any strides (only their shapes
+    are checked); the kernels read ``weights``."""
     if heads * dim_head != HIDDEN or dim_head != DIM_HEAD:
         raise ValueError(
             f"kernel is written for heads*dim_head={HIDDEN}, dim_head={DIM_HEAD}; "
@@ -237,11 +428,11 @@ def _check_cuda_args(x, params, heads, dim_head, compute_dtype, max_c=768) -> No
             f"got x {x.dtype}, compute {compute_dtype}"
         )
     b, n, c = x.shape
-    # C <= 768 keeps a 64-row tile of C fp32 values in shared memory (512
-    # for the backward, whose tiles are wider)
-    if b < 1 or n < 1 or not 4 <= c <= max_c or c % 4:
+    # a 64-row tile of C values must fit in shared memory; the tensor-core
+    # products walk C in steps of 16
+    if b < 1 or n < 1 or not 16 <= c <= max_c or c % 16:
         raise ValueError(
-            f"kernel takes B, N >= 1 and C a multiple of 4 in [4, {max_c}], got {b, n, c}"
+            f"kernel takes B, N >= 1 and C a multiple of 16 in [16, {max_c}], got {b, n, c}"
         )
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
@@ -249,15 +440,28 @@ def _check_cuda_args(x, params, heads, dim_head, compute_dtype, max_c=768) -> No
         raise ValueError("x must be 16-byte aligned")
     shapes = [(c, 3 * HIDDEN), (HIDDEN, c)] + [(c,)] * 5
     names = ("wqkv", "wout", "bout", "gn1_scale", "gn1_bias", "gn2_scale", "gn2_bias")
-    for name, p, shape in zip(names, params, shapes):
+    for i, (name, p, shape) in enumerate(zip(names, params, shapes)):
         if p.device != x.device:
             raise ValueError(f"{name} is on {p.device}, x on {x.device}")
         if p.dtype != torch.float32:
             raise ValueError(f"{name} must be float32, got {p.dtype}")
         if tuple(p.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got {tuple(p.shape)}")
+        if weights is not None and i < 2:
+            continue
         if not p.is_contiguous() or p.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if weights is not None:
+        for name, w in weights._asdict().items():
+            if w is None:
+                continue
+            want = {"wqkv": shapes[0], "wqkv_t": shapes[0][::-1],
+                    "wout": shapes[1], "wout_t": shapes[1][::-1]}[name]
+            if (w.device != x.device or w.dtype != x.dtype or tuple(w.shape) != want
+                    or not w.is_contiguous() or w.data_ptr() % 16):
+                raise ValueError(
+                    f"kernel weight {name} must be a contiguous, 16-byte aligned {want} "
+                    f"tensor of {x.dtype} on {x.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *params)):
         raise RuntimeError(
             "the raw kernel launchers are not differentiable: call "
@@ -266,37 +470,62 @@ def _check_cuda_args(x, params, heads, dim_head, compute_dtype, max_c=768) -> No
         )
 
 
-def _launch_kernel(x, params, *, heads, dim_head, eps, compute_dtype) -> torch.Tensor:
-    _check_cuda_args(x, params, heads, dim_head, compute_dtype)
+def _plan_array(plan) -> ctypes.Array:
+    ints = plan.ints()
+    return (ctypes.c_int * len(ints))(*ints)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _launch_kernel(x, params, *, heads, dim_head, eps, compute_dtype,
+                   weights: Optional[KernelWeights] = None, stage: Optional[int] = None
+                   ) -> torch.Tensor:
+    """The forward kernel's launch (``stage``: the ablated build of
+    perf/probe7.py, 1-6; None the production entry point)."""
+    if weights is None:
+        weights = make_kernel_weights(params[0], params[1], x.dtype, backward=False)
+    _check_cuda_args(x, params, heads, dim_head, compute_dtype, weights=weights)
     b, n, c = x.shape
+    plan = plan_fwd(n, c, x.dtype)
     lib = build.load()
     y = torch.empty_like(x)
-    qkv_scratch = torch.empty((b, n, 3 * HIDDEN), dtype=x.dtype, device=x.device)
-    cw_scratch = torch.empty((b, HIDDEN, c), dtype=x.dtype, device=x.device)
+    qkv_scratch = cw_scratch = None
+    if not plan.keep:  # the tiled path's buffers
+        qkv_scratch = torch.empty((b, n, 3 * HIDDEN), dtype=x.dtype, device=x.device)
+        cw_scratch = torch.empty((b * plan.cs, c, HIDDEN), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ldm_lin_attn_fwd(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), *(p.data_ptr() for p in params),
-            y.data_ptr(), qkv_scratch.data_ptr(), cw_scratch.data_ptr(),
-            b, n, c, float(eps), stream,
-        )
+        args = (_DTYPE_CODE[x.dtype], x.data_ptr(), weights.wqkv_t.data_ptr(),
+                weights.wout_t.data_ptr(), *(p.data_ptr() for p in params[2:]),
+                y.data_ptr(), _ptr(qkv_scratch), _ptr(cw_scratch), b, n, c, float(eps),
+                _plan_array(plan), plan.smem_bytes, stream)
+        if stage is None:
+            err = lib.ldm_lin_attn_fwd(*args)
+        else:
+            err = lib.ldm_lin_attn_fwd_stage(stage, *args)
     if err != 0:
-        raise RuntimeError(f"linear-attention kernel launch failed: CUDA error {err}")
-    linear_attention_block.launches += 1
+        raise RuntimeError(f"linear-attention kernel launch failed: CUDA error {err} "
+                           f"(shape {b, n, c}, {plan})")
     return y
 
 
-def _launch_bwd_kernel(x, dy, params, *, heads, dim_head, eps, compute_dtype):
+def _launch_bwd_kernel(x, dy, params, *, heads, dim_head, eps, compute_dtype,
+                       weights: Optional[KernelWeights] = None):
     """The backward kernels' launch: returns (dx, dWqkv, dWout, dbout, dg1s,
-    dg1b, dg2s, dg2b).  ``params`` are the forward kernel's: wqkv row-major
-    (C, 3H) and wout (H, C)."""
-    _check_cuda_args(x, params, heads, dim_head, compute_dtype, max_c=MAX_C_BWD)
+    dg1b, dg2s, dg2b).  ``params`` are the forward's: wqkv (C, 3H) and wout
+    (H, C)."""
+    if weights is None or weights.wqkv is None:
+        weights = make_kernel_weights(params[0], params[1], x.dtype)
+    _check_cuda_args(x, params, heads, dim_head, compute_dtype, max_c=MAX_C_BWD,
+                     weights=weights)
     b, n, c = x.shape
     dy = dy.to(x.dtype).contiguous()
     if dy.shape != x.shape or dy.data_ptr() % 16:
         raise ValueError(f"dy must be a 16-byte aligned {tuple(x.shape)} tensor")
+    plan = plan_bwd(n, c, x.dtype)
     lib = build.load()
-    wqkv_t = params[0].t().contiguous()  # (3H, C): the dh product's operand
     f32 = dict(dtype=torch.float32, device=x.device)
     cdt = dict(dtype=x.dtype, device=x.device)
     dx = torch.empty_like(x)
@@ -304,29 +533,32 @@ def _launch_bwd_kernel(x, dy, params, *, heads, dim_head, eps, compute_dtype):
     dwout = torch.empty((HIDDEN, c), **f32)
     dvec = torch.empty((5, c), **f32)  # dbout, dg1s, dg1b, dg2s, dg2b
     splits = lib.ldm_lin_attn_bwd_splits(b, n, c)
+    ctas = b * plan.cs
     scratch = dict(
-        qkv=torch.empty((b, n, 3 * HIDDEN), **cdt),
+        qkv=None if plan.keep else torch.empty((b, n, 3 * HIDDEN), **cdt),
         dqkv=torch.empty((b, n, 3 * HIDDEN), **cdt),
         o=torch.empty((b, n, c), **f32),
         do=torch.empty((b, n, c), **cdt),
-        cw=torch.empty((b, HIDDEN, c), **cdt),
-        cw_t=torch.empty((b, c, HIDDEN), **cdt),
+        cw=None if plan.keep_cw else torch.empty((ctas, HIDDEN, c), **cdt),
+        cw_t=None if plan.keep_cw else torch.empty((ctas, c, HIDDEN), **cdt),
         stats=torch.empty((b, 2), **f32),
-        pvec=torch.empty((b, 5, c), **f32),
+        pvec=torch.empty((ctas, 5, c), **f32),
         pwout=torch.empty((b, HIDDEN, c), **f32),
+        pdcw=None if plan.cs == 1 else torch.empty((ctas, HIDDEN, c), **f32),
         pwqkv=torch.empty((splits, c, 3 * HIDDEN), **f32),
     )
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ldm_lin_attn_bwd(
             _DTYPE_CODE[x.dtype], x.data_ptr(), dy.data_ptr(),
-            *(p.data_ptr() for p in params), wqkv_t.data_ptr(),
+            *(w.data_ptr() for w in weights), *(p.data_ptr() for p in params[2:6]),
             dx.data_ptr(), dwqkv.data_ptr(), dwout.data_ptr(), dvec.data_ptr(),
-            *(t.data_ptr() for t in scratch.values()),
-            b, n, c, splits, float(eps), stream,
+            *(_ptr(t) for t in scratch.values()),
+            b, n, c, splits, float(eps), _plan_array(plan), plan.smem_bytes, stream,
         )
     if err != 0:
-        raise RuntimeError(f"linear-attention backward launch failed: CUDA error {err}")
+        raise RuntimeError(f"linear-attention backward launch failed: CUDA error {err} "
+                           f"(shape {b, n, c}, {plan})")
     linear_attention_block_bwd.launches += 1
     return (dx, dwqkv, dwout, *dvec.unbind(0))
 
@@ -335,19 +567,28 @@ def linear_attention_block_bwd(
     x, dy, wqkv, wout, bout, gn1_scale, gn1_bias, gn2_scale, gn2_bias,
     *, heads: int, dim_head: int, eps: float = 1e-5,
     compute_dtype: torch.dtype = torch.float32,
+    weights: Optional[KernelWeights] = None,
 ) -> tuple[torch.Tensor, ...]:
     """The block's backward: the plain version for a CPU tensor, the Hopper
-    kernels for a CUDA tensor (which raise on what they do not take)."""
+    kernels for a CUDA tensor (which raise on what they do not take).
+    ``weights``: the projections as the kernels read them, where the caller
+    keeps them; made here otherwise."""
     params = (wqkv, wout, bout, gn1_scale, gn1_bias, gn2_scale, gn2_bias)
     kw = dict(heads=heads, dim_head=dim_head, eps=eps, compute_dtype=compute_dtype)
     if x.device.type == "cpu":
         return linear_attention_block_bwd_torch(x, dy, *params, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"no linear-attention implementation for device {x.device}")
-    return _launch_bwd_kernel(x, dy, params, **kw)
+    return _launch_bwd_kernel(x, dy, params, weights=weights, **kw)
 
 
 linear_attention_block_bwd.launches = 0  # backward launches (3 kernels each)
+
+
+def _forward_kernel(x, params, weights, **kw) -> torch.Tensor:
+    y = _launch_kernel(x, params, weights=weights, **kw)
+    linear_attention_block.launches += 1
+    return y
 
 
 class LinearAttentionBlockFn(torch.autograd.Function):
@@ -357,54 +598,62 @@ class LinearAttentionBlockFn(torch.autograd.Function):
     one.  Backward: likewise the backward kernels or the plain backward; both
     recompute the forward from x, so only the inputs are saved.  The weights
     may come in as views of the UNet's 1x1-conv weights (``wqkv`` the (C, 3H)
-    transpose of to_qkv's (3H, C)); the row-major copies the kernels read are
-    made here, and the grads go back in the views' shapes, so autograd carries
+    transpose of to_qkv's (3H, C)); the kernels read ``weights``, the
+    contiguous copies in the compute type (made here when the caller keeps
+    none), and the grads go back in the views' shapes, so autograd carries
     them to the convs' layouts.
     """
 
     @staticmethod
     def forward(ctx, x, wqkv, wout, bout, g1s, g1b, g2s, g2b,
-                heads, dim_head, eps, compute_dtype):
+                heads, dim_head, eps, compute_dtype, weights=None):
         kw = dict(heads=heads, dim_head=dim_head, eps=eps, compute_dtype=compute_dtype)
         params = (wqkv, wout, bout, g1s, g1b, g2s, g2b)
         if x.device.type == "cuda":
-            params = (wqkv.contiguous(), wout.contiguous()) + params[2:]
+            if weights is None or weights.wqkv is None:
+                weights = make_kernel_weights(wqkv, wout, x.dtype)
             # refuse now what the backward would refuse after the forward
-            _check_cuda_args(x, params, heads, dim_head, compute_dtype, max_c=MAX_C_BWD)
-            y = _launch_kernel(x, params, **kw)
+            _check_cuda_args(x, params, heads, dim_head, compute_dtype, max_c=MAX_C_BWD,
+                             weights=weights)
+            y = _forward_kernel(x, params, weights, **kw)
         elif x.device.type == "cpu":
             y = linear_attention_block_torch(x, *params, **kw)
         else:
             raise ValueError(f"no linear-attention implementation for device {x.device}")
         ctx.save_for_backward(x, *params)
         ctx.kw = kw
+        ctx.weights = weights
         return y
 
     @staticmethod
     def backward(ctx, dy):
         x, *params = ctx.saved_tensors
-        grads = linear_attention_block_bwd(x, dy, *params, **ctx.kw)
-        return (*grads, None, None, None, None)
+        grads = linear_attention_block_bwd(x, dy, *params, weights=ctx.weights, **ctx.kw)
+        return (*grads, None, None, None, None, None)
 
 
 def linear_attention_block(
     x, wqkv, wout, bout, gn1_scale, gn1_bias, gn2_scale, gn2_bias,
     *, heads: int, dim_head: int, eps: float = 1e-5,
     compute_dtype: torch.dtype = torch.float32,
+    weights: Optional[KernelWeights] = None,
 ) -> torch.Tensor:
     """The fused block.  In grad mode with an input that requires grad:
     :class:`LinearAttentionBlockFn`.  Otherwise the plain version for a CPU
     tensor and the forward kernel for a CUDA tensor (which raises on what the
-    kernel does not take)."""
+    kernel does not take).  ``weights``: the projections as the kernels read
+    them (:func:`make_kernel_weights`), where the caller keeps them; a CPU
+    tensor ignores them."""
     params = (wqkv, wout, bout, gn1_scale, gn1_bias, gn2_scale, gn2_bias)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *params)):
-        return LinearAttentionBlockFn.apply(x, *params, heads, dim_head, eps, compute_dtype)
+        return LinearAttentionBlockFn.apply(x, *params, heads, dim_head, eps, compute_dtype,
+                                            weights)
     kw = dict(heads=heads, dim_head=dim_head, eps=eps, compute_dtype=compute_dtype)
     if x.device.type == "cpu":
         return linear_attention_block_torch(x, *params, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"no linear-attention implementation for device {x.device}")
-    return _launch_kernel(x, params, **kw)
+    return _forward_kernel(x, params, weights, **kw)
 
 
 linear_attention_block.launches = 0  # forward kernel launches, counted where they happen

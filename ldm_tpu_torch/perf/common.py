@@ -40,3 +40,28 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_graph_ms(fn, iters: int = 20, warmup: int = 3, replays: int = 3) -> float:
+    """Mean device time of fn() in ms with the host out of the way: `iters`
+    calls captured into one CUDA graph, the graph replayed, CUDA events
+    around the replays.  For kernels shorter than a launch from Python
+    takes, where :func:`cuda_ms` would time the host.  fn must not
+    synchronise."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (iters * replays)

@@ -1,0 +1,127 @@
+"""Two trees' linear-attention kernels timed in turns on one card: this
+checkout against another (an earlier commit unpacked beside it).
+
+    git archive <commit> | tar -x -C build/parent      # build/ is git-ignored
+    python -m ldm_tpu_torch.perf.compare_parent --parent build/parent [--out rows.json]
+
+Runs parent, this, this, parent, each in a process of its own that builds
+that tree's kernels and times, at the 8 attention sites of the 32px flagship
+UNet in bf16, the forward kernel at 2B=128 and 2B=20 and the backward
+kernels at B=64.  Both trees are called through the functions they share
+(``linear_attention_block`` and ``linear_attention_block_bwd`` on CUDA
+tensors, weights as the op takes them, so a tree's own weight copies are
+inside its time), and timed by the same code: 20 calls captured into a CUDA
+graph, replayed, CUDA events around the replays, so that the host's launch
+cost is out of the numbers.  Prints one line a site and the sums; exits
+nonzero when either sum of this tree is not below the parent's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+from typing import Optional, Sequence
+
+from ldm_tpu_torch.perf.common import card, require_cuda
+
+# what each tree runs: only names both trees have
+CHILD = r'''
+import json, sys, torch
+from ldm_tpu_torch.ops import build, linear_attention as la
+torch.backends.cuda.matmul.allow_tf32 = False
+SITES = [("enc0", 1024, 64), ("enc1", 256, 128), ("enc2", 64, 256), ("enc3", 16, 512),
+         ("dec0", 16, 256), ("dec1", 64, 128), ("dec2", 256, 64), ("dec3", 1024, 64)]
+DEV, DT, KW = torch.device("cuda"), torch.bfloat16, dict(heads=4, dim_head=32, compute_dtype=torch.bfloat16)
+
+def inputs(b, n, c, seed):
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g)
+    x, dy = r(b, n, c).to(DEV, DT), r(b, n, c).to(DEV, DT)
+    p = [r(c, 384) / c**0.5, r(128, c) / 128**0.5, 0.1 * r(c), 1 + 0.1 * r(c), 0.1 * r(c),
+         1 + 0.1 * r(c), 0.1 * r(c)]
+    return x, dy, [t.to(DEV) for t in p]
+
+def graph_ms(fn, iters=20, replays=3):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(replays):
+        g.replay()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / (iters * replays)
+
+build.load()
+rows = {}
+for i, (site, n, c) in enumerate(SITES):
+    for b in (128, 20):
+        x, dy, p = inputs(b, n, c, i)
+        with torch.inference_mode():
+            rows[f"fwd{b} {site}"] = graph_ms(lambda: la.linear_attention_block(x, *p, **KW))
+    x, dy, p = inputs(64, n, c, i)
+    rows[f"bwd64 {site}"] = graph_ms(lambda: la.linear_attention_block_bwd(x, dy, *p, **KW))
+print("ROWS " + json.dumps(rows))
+'''
+
+
+def run_tree(tree: Path) -> dict:
+    """Build and time one tree's kernels in a process of its own."""
+    env = dict(os.environ, PYTHONPATH=str(tree),
+               LDM_TPU_TORCH_BUILD_DIR=str(tree / "build" / "ldm_tpu_torch"))
+    r = subprocess.run([sys.executable, "-c", CHILD], cwd=tree, env=env, capture_output=True,
+                       text=True, timeout=1200)
+    if r.returncode != 0:
+        raise RuntimeError(f"timing {tree} failed:\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    line = [ln for ln in r.stdout.splitlines() if ln.startswith("ROWS ")][-1]
+    return json.loads(line[5:])
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", required=True, help="the other tree's root")
+    ap.add_argument("--out", help="write every run's rows here as JSON")
+    a = ap.parse_args(argv)
+    require_cuda("compare_parent")
+    tag = card()
+    here = Path(__file__).resolve().parents[2]
+    parent = Path(a.parent).resolve()
+    runs = [("parent", run_tree(parent)), ("this", run_tree(here)),
+            ("this", run_tree(here)), ("parent", run_tree(parent))]
+    mean = {who: {k: sum(r[k] for w, r in runs if w == who) / 2 for k in runs[0][1]}
+            for who in ("parent", "this")}
+    for k in runs[0][1]:
+        vals = " ".join(f"{w} {r[k]:.4f}" for w, r in runs)
+        print(f"{k} bf16: {vals} ms; this/parent {mean['this'][k] / mean['parent'][k]:.3f} "
+              f"[{tag}]")
+    ok = True
+    for group in ("fwd128", "fwd20", "bwd64"):
+        sums = {w: sum(v for k, v in mean[w].items() if k.startswith(group + " "))
+                for w in mean}
+        every = " ".join(f"{w} {sum(v for k, v in r.items() if k.startswith(group + ' ')):.4f}"
+                         for w, r in runs)
+        print(f"{group} all 8 sites bf16: parent {sums['parent']:.4f} ms, this "
+              f"{sums['this']:.4f} ms, this/parent {sums['this'] / sums['parent']:.3f} "
+              f"(runs: {every}) [{tag}]")
+        ok &= sums["this"] < sums["parent"]
+    if a.out:
+        with open(a.out, "w") as f:
+            json.dump({"card": tag, "runs": runs}, f, indent=2)
+    if not ok:
+        raise SystemExit("compare_parent: this tree is not faster than the parent")
+    return mean
+
+
+if __name__ == "__main__":
+    main()

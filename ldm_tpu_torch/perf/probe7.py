@@ -11,8 +11,9 @@ Stages 1-5 write y = x + (what the stage made, lane c % 128), so each
 depends on every stage it keeps; stage 6 is the production kernel.  Each
 stage has a plain version, :func:`stage_torch`, with the kernel's cast
 points; the run holds stages 1-5 against it and stage 6 against the
-production kernel (bit for bit), and reports each stage's time and its
-delta over the stage before.
+production kernel (bit for bit), and reports each stage's time and its plain
+version's (device time: the calls replayed from a CUDA graph, so that the
+host's launch cost is in neither) and its delta over the stage before.
 """
 
 from __future__ import annotations
@@ -24,9 +25,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ldm_tpu_torch.ops import build
 from ldm_tpu_torch.ops import linear_attention as la
-from ldm_tpu_torch.perf.common import card, cuda_ms, require_cuda
+from ldm_tpu_torch.perf.common import card, cuda_graph_ms, require_cuda
 
 HEADS, DIM_HEAD = 4, 32
 HIDDEN = HEADS * DIM_HEAD
@@ -94,19 +94,8 @@ def stage_block(stage, x, wqkv, wout, bout, g1s, g1b, g2s, g2b, *, eps: float = 
         return stage_torch(stage, x, *params, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"no probe implementation for device {x.device}")
-    la._check_cuda_args(x, params, HEADS, DIM_HEAD, x.dtype)
-    b, n, c = x.shape
-    y = torch.empty_like(x)
-    qkv_scratch = torch.empty((b, n, 3 * HIDDEN), dtype=x.dtype, device=x.device)
-    cw_scratch = torch.empty((b, HIDDEN, c), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = build.load().ldm_lin_attn_fwd_stage(
-            stage, la._DTYPE_CODE[x.dtype], x.data_ptr(), *(p.data_ptr() for p in params),
-            y.data_ptr(), qkv_scratch.data_ptr(), cw_scratch.data_ptr(), b, n, c,
-            float(eps), stream)
-    if err != 0:
-        raise RuntimeError(f"linear-attention stage {stage} launch failed: CUDA error {err}")
+    y = la._launch_kernel(x, params, heads=HEADS, dim_head=DIM_HEAD, eps=eps,
+                          compute_dtype=x.dtype, stage=stage)
     stage_block.launches += 1
     return y
 
@@ -152,8 +141,8 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
                 ok = bool((diff <= atol + rtol * want.float().abs()).all())
                 check = f"vs plain (tol {atol:g} + {rtol:g}|y|)"
             err = (got.float() - want.float()).abs().max().item()
-            ms = cuda_ms(lambda: stage_block(stage, x, *params), iters=a.iters)
-            plain_ms = cuda_ms(lambda: stage_torch(stage, x, *params), iters=a.iters)
+            ms = cuda_graph_ms(lambda: stage_block(stage, x, *params), iters=a.iters)
+            plain_ms = cuda_graph_ms(lambda: stage_torch(stage, x, *params), iters=a.iters)
             rows.append({"stage": stage, "b": B, "n": N, "c": C, "dtype": "bfloat16",
                          "ms": ms, "delta_ms": ms - prev, "plain_ms": plain_ms,
                          "max_abs_err": err, "ok": ok, "card": tag})

@@ -22,7 +22,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from ldm_tpu.config import Config
+from ldm_tpu_torch.config import Config
 from ldm_tpu_torch.data.loader import create_dataloaders
 from ldm_tpu_torch.factory import build_diffusion, build_model, load_config
 from ldm_tpu_torch.training.diffusion_trainer import DiffusionTrainer

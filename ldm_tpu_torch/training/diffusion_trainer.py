@@ -29,8 +29,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ldm_tpu.config import Config
-from ldm_tpu.data.transforms import reverse_transform
+from ldm_tpu_torch.config import Config
+from ldm_tpu_torch.data.transforms import reverse_transform
 from ldm_tpu_torch.diffusion.ddpm import GaussianDiffusion
 from ldm_tpu_torch.training import checkpoint as ckpt
 from ldm_tpu_torch.training.early_stopping import EarlyStopping

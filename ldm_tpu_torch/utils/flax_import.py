@@ -1,12 +1,14 @@
 """The weight bridge: flax parameter trees -> the port's tensors.
 
-The port's UNet names its submodules in the reference layout that
-``ldm_tpu.utils.torch_export.unet_state_dict_from_params`` already emits, so
-the bridge is that function plus ``torch.from_numpy``, and
+The port's UNet names its submodules in the reference layout, so the bridge
+is :func:`unet_state_dict_from_params` (the port's own copy of the UNet part
+of ``ldm_tpu/utils/torch_export.py``; it imports nothing of the JAX package
+and takes the tree's leaves as numpy arrays) plus ``torch.from_numpy``, and
 ``load_state_dict(strict=True)`` proves the key sets equal.  The export
 takes care of the layout details: OIHW conv weights, the spatial flip of the
 transposed convs, the zero time MLP of a ``bottleneck_time_emb=False``
-bottleneck, and no time MLP on the final head block.
+bottleneck, and no time MLP on the final head block.  The autoencoder and
+ResNet-classifier exporters come with their models.
 
 The fused ResNet-block op (``ops/resnet_block.py``) takes the JAX op's
 arguments; :func:`resnet_block_from_flax` makes them from a flax
@@ -21,7 +23,133 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ldm_tpu.utils.torch_export import unet_state_dict_from_params
+
+
+def _np(v) -> np.ndarray:
+    return np.asarray(v)
+
+
+# ----------------------------------------------------------- layout conversions
+def conv_weight(k: np.ndarray) -> np.ndarray:
+    """flax conv kernel (kh, kw, I, O) -> torch Conv2d weight (O, I, kh, kw)."""
+    return np.transpose(_np(k), (3, 2, 0, 1))
+
+
+def linear_weight(k: np.ndarray) -> np.ndarray:
+    return _np(k).T
+
+
+def convT_weight(k: np.ndarray) -> np.ndarray:
+    """flax (kh, kw, I, O) spatially-flipped -> torch ConvTranspose2d
+    (I, O, kh, kw).  The flip turns flax's correlation into torch's transposed convolution."""
+    return np.ascontiguousarray(
+        np.transpose(_np(k)[::-1, ::-1], (2, 3, 0, 1))
+    )
+
+
+def conv1x1_from_dense(k: np.ndarray) -> np.ndarray:
+    """dense kernel (I, O) -> torch 1x1 Conv2d weight (O, I, 1, 1)."""
+    return _np(k).T[:, :, None, None]
+
+
+def _put_conv(out: dict, pre: str, p: dict) -> None:
+    out[f"{pre}.weight"] = conv_weight(p["kernel"])
+    if "bias" in p:
+        out[f"{pre}.bias"] = _np(p["bias"])
+
+
+def _put_norm(out: dict, pre: str, p: dict) -> None:
+    out[f"{pre}.weight"] = _np(p["scale"])
+    out[f"{pre}.bias"] = _np(p["bias"])
+
+
+def _put_linear(out: dict, pre: str, p: dict) -> None:
+    out[f"{pre}.weight"] = linear_weight(p["kernel"])
+    if "bias" in p:
+        out[f"{pre}.bias"] = _np(p["bias"])
+
+
+# ------------------------------------------------------------------------ UNet
+def _put_unet_resblock(out: dict, pre: str, p: dict, time_dim: int) -> None:
+    def put_block(b: str, bp: dict) -> None:
+        _put_norm(out, f"{pre}.{b}.norm", bp["GroupNorm_0"])
+        _put_conv(out, f"{pre}.{b}.conv2d", bp["Conv_0"])
+
+    put_block("block1", p["Block_0"])
+    put_block("block2", p["Block_1"])
+    out_ch = _np(p["Block_1"]["Conv_0"]["kernel"]).shape[-1]
+    if "Dense_0" in p:
+        _put_linear(out, f"{pre}.mlp_t.1", p["Dense_0"])
+    else:
+        # reference blocks built with time_emb_dim always own these params
+        out[f"{pre}.mlp_t.1.weight"] = np.zeros((out_ch, time_dim), np.float32)
+        out[f"{pre}.mlp_t.1.bias"] = np.zeros((out_ch,), np.float32)
+    if "Conv_0" in p:
+        _put_conv(out, f"{pre}.shortcut", p["Conv_0"])
+
+
+def _put_lin_attn(out: dict, pre: str, p: dict) -> None:
+    out[f"{pre}.fn.norm.weight"] = _np(p["norm_pre_scale"])
+    out[f"{pre}.fn.norm.bias"] = _np(p["norm_pre_bias"])
+    out[f"{pre}.fn.fn.to_qkv.weight"] = conv1x1_from_dense(p["qkv_kernel"])
+    out[f"{pre}.fn.fn.to_out.0.weight"] = conv1x1_from_dense(p["out_kernel"])
+    out[f"{pre}.fn.fn.to_out.0.bias"] = _np(p["out_bias"])
+    out[f"{pre}.fn.fn.to_out.1.weight"] = _np(p["norm_post_scale"])
+    out[f"{pre}.fn.fn.to_out.1.bias"] = _np(p["norm_post_bias"])
+
+
+def unet_state_dict_from_params(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """A flax UNet tree (``{"params": ...}`` or bare; numpy or array-like
+    leaves) -> the state_dict of numpy arrays that the port's UNet loads
+    strictly: the UNet part of ``ldm_tpu/utils/torch_export.py``."""
+    p = params.get("params", params)
+    n_levels = 0
+    while f"ConvTranspose_{n_levels}" in p:
+        n_levels += 1
+    if n_levels == 0:
+        raise ValueError("no ConvTranspose_* keys — not a UNet parameter tree")
+    time_dim = _np(p["TimeEmbedding_0"]["Dense_1"]["kernel"]).shape[-1]
+
+    out: dict = {}
+    _put_linear(out, "time_emb.time_mlp.1", p["TimeEmbedding_0"]["Dense_0"])
+    _put_linear(out, "time_emb.time_mlp.3", p["TimeEmbedding_0"]["Dense_1"])
+    if "Embed_0" in p:
+        out["label_emb.weight"] = _np(p["Embed_0"]["embedding"])
+    _put_conv(out, "initial_conv", p["Conv_0"])
+
+    for i in range(n_levels):
+        _put_unet_resblock(out, f"encoder.downs.{i}.0",
+                           p[f"ResNetBlock_{i}"], time_dim)
+        _put_lin_attn(out, f"encoder.downs.{i}.1", p[f"LinAttnBlock_{i}"])
+
+    _put_unet_resblock(out, "bottleneck.res1",
+                       p[f"ResNetBlock_{n_levels}"], time_dim)
+    _put_norm(out, "bottleneck.attn.fn.norm",
+              p["PreNormResidual_0"]["GroupNorm_0"])
+    out["bottleneck.attn.fn.fn.to_qkv.weight"] = conv1x1_from_dense(
+        p["Attention_0"]["Dense_0"]["kernel"])
+    out["bottleneck.attn.fn.fn.to_out.weight"] = conv1x1_from_dense(
+        p["Attention_0"]["Dense_1"]["kernel"])
+    out["bottleneck.attn.fn.fn.to_out.bias"] = _np(
+        p["Attention_0"]["Dense_1"]["bias"])
+    _put_unet_resblock(out, "bottleneck.res2",
+                       p[f"ResNetBlock_{n_levels + 1}"], time_dim)
+
+    for i in range(n_levels):
+        out[f"decoder.ups.{i}.2.weight"] = convT_weight(
+            p[f"ConvTranspose_{i}"]["kernel"])
+        out[f"decoder.ups.{i}.2.bias"] = _np(p[f"ConvTranspose_{i}"]["bias"])
+        _put_unet_resblock(out, f"decoder.ups.{i}.0",
+                           p[f"ResNetBlock_{n_levels + 2 + i}"], time_dim)
+        _put_lin_attn(out, f"decoder.ups.{i}.1",
+                      p[f"LinAttnBlock_{n_levels + i}"])
+
+    _put_unet_resblock(out, "final_conv.0",
+                       p[f"ResNetBlock_{2 * n_levels + 2}"], time_dim)
+    # final head block carries no time MLP in the reference either
+    del out["final_conv.0.mlp_t.1.weight"], out["final_conv.0.mlp_t.1.bias"]
+    _put_conv(out, "final_conv.1", p["Conv_1"])
+    return out
 
 
 def unet_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:

@@ -77,7 +77,7 @@ class MetricsLogger:
                    dirpath: Optional[str] = None) -> Optional[str]:
         """Save a uint8 NHWC batch as one grid image, ``<mode>_step<step>.npy``
         (and ``.png`` when PIL is present); returns the ``.npy`` path."""
-        from ldm_tpu.utils.images import image_grid
+        from ldm_tpu_torch.utils.images import image_grid
 
         if not dirpath:
             return None

@@ -152,8 +152,47 @@ def test_bwd_kernel_takes_c_up_to_512():
     p = [torch.zeros(768, 3 * HIDDEN), torch.zeros(HIDDEN, 768)] + [torch.zeros(768)] * 5
     with torch.no_grad():
         la._check_cuda_args(x, p, HEADS, DIM_HEAD, torch.float32)
-        with pytest.raises(ValueError, match=r"\[4, 512\]"):
+        with pytest.raises(ValueError, match=r"\[16, 512\]"):
             la._check_cuda_args(x, p, HEADS, DIM_HEAD, torch.float32, max_c=la.MAX_C_BWD)
+    la.plan_fwd(4, 768, torch.float32)
+    with pytest.raises(ValueError, match=r"\[16, 512\]"):
+        la.plan_bwd(4, 768, torch.float32)
+
+
+# (N, C) of the 32px flagship UNet's 8 sites, the 64px UNet's and the 128px one
+# that chip_smoke.py checks on the card
+KERNEL_SHAPES = [(1024, 64), (256, 128), (64, 256), (16, 512), (16, 256), (64, 128), (256, 64),
+                 (1024, 64), (4096, 64), (1024, 128), (256, 256), (64, 512), (16384, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c", KERNEL_SHAPES)
+def test_bwd_plan_is_a_function_of_the_shape(n, c, dtype):
+    """plan_bwd: the cluster size from N alone, the rows split evenly, the
+    buffers 16-byte aligned, in order, and inside the 232,448 bytes a CTA can
+    take; the same answer every time."""
+    plan = la.plan_bwd(n, c, dtype)
+    assert plan == la.plan_bwd(n, c, dtype)
+    assert plan.cs == la.cluster_size(n) == {16: 1, 64: 1, 256: 2, 1024: 8, 4096: 8, 16384: 8}[n]
+    assert plan.cs * plan.rows == n and la.HIDDEN % plan.cs == 0
+    assert plan.smem_bytes <= la.SMEM_LIMIT == 232_448
+    offs = [plan.off_tile, plan.off_ctxn, plan.off_dctx, plan.off_dctxt, plan.off_vec,
+            plan.off_cw, plan.off_cwt, plan.off_qkv, plan.smem_bytes]
+    assert offs == sorted(offs) and all(o % 16 == 0 for o in offs)
+    es, pad = dtype.itemsize, 16 // dtype.itemsize
+    if plan.keep:  # the cluster path holds the CTA's rows of qn | kn | v
+        assert plan.smem_bytes - plan.off_qkv == plan.rows * (3 * HIDDEN + pad) * es
+    else:
+        assert plan.off_qkv == plan.smem_bytes
+    if plan.keep_cw:
+        assert plan.off_qkv - plan.off_cw == (HIDDEN * (c + pad) + c * (HIDDEN + pad)) * es
+    assert plan.path == ("cluster" if plan.keep else "tiled")
+    assert len(plan.ints()) == 12
+    if dtype == torch.bfloat16 and (n, c) in ((1024, 64), (256, 64), (256, 128)):
+        assert plan.keep  # the flagship sites stay on chip
+        assert plan.keep_cw == (c == 64)  # beside 128 rows at C=128, cw goes through scratch
+    if n >= 4096:
+        assert not plan.keep
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

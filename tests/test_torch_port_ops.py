@@ -162,30 +162,150 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
 
 
 def test_unet_block_reshapes_its_weights_once_per_version():
-    """LinAttnBlock hands the kernel its 1x1-conv weights as row-major (C, 3H)
-    and (H, C) copies made once, and made again only after the weights
-    change (load_state_dict, an in-place update) or move."""
+    """LinAttnBlock hands the kernels its 1x1-conv weights as contiguous
+    copies in the compute type, in both orientations, made once, and made
+    again only after the weights change (load_state_dict, an optimizer step,
+    any in-place update) or move, or when the compute type changes."""
     from ldm_tpu_torch.models.unet import LinAttnBlock
 
     block = LinAttnBlock(64)
     attn, out_conv, out_norm = block.fn.fn, *block.fn.fn.to_out
-    wqkv, wout = block.kernel_weights()
-    assert block.kernel_weights()[0] is wqkv  # cached: no copy per call
-    torch.testing.assert_close(wqkv, attn.to_qkv.weight.view(-1, 64).t(), rtol=0, atol=0)
-    torch.testing.assert_close(wout, out_conv.weight.view(64, -1).t(), rtol=0, atol=0)
-    params = [wqkv, wout, out_conv.bias, block.fn.norm.weight, block.fn.norm.bias,
+    w = block.kernel_weights(torch.bfloat16)
+    assert block.kernel_weights(torch.bfloat16) is w  # cached: no copy per call
+    assert w.wqkv is None and w.wout is None  # the forward reads the transposes alone
+    wq, wo = attn.to_qkv.weight.view(-1, 64), out_conv.weight.view(64, -1)
+    torch.testing.assert_close(w.wqkv_t, wq.to(torch.bfloat16), rtol=0, atol=0)
+    torch.testing.assert_close(w.wout_t, wo.to(torch.bfloat16), rtol=0, atol=0)
+    full = block.kernel_weights(torch.bfloat16, backward=True)  # a backward asks for all four
+    assert full is not w
+    assert block.kernel_weights(torch.bfloat16) is full
+    assert block.kernel_weights(torch.bfloat16, backward=True) is full
+    torch.testing.assert_close(full.wqkv, wq.t().to(torch.bfloat16), rtol=0, atol=0)
+    torch.testing.assert_close(full.wout, wo.t().to(torch.bfloat16), rtol=0, atol=0)
+    for name, t_ in full._asdict().items():
+        assert t_.is_contiguous() and t_.dtype == torch.bfloat16 and not t_.requires_grad, name
+    params = [wq.t(), wo.t(), out_conv.bias, block.fn.norm.weight, block.fn.norm.bias,
               out_norm.weight, out_norm.bias]
+    x = torch.zeros(2, 16, 64, dtype=torch.bfloat16)
     with torch.no_grad():
-        la._check_cuda_args(torch.zeros(2, 16, 64), params, HEADS, DIM_HEAD, torch.float32)
+        # views of any strides pass beside the kernels' copies; alone they do not
+        la._check_cuda_args(x, params, HEADS, DIM_HEAD, torch.bfloat16, weights=full)
+        with pytest.raises(ValueError, match="contiguous"):
+            la._check_cuda_args(x, params, HEADS, DIM_HEAD, torch.bfloat16)
+        wrong = full._replace(wqkv_t=full.wqkv_t.float())
+        with pytest.raises(ValueError, match="kernel weight wqkv_t"):
+            la._check_cuda_args(x, params, HEADS, DIM_HEAD, torch.bfloat16, weights=wrong)
+
+    fp32 = block.kernel_weights(torch.float32, backward=True)  # another compute type
+    assert fp32.wqkv_t.dtype == torch.float32 and fp32 is not full
+    assert block.kernel_weights(torch.float32) is fp32
+    torch.testing.assert_close(fp32.wqkv, wq.t(), rtol=0, atol=0)
 
     sd = {k: torch.randn_like(v) for k, v in block.state_dict().items()}
     block.load_state_dict(sd)
-    wqkv2, _ = block.kernel_weights()
-    torch.testing.assert_close(wqkv2, sd["fn.fn.to_qkv.weight"].view(-1, 64).t(), rtol=0, atol=0)
+    w2 = block.kernel_weights(torch.bfloat16, backward=True)
+    assert block.kernel_weights(torch.bfloat16, backward=True) is w2
+    torch.testing.assert_close(w2.wqkv, sd["fn.fn.to_qkv.weight"].view(-1, 64).t()
+                               .to(torch.bfloat16), rtol=0, atol=0)
     with torch.no_grad():
         out_conv.weight.mul_(2)
-    torch.testing.assert_close(block.kernel_weights()[1],
-                               2 * sd["fn.fn.to_out.0.weight"].view(64, -1).t(), rtol=0, atol=0)
+    torch.testing.assert_close(block.kernel_weights(torch.bfloat16).wout_t,
+                               (2 * sd["fn.fn.to_out.0.weight"].view(64, -1))
+                               .to(torch.bfloat16), rtol=0, atol=0)
+
+
+def test_unet_block_remakes_its_weights_after_an_optimizer_step():
+    """The trainer's optimizer (foreach Adam) bumps the parameters' versions,
+    so the next call makes new copies, with the new values; a call with
+    nothing changed in between makes none."""
+    from ldm_tpu_torch.models.unet import LinAttnBlock
+
+    torch.manual_seed(0)
+    block = LinAttnBlock(64)
+    opt = torch.optim.Adam(block.parameters(), lr=1e-2, foreach=True)
+    before = block.kernel_weights(torch.bfloat16, backward=True)
+    x = torch.randn(2, 64, 4, 4)
+    block(x).square().mean().backward()  # a CPU tensor: the plain versions, no copies
+    assert block._kernel_w is before
+    assert block.kernel_weights(torch.bfloat16, backward=True) is before
+    assert block.fn.fn.to_qkv.weight.grad.abs().max() > 0
+    assert block.fn.fn.to_out[0].weight.grad.abs().max() > 0
+    opt.step()
+    after = block.kernel_weights(torch.bfloat16, backward=True)
+    assert after is not before
+    assert not torch.equal(after.wqkv_t, before.wqkv_t)
+    torch.testing.assert_close(after.wqkv_t, block.fn.fn.to_qkv.weight.detach().view(-1, 64)
+                               .to(torch.bfloat16), rtol=0, atol=0)
+    assert block.kernel_weights(torch.bfloat16, backward=True) is after
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_make_kernel_weights(dtype):
+    """Both orientations of both projections, contiguous, in the compute type;
+    a weight that already is what the kernels read is not copied."""
+    wqkv, wout = torch_args(make_inputs(1, 16, 64, seed=9))[1:3]
+    conv_q = wqkv.t().contiguous()  # the UNet's layout, (3H, C); the op sees its transpose
+    w = la.make_kernel_weights(conv_q.t(), wout, dtype)
+    for got, want in zip(w, (wqkv, wqkv.t(), wout, wout.t())):
+        assert got.is_contiguous() and got.dtype == dtype
+        torch.testing.assert_close(got, want.to(dtype), rtol=0, atol=0)
+    if dtype == torch.float32:
+        assert w.wqkv_t.data_ptr() == conv_q.data_ptr() and w.wout.data_ptr() == wout.data_ptr()
+    fwd_only = la.make_kernel_weights(conv_q.t(), wout, dtype, backward=False)
+    assert fwd_only.wqkv is None and fwd_only.wout is None
+    torch.testing.assert_close(fwd_only.wout_t, wout.t().to(dtype), rtol=0, atol=0)
+
+
+# (N, C) of the 32px flagship UNet's 8 sites, the 64px UNet's and the 128px one
+# that chip_smoke.py checks on the card
+KERNEL_SHAPES = [(1024, 64), (256, 128), (64, 256), (16, 512), (16, 256), (64, 128), (256, 64),
+                 (1024, 64), (4096, 64), (1024, 128), (256, 256), (64, 512), (16384, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c", KERNEL_SHAPES)
+def test_fwd_plan_is_a_function_of_the_shape(n, c, dtype):
+    """plan_fwd: the cluster size from N alone, the rows split evenly, the
+    buffers 16-byte aligned, in order, and inside the 232,448 bytes a CTA can
+    take; what it keeps in shared memory has its room; the same answer every
+    time."""
+    plan = la.plan_fwd(n, c, dtype)
+    assert plan == la.plan_fwd(n, c, dtype)
+    assert plan.cs == la.cluster_size(n) == {16: 1, 64: 1, 256: 2, 1024: 8, 4096: 8, 16384: 8}[n]
+    assert plan.cs * plan.rows == n
+    assert plan.smem_bytes <= la.SMEM_LIMIT == 232_448
+    offs = [plan.off_tile, plan.off_ctxn, plan.off_vec, plan.off_u, plan.off_qkv,
+            plan.smem_bytes]
+    assert offs == sorted(offs) and all(o % 16 == 0 for o in offs)
+    es, pad = dtype.itemsize, 16 // dtype.itemsize
+    tile = plan.off_ctxn - plan.off_tile
+    assert tile >= 64 * (c + pad) * es and tile >= 2 * 64 * (HIDDEN + pad) * es
+    assert tile >= HIDDEN * DIM_HEAD * 4 + 2 * 256 * 4  # the partial ctx blocks and k sums
+    if plan.keep:
+        assert plan.smem_bytes - plan.off_qkv == plan.rows * (3 * HIDDEN + pad) * es
+        assert plan.off_out - plan.off_u == c * (HIDDEN + pad) * es
+        assert plan.off_qkv - plan.off_out >= plan.rows * (c + pad) * es
+    else:
+        assert plan.off_qkv == plan.smem_bytes
+    if plan.stage_w:
+        assert plan.off_qkv - plan.off_u >= 3 * HIDDEN * (c + pad) * es
+    assert plan.path == ("cluster" if plan.keep else "tiled")
+    assert len(plan.ints()) == 10
+    if dtype == torch.bfloat16 and (n, c) in ((1024, 64), (256, 64), (256, 128)):
+        assert plan.keep  # the flagship sites stay on chip
+        assert plan.stage_w == (c == 64)  # Wqkv^T does not fit beside 128 rows at C=128
+    if n >= 4096 or c == 512:
+        assert not plan.keep  # too large for a CTA: through global scratch
+
+
+def test_plans_refuse_what_no_path_takes():
+    for bad in ((64, 8), (64, 24), (0, 64), (64, 1024)):
+        with pytest.raises(ValueError):
+            la.plan_fwd(*bad, torch.float32)
+    with pytest.raises(ValueError):
+        la.plan_fwd(64, 64, torch.float16)
+    # rows split evenly, at least 128 a CTA
+    assert [la.cluster_size(n) for n in (96, 100, 128, 384, 512)] == [1, 1, 1, 2, 4]
 
 
 @pytest.mark.parametrize("where", ["env", "checkout", "installed"])
