@@ -13,9 +13,10 @@ printing its own lines; any failure raises and exits nonzero:
 1. device: a CUDA card or exit; its name and power limit; TF32 off.
 2. build: nvcc builds every kernel source of ldm_tpu_torch/csrc/, one
    compiler per source, started together; ptxas registers, shared memory
-   and spills per kernel; from cuobjdump's SASS, the tensor-core (HMMA) and
-   atomic instructions of each linear-attention kernel: the bf16 kernels
-   must have the first and none of the second.
+   and spills per kernel; from cuobjdump's SASS, the tensor-core (HMMA,
+   HGMMA) and atomic instructions of each linear-attention and ResNet-block
+   kernel: the bf16 kernels with a product must have the first, the fp32
+   kernels none, and no kernel the second.
 3. forward kernel vs plain: at the 8 attention sites of the 32px UNet at
    2B=20 and 2B=128, and at the 64px and 128px sites at 2B=4; fp32 (<= 1e-4)
    and bf16 (<= 3e-2 + one bf16 spacing of the output); each line names
@@ -45,18 +46,24 @@ printing its own lines; any failure raises and exits nonzero:
    (median of 5 runs of 10 steps).
 8. the fused ResNet-block kernel (``ops/resnet_block.py``) vs plain: at
    the 11 ResNet sites of the 32px flagship UNet at 2B=20 and 2B=128, at
-   probe 13's four sites at 2B=256 and at the 64px (4096, 64->64) site at
-   2B=4; fp32 (<= 1e-4 x max|plain|) and bf16 (<= 2e-2 x max|plain|); two
-   launches bit-identical; both timed at 2B=128 bf16, summed over the 11
-   sites.  Then ``ResNetBlockFn`` at B=8 on a decoder site: its input and
-   weight gradients against plain autograd, and the kernel launched.
+   probe 13's four sites at 2B=256, at the 64px (4096, 64->64) site at
+   2B=4, at the 2x2 site at 2B=2 and the 4x4 site at 2B=3 (fewer pixels
+   than one tile, an odd count) and at (8x8, 40->24) at 2B=5 (a C_out that
+   is no multiple of the column tile); fp32 (<= 1e-4 x max|plain|) and bf16
+   (<= 2e-2 x max|plain|); two launches bit-identical; each line names the
+   plan it took (tiles, CTAs sharing a tile in conv1 / conv2, CTAs, shared
+   memory); both timed at 2B=128 and 2B=20 bf16 by CUDA-graph replay,
+   summed over the 11 sites, beside the block's products alone as cuDNN
+   convolutions (a yardstick the port never calls).  Then ``ResNetBlockFn``
+   at B=8 on a decoder site: its input and weight gradients against plain
+   autograd, and the kernel launched.
 9. the probes' entry points, each with the counts set to 0 just before it:
    ``perf.probe13.main`` (the kernel launched at each of its sites),
    ``perf.probe13b.main`` (every mode vs its plain version; ``full`` bit
    for bit the production kernel) and ``perf.probe7.main`` (stages 1-5 vs
    plain, stage 6 bit for bit the production forward kernel).
 10. with ``--parent DIR`` (another commit's tree, unpacked): that tree's
-   linear-attention kernels and this one's timed in turns
+   linear-attention and ResNet-block kernels and this one's timed in turns
    (``perf.compare_parent``); skipped, and said so, without it.
 11. one JSON line of per-kernel results (each with its launches on the main
    paths, its time, the plain version's and its bound), the card's line,
@@ -78,6 +85,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ldm_tpu_torch import generate, train
 from ldm_tpu_torch.diffusion.ddpm import GaussianDiffusion
@@ -86,7 +94,7 @@ from ldm_tpu_torch.ops import build
 from ldm_tpu_torch.ops import linear_attention as la
 from ldm_tpu_torch.ops import resnet_block as rb
 from ldm_tpu_torch.perf import compare_parent, probe7, probe13, probe13b
-from ldm_tpu_torch.perf.common import card, cuda_graph_ms, cuda_ms
+from ldm_tpu_torch.perf.common import card, cuda_graph_ms
 
 FLAGSHIP = "configs/pixel_diffusion_model_cifar10.yaml"
 N_PARAMS = 20_350_915
@@ -122,10 +130,10 @@ PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
 # (site, side, C_in, C_out) of the 11 ResNet blocks of the 32px flagship UNet;
 # the head block has no time MLP (zero time rows)
-RB_SITES = [("enc0", 32, 64, 64), ("enc1", 16, 64, 128), ("enc2", 8, 128, 256),
-            ("enc3", 4, 256, 512), ("mid0", 2, 512, 512), ("mid1", 2, 512, 512),
-            ("dec0", 4, 768, 256), ("dec1", 8, 384, 128), ("dec2", 16, 192, 64),
-            ("dec3", 32, 128, 64), ("head", 32, 64, 64)]
+RB_SITES = probe13.UNET_SITES
+# fewer pixels than one 128-row tile (2B=2 at 2x2: 8; 2B=3 at 4x4: 48, an odd
+# batch) and a C_out that is no multiple of the 64-column tile
+RB_EDGE_CASES = [(2, RB_SITES[4]), (3, RB_SITES[3]), (5, ("ragged", 8, 40, 24))]
 # |kernel - plain| <= tol x max|plain|.  fp32: summation order only, over up
 # to 9 x 768 products.  bf16: the kernel rounds at the TPU kernel's points
 # (SiLU in fp32, conv2 + bias + shortcut in fp32), the plain version at the
@@ -201,7 +209,8 @@ def rb_bound(b: int, side: int, cin: int, cout: int) -> dict:
 
 def sass_counts(lib: str) -> dict:
     """Per kernel of a built library, from cuobjdump's SASS: how many
-    tensor-core (HMMA) and atomic (ATOM, ATOMS, ATOMG, RED) instructions."""
+    tensor-core (HMMA, HGMMA) and atomic (ATOM, ATOMS, ATOMG, RED)
+    instructions."""
     exe = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     sass = subprocess.run([exe, "-sass", lib], capture_output=True, text=True, check=True,
                           timeout=300).stdout
@@ -212,9 +221,28 @@ def sass_counts(lib: str) -> dict:
                if ln.lstrip().startswith("/*") and "*/" in ln and len(ln.split("*/")) > 2]
         flat = [w for op in ops for w in op]
         counts[name.strip()] = {
-            "hmma": sum(w.startswith("HMMA") for w in flat),
+            "hmma": sum(w.startswith(("HMMA", "HGMMA")) for w in flat),
             "atomics": sum(w.split(".")[0] in ("ATOM", "ATOMS", "ATOMG", "RED") for w in flat)}
     return counts
+
+
+def check_sass() -> None:
+    """Phase 2: every bf16 kernel with a product has tensor-core
+    instructions, no fp32 kernel has, no kernel has an atomic."""
+    for name in ("linear_attention_fwd.cu", "linear_attention_bwd.cu", "resnet_block_fwd.cu",
+                 "resnet_block_probe.cu"):
+        for kernel_name, n in sass_counts(str(build.build()[name][0])).items():
+            bf16 = "bfloat16" in kernel_name
+            # the kernels with products: the whole attention forward (STAGE 6;
+            # the stage-1 cut has none), the backward's item and dWqkv kernels,
+            # the ResNet convs of the modes center (2) and full (3)
+            product = any(s in kernel_name for s in ("bfloat16Li6E", "bwd_item", "bwd_wqkv"))
+            product |= "resnet_conv_kernel" in kernel_name and any(
+                s in kernel_name for s in ("Li2E", "Li3E"))
+            print(f"  sass {name}: {kernel_name[-70:]}: {n['hmma']} HMMA / HGMMA (tensor-core) "
+                  f"instructions, {n['atomics']} atomics")
+            if n["atomics"] or (bf16 and product and not n["hmma"]) or (not bf16 and n["hmma"]):
+                raise AssertionError(f"{kernel_name}: {n}")
 
 
 def site_inputs(b: int, n: int, c: int, dtype: torch.dtype, seed: int):
@@ -507,14 +535,32 @@ def rb_inputs(b: int, site: str, side: int, cin: int, cout: int, dtype, seed: in
     return args, dict(groups=8, compute_dtype=dtype, use_shortcut=use_sc)
 
 
+def conv_products(args, use_sc: bool):
+    """The block's products alone as PyTorch calls in bf16, channels_last: two
+    3x3 convolutions and the 1x1 where C_in != C_out.  A yardstick for the
+    kernel's time that the port never calls."""
+    dt, cl = torch.bfloat16, torch.channels_last
+    x = args[0].permute(0, 3, 1, 2)  # NHWC storage as a channels_last NCHW view
+    w1 = args[4].to(dt).permute(3, 2, 0, 1).contiguous(memory_format=cl)
+    w2 = args[8].to(dt).permute(3, 2, 0, 1).contiguous(memory_format=cl)
+    ws = args[10].to(dt).t()[:, :, None, None].contiguous(memory_format=cl) if use_sc else None
+
+    def run():
+        y = F.conv2d(F.conv2d(x, w1, padding=1), w2, padding=1)
+        return y + F.conv2d(x, ws) if use_sc else y
+
+    return run
+
+
 def check_resnet_block(tag: str) -> dict:
     """Phase 8: the ResNet-block kernel vs plain at the 11 flagship sites
-    (2B=20, 2B=128), probe13's sites (2B=256) and the 64px site (2B=4);
-    timings at 2B=128 bf16."""
+    (2B=20, 2B=128), probe13's sites (2B=256), the 64px site (2B=4) and the
+    edge cases; timings at 2B=128 and 2B=20 bf16."""
     cases = [(b, site) for b in (20, 128) for site in RB_SITES]
     cases += [(probe13.B, site) for site in probe13.SITES]
-    cases += [(4, ("64px-l0", 64, 64, 64))]
+    cases += [(4, ("64px-l0", 64, 64, 64))] + RB_EDGE_CASES
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    splits = set()
     for dtype in (torch.float32, torch.bfloat16):
         for b, (site, side, cin, cout) in cases:
             args, kw = rb_inputs(b, site, side, cin, cout, dtype, seed=b + side + cin + cout)
@@ -525,33 +571,50 @@ def check_resnet_block(tag: str) -> dict:
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             scale = want.float().abs().max().item()
+            plan = rb.plan_resnet(b, side, side, cin, cout, dtype)
+            splits |= {plan.split1, plan.split2}
             print(f"resnet kernel vs plain {site} ({side}x{side}, {cin}->{cout}) 2B={b} "
-                  f"{str(dtype)[6:]}: max_abs_err {err:.3e}, max|plain| {scale:.3e} "
-                  f"(tol {RB_TOL[dtype]:g} x max|plain|, ratio {err / scale:.2e})")
+                  f"{str(dtype)[6:]} [{plan.m_tiles} x {plan.n_tiles} tiles, {plan.split1} / "
+                  f"{plan.split2} CTAs a tile in conv1 / conv2, {plan.ctas(1)} / {plan.ctas(2)} "
+                  f"CTAs, {max(plan.smem1, plan.smem2)} B shared]: max_abs_err {err:.3e}, "
+                  f"max|plain| {scale:.3e} (tol {RB_TOL[dtype]:g} x max|plain|, ratio "
+                  f"{err / scale:.2e}; bit-identical rerun)")
             if not (torch.isfinite(got).all() and err <= RB_TOL[dtype] * scale):
                 raise AssertionError(f"resnet {site} 2B={b} {dtype}: err {err}, scale {scale}")
             if not torch.equal(got, again):
                 raise AssertionError(f"resnet {site} 2B={b} {dtype}: not deterministic")
             worst[dtype] = max(worst[dtype], err / scale)
+    if not {1, 2, 4, 8} <= splits:
+        raise AssertionError(f"the cases took only the splits {sorted(splits)}")
 
-    ms = plain_ms = 0.0
+    # device time by CUDA-graph replay: a block is three short launches, and
+    # eager timing would read the host's launch cost
+    sums = {}
     bounds = []
-    for i, (site, side, cin, cout) in enumerate(RB_SITES):
-        args, kw = rb_inputs(128, site, side, cin, cout, torch.bfloat16, seed=i)
-        with torch.inference_mode():
-            k = cuda_ms(lambda: rb.resnet_block(*args, **kw), iters=5)
-            t = cuda_ms(lambda: rb.resnet_block_torch(*args, **kw), iters=5)
-        bd = rb_bound(128, side, cin, cout)
-        bounds.append(bd)
-        ms, plain_ms = ms + k, plain_ms + t
-        print(f"time resnet {site} ({side}x{side}, {cin}->{cout}) 2B=128 bf16: kernel "
-              f"{k:.4f} ms, bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}, plain {t:.4f} ms "
-              f"[{tag}]")
+    for b in (128, 20):
+        ms = plain_ms = lib_ms = 0.0
+        for i, (site, side, cin, cout) in enumerate(RB_SITES):
+            args, kw = rb_inputs(b, site, side, cin, cout, torch.bfloat16, seed=i)
+            with torch.inference_mode():
+                k = cuda_graph_ms(lambda: rb.resnet_block(*args, **kw))
+                t = cuda_graph_ms(lambda: rb.resnet_block_torch(*args, **kw), iters=10)
+                lib = cuda_graph_ms(conv_products(args, kw["use_shortcut"]), iters=10)
+            bd = rb_bound(b, side, cin, cout)
+            if b == 128:
+                bounds.append(bd)
+            ms, plain_ms, lib_ms = ms + k, plain_ms + t, lib_ms + lib
+            print(f"time resnet {site} ({side}x{side}, {cin}->{cout}) 2B={b} bf16: kernel "
+                  f"{k:.4f} ms, bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}, plain "
+                  f"{t:.4f} ms, its products alone as cuDNN convolutions {lib:.4f} ms [{tag}]")
+        sums[b] = (ms, plain_ms, lib_ms)
+        print(f"time resnet all 11 sites 2B={b} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, products alone as cuDNN convolutions {lib_ms:.4f} ms [{tag}]")
     total = add_bounds(*bounds)
-    print(f"time resnet all 11 sites 2B=128 bf16: kernel {ms:.4f} ms, bound "
-          f"{total['bound_ms']:.4f} ms, plain {plain_ms:.4f} ms [{tag}]")
+    print(f"bound of the 11 sites at 2B=128: {total['bound_ms']:.4f} ms by {total['bound_by']}")
     return {"max_rel_err": worst[torch.bfloat16], "max_rel_err_fp32": worst[torch.float32],
-            "ms": ms, "plain_ms": plain_ms, **total}
+            "ms": sums[128][0], "plain_ms": sums[128][1], "conv_library_ms": sums[128][2],
+            "ms_2b20": sums[20][0], "plain_ms_2b20": sums[20][1],
+            "conv_library_ms_2b20": sums[20][2], **total}
 
 
 def check_resnet_block_fn() -> int:
@@ -621,7 +684,7 @@ def check_probes() -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="another commit's tree, unpacked: its linear-attention "
-                    "kernels are timed in turns with this tree's")
+                    "and ResNet-block kernels are timed in turns with this tree's")
     a = ap.parse_args(argv)
     phase("1 device")
     if not torch.cuda.is_available():
@@ -644,16 +707,7 @@ def main(argv=None) -> None:
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  ptxas: {line.strip()}")
     print(f"build wall time {time.perf_counter() - t0:.1f} s (sources compiled in parallel)")
-    for name in ("linear_attention_fwd.cu", "linear_attention_bwd.cu"):
-        for kernel_name, n in sass_counts(str(build.build()[name][0])).items():
-            bf16 = "bfloat16" in kernel_name
-            # the production kernels with products: the whole forward (STAGE 6;
-            # the stage-1 cut has none), the backward's item and dWqkv kernels
-            product = any(s in kernel_name for s in ("bfloat16Li6E", "bwd_item", "bwd_wqkv"))
-            print(f"  sass {name}: {kernel_name[-70:]}: {n['hmma']} HMMA (tensor-core) "
-                  f"instructions, {n['atomics']} atomics")
-            if n["atomics"] or (bf16 and product and not n["hmma"]) or (not bf16 and n["hmma"]):
-                raise AssertionError(f"{kernel_name}: {n}")
+    check_sass()
     build.load()
 
     phase("3 forward kernel vs plain")
@@ -797,8 +851,16 @@ def main(argv=None) -> None:
         "max_abs_err_fp32": resnet["max_rel_err_fp32"],
         "err_unit": "max_abs_err / max|plain|",
         **times(resnet),
-        "timed": "sum over the 11 ResNet sites, one block (4 kernels) each, 2B=128, bf16; "
-                 "kernel and plain version both by CUDA events around eager calls",
+        "conv_library_ms": resnet["conv_library_ms"],
+        "conv_library": "the block's products only (F.conv2d twice, and the 1x1 where C_in != "
+                        "C_out; bf16, channels_last), no GroupNorm, SiLU, bias or shortcut "
+                        "add; never called by the port",
+        "ms_2b20": resnet["ms_2b20"],
+        "plain_ms_2b20": resnet["plain_ms_2b20"],
+        "conv_library_ms_2b20": resnet["conv_library_ms_2b20"],
+        "timed": "sum over the 11 ResNet sites, one block (3 kernels) each, 2B=128, bf16 "
+                 "(ms_2b20: 2B=20); kernel, plain version and conv_library_ms all by "
+                 "CUDA-graph replay (device time, no host launch cost in it)",
     }, {
         "name": "resnet_block_probe",
         "route": "cuda",
@@ -810,7 +872,8 @@ def main(argv=None) -> None:
         "err_unit": "max_abs_err / max|plain|, worst mode",
         **times({"ms": rows13b[-1]["ms"], "plain_ms": rows13b[-1]["plain_ms"], **probe_full}),
         "ms_by_mode": {r["mode"]: r["ms"] for r in rows13b},
-        "timed": "mode full, (1024, 64->64), 2B=256, bf16",
+        "timed": "mode full, (1024, 64->64), 2B=256, bf16; kernel and plain version both by "
+                 "CUDA-graph replay",
     }, {
         "name": "linear_attention_fwd_stage",
         "route": "cuda",

@@ -18,12 +18,15 @@
 //     dWqkv = h^T d[qkv]); both operands are stored with the summed index as
 //     the row, and ldmatrix.trans turns them into fragments.
 // Every sum runs in an order fixed by the shape, so reruns are bit-identical.
+// The mma and ldmatrix instructions themselves are in mma.cuh, shared with
+// the ResNet-block kernels.
 #pragma once
 
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <type_traits>
 
+#include "mma.cuh"
 #include "numeric.cuh"
 
 namespace cg = cooperative_groups;
@@ -228,40 +231,6 @@ __device__ __forceinline__ void q_softmax_rows(const T* q, int ldq, int n0, int 
       for (int i = 0; i < 4; ++i) v[u][i] = v[u][i] / sum * scale;
     store_head(dst + (size_t)r * ldd + hh * DH, v);
   }
-}
-
-// ---- tensor-core pieces (bf16)
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 out.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 b16 matrices from shared memory, each transposed on the way:
-// lane i gives the address of row i % 8 of matrix i / 8 (16 bytes, aligned).
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// Four 8x8 b16 matrices from shared memory as they lie: lane i gives the
-// address of row i % 8 of matrix i / 8 (16 bytes, aligned); lane t receives
-// elements 2 (t % 4), + 1 of row t / 4 of each.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
 }
 
 // The bf16 form of product_nt (below).  A warp owns the column tiles w,

@@ -150,8 +150,9 @@ def load() -> types.SimpleNamespace:
     bwd.restype = i
     rb = libs["resnet_block_fwd.cu"].ldm_resnet_block_fwd
     # dtype, x, temb, n1s, n1b, w1, b1, n2s, n2b, w2, b2, ws, bs, y, h1 scratch,
-    # stats1, stats2, B, H, W, C_in, C_out, groups, eps, stream
-    rb.argtypes = [i] + [p] * 16 + [i] * 6 + [f, p]
+    # padded-weight scratch, statistics scratch, B, H, W, C_in, C_out, groups,
+    # eps, plan (host ints), stream
+    rb.argtypes = [i] + [p] * 16 + [i] * 6 + [f, ctypes.POINTER(ctypes.c_int), p]
     rb.restype = i
     rb_probe = libs["resnet_block_probe.cu"].ldm_resnet_block_probe
     rb_probe.argtypes = [i] + rb.argtypes  # mode, then the block's arguments

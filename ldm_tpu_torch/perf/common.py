@@ -1,4 +1,4 @@
-"""What the probes share: the card check and CUDA-event timing."""
+"""What the probes share: the card check and CUDA-graph timing."""
 
 from __future__ import annotations
 
@@ -27,26 +27,11 @@ def card() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() in ms, from CUDA events around `iters` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def cuda_graph_ms(fn, iters: int = 20, warmup: int = 3, replays: int = 3) -> float:
     """Mean device time of fn() in ms with the host out of the way: `iters`
     calls captured into one CUDA graph, the graph replayed, CUDA events
-    around the replays.  For kernels shorter than a launch from Python
-    takes, where :func:`cuda_ms` would time the host.  fn must not
+    around the replays.  Events around eager calls would time the host for
+    kernels shorter than a launch from Python takes.  fn must not
     synchronise."""
     for _ in range(warmup):
         fn()

@@ -1,19 +1,21 @@
-"""Two trees' linear-attention kernels timed in turns on one card: this
-checkout against another (an earlier commit unpacked beside it).
+"""Two trees' kernels timed in turns on one card: this checkout against
+another (an earlier commit unpacked beside it).
 
     git archive <commit> | tar -x -C build/parent      # build/ is git-ignored
     python -m ldm_tpu_torch.perf.compare_parent --parent build/parent [--out rows.json]
 
 Runs parent, this, this, parent, each in a process of its own that builds
-that tree's kernels and times, at the 8 attention sites of the 32px flagship
-UNet in bf16, the forward kernel at 2B=128 and 2B=20 and the backward
-kernels at B=64.  Both trees are called through the functions they share
-(``linear_attention_block`` and ``linear_attention_block_bwd`` on CUDA
-tensors, weights as the op takes them, so a tree's own weight copies are
-inside its time), and timed by the same code: 20 calls captured into a CUDA
-graph, replayed, CUDA events around the replays, so that the host's launch
-cost is out of the numbers.  Prints one line a site and the sums; exits
-nonzero when either sum of this tree is not below the parent's.
+that tree's kernels and times, in bf16: at the 8 attention sites of the 32px
+flagship UNet the linear-attention forward kernel at 2B=128 and 2B=20 and
+the backward kernels at B=64; at its 11 ResNet sites the fused ResNet block
+at 2B=128 and 2B=20.  Both trees are called through the functions they share
+(``linear_attention_block``, ``linear_attention_block_bwd`` and
+``resnet_block`` on CUDA tensors, weights as the ops take them, so a tree's
+own weight copies are inside its time), and timed by the same code: 20 calls
+captured into a CUDA graph, replayed, CUDA events around the replays, so
+that the host's launch cost is out of the numbers.  Prints one line a site
+and the sums; exits nonzero when a group's sum of this tree is above
+``LIMITS`` times the parent's, or a ResNet site is slower than the parent's.
 """
 
 from __future__ import annotations
@@ -28,10 +30,18 @@ from typing import Optional, Sequence
 
 from ldm_tpu_torch.perf.common import card, require_cuda
 
+# this / parent a group's sum must stay below.  The ResNet block was
+# redesigned after the parent: it must be faster.  The attention kernels'
+# code is the parent's: 1.02 is the spread between two runs of one tree.
+LIMITS = {"fwd128": 1.02, "fwd20": 1.02, "bwd64": 1.02, "rb128": 1.0, "rb20": 1.0}
+# groups in which every single site must be faster as well
+EVERY_SITE = ("rb128", "rb20")
+
 # what each tree runs: only names both trees have
 CHILD = r'''
-import json, sys, torch
+import json, sys, numpy as np, torch
 from ldm_tpu_torch.ops import build, linear_attention as la
+from ldm_tpu_torch.ops.resnet_block import resnet_block
 torch.backends.cuda.matmul.allow_tf32 = False
 SITES = [("enc0", 1024, 64), ("enc1", 256, 128), ("enc2", 64, 256), ("enc3", 16, 512),
          ("dec0", 16, 256), ("dec1", 64, 128), ("dec2", 256, 64), ("dec3", 1024, 64)]
@@ -63,6 +73,23 @@ def graph_ms(fn, iters=20, replays=3):
     e.synchronize()
     return s.elapsed_time(e) / (iters * replays)
 
+RB_SITES = [("enc0", 32, 64, 64), ("enc1", 16, 64, 128), ("enc2", 8, 128, 256),
+            ("enc3", 4, 256, 512), ("mid0", 2, 512, 512), ("mid1", 2, 512, 512),
+            ("dec0", 4, 768, 256), ("dec1", 8, 384, 128), ("dec2", 16, 192, 64),
+            ("dec3", 32, 128, 64), ("head", 32, 64, 64)]
+
+def rb_inputs(b, side, cin, cout, seed):
+    rng = np.random.RandomState(seed)
+    t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a, np.float32)).to(DEV, dt)
+    sc = cin != cout
+    return (t(rng.randn(b, side, side, cin) * 0.5, DT), t(rng.randn(b, cout) * 0.1),
+            t(1 + 0.1 * rng.randn(cin)), t(0.1 * rng.randn(cin)),
+            t(rng.randn(3, 3, cin, cout) / np.sqrt(9 * cin)), t(0.1 * rng.randn(cout)),
+            t(1 + 0.1 * rng.randn(cout)), t(0.1 * rng.randn(cout)),
+            t(rng.randn(3, 3, cout, cout) / np.sqrt(9 * cout)), t(0.1 * rng.randn(cout)),
+            t(rng.randn(cin, cout) / np.sqrt(cin)) if sc else t(np.zeros((1, 1))),
+            t(0.1 * rng.randn(cout)) if sc else t(np.zeros((1, 1)))), sc
+
 build.load()
 rows = {}
 for i, (site, n, c) in enumerate(SITES):
@@ -72,6 +99,12 @@ for i, (site, n, c) in enumerate(SITES):
             rows[f"fwd{b} {site}"] = graph_ms(lambda: la.linear_attention_block(x, *p, **KW))
     x, dy, p = inputs(64, n, c, i)
     rows[f"bwd64 {site}"] = graph_ms(lambda: la.linear_attention_block_bwd(x, dy, *p, **KW))
+for i, (site, side, cin, cout) in enumerate(RB_SITES):
+    for b in (128, 20):
+        args, sc = rb_inputs(b, side, cin, cout, i)
+        with torch.inference_mode():
+            rows[f"rb{b} {site}"] = graph_ms(
+                lambda: resnet_block(*args, groups=8, compute_dtype=DT, use_shortcut=sc))
 print("ROWS " + json.dumps(rows))
 '''
 
@@ -106,20 +139,21 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         print(f"{k} bf16: {vals} ms; this/parent {mean['this'][k] / mean['parent'][k]:.3f} "
               f"[{tag}]")
     ok = True
-    for group in ("fwd128", "fwd20", "bwd64"):
-        sums = {w: sum(v for k, v in mean[w].items() if k.startswith(group + " "))
-                for w in mean}
-        every = " ".join(f"{w} {sum(v for k, v in r.items() if k.startswith(group + ' ')):.4f}"
-                         for w, r in runs)
-        print(f"{group} all 8 sites bf16: parent {sums['parent']:.4f} ms, this "
+    for group, limit in LIMITS.items():
+        keys = [k for k in mean["this"] if k.startswith(group + " ")]
+        sums = {w: sum(mean[w][k] for k in keys) for w in mean}
+        every = " ".join(f"{w} {sum(r[k] for k in keys):.4f}" for w, r in runs)
+        slower = [k for k in keys if group in EVERY_SITE and mean["this"][k] >= mean["parent"][k]]
+        print(f"{group} all {len(keys)} sites bf16: parent {sums['parent']:.4f} ms, this "
               f"{sums['this']:.4f} ms, this/parent {sums['this'] / sums['parent']:.3f} "
-              f"(runs: {every}) [{tag}]")
-        ok &= sums["this"] < sums["parent"]
+              f"(limit {limit:g}; runs: {every}; sites slower than the parent's: "
+              f"{slower or 'none'}) [{tag}]")
+        ok &= sums["this"] < limit * sums["parent"] and not slower
     if a.out:
         with open(a.out, "w") as f:
             json.dump({"card": tag, "runs": runs}, f, indent=2)
     if not ok:
-        raise SystemExit("compare_parent: this tree is not faster than the parent")
+        raise SystemExit("compare_parent: a group of this tree is above its limit")
     return mean
 
 

@@ -5,7 +5,9 @@ four UNet site shapes of the JAX package's perf/probe13.py (2B=256, bf16).
 
 For each site: the kernel's output against the plain version's (``rel_err``
 = max |kernel - plain| / max |plain|; the two round bf16 at different
-points, see ops/resnet_block.py) and both timed with CUDA events.  The TPU
+points, see ops/resnet_block.py) and both timed by CUDA-graph replay (device
+time: the kernel's three launches are shorter than their launch from
+Python).  The TPU
 probe's sweep of items per grid program is TPU tiling and has no
 counterpart.  Prints one line a site and returns the rows; writes them as
 JSON only to ``--out``.
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 from ldm_tpu_torch.ops.resnet_block import resnet_block, resnet_block_torch
-from ldm_tpu_torch.perf.common import card, cuda_ms, require_cuda
+from ldm_tpu_torch.perf.common import card, cuda_graph_ms, require_cuda
 
 B = 256
 DT = torch.bfloat16
@@ -33,6 +35,16 @@ SITES = [
     ("decL0_32x32_128to64", 32, 128, 64),
     ("encL1_16x16_64to128", 16, 64, 128),
     ("decL1_16x16_192to64", 16, 192, 64),
+]
+
+
+# (site, side, C_in, C_out) of the 11 ResNet blocks of the 32px flagship UNet
+# (64 channels, multipliers 1/2/4/8); the head block has no time MLP
+UNET_SITES = [
+    ("enc0", 32, 64, 64), ("enc1", 16, 64, 128), ("enc2", 8, 128, 256),
+    ("enc3", 4, 256, 512), ("mid0", 2, 512, 512), ("mid1", 2, 512, 512),
+    ("dec0", 4, 768, 256), ("dec1", 8, 384, 128), ("dec2", 16, 192, 64),
+    ("dec3", 32, 128, 64), ("head", 32, 64, 64),
 ]
 
 
@@ -76,8 +88,8 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
             got = resnet_block(*args, **kw).float()
             want = resnet_block_torch(*args, **kw).float()
             err = ((got - want).abs().max() / want.abs().max().clamp_min(1e-6)).item()
-            k_ms = cuda_ms(lambda: resnet_block(*args, **kw), iters=a.iters)
-            p_ms = cuda_ms(lambda: resnet_block_torch(*args, **kw), iters=a.iters)
+            k_ms = cuda_graph_ms(lambda: resnet_block(*args, **kw), iters=a.iters)
+            p_ms = cuda_graph_ms(lambda: resnet_block_torch(*args, **kw), iters=a.iters)
         row = {"site": name, "b": B, "dtype": "bfloat16", "kernel_ms": k_ms,
                "plain_ms": p_ms, "rel_err": err,
                "launches": resnet_block.launches - before, "card": tag}

@@ -8,10 +8,14 @@ Modes (``csrc/resnet_block_probe.cu``, the block's kernels built with a
 compile-time mode; each output depends on every stage the mode keeps):
 
   noop    y = x: the launch and memory floor;
-  gnonly  both GroupNorm + SiLU passes and the epilogues, no products (each
-          conv is its normalised input's own pixel);
+  gnonly  the block's three launches without products: the statistics'
+          partial sums, the weights rounded once, every chunk's halo tile
+          loaded and normalised, the epilogues (each conv is its normalised
+          input's own pixel);
   center  each conv is its centre tap only (one K = C product);
   full    the block (the production kernel, bit for bit).
+
+Every mode and its plain version are timed by CUDA-graph replay (device time).
 
 The TPU probe's ``accum`` mode has no counterpart: the CUDA kernel builds no
 lane-concatenated patch matrix, it accumulates tap by tap already, so
@@ -31,7 +35,7 @@ import torch.nn.functional as F
 
 from ldm_tpu_torch.ops import build
 from ldm_tpu_torch.ops import resnet_block as rb
-from ldm_tpu_torch.perf.common import card, cuda_ms, require_cuda
+from ldm_tpu_torch.perf.common import card, cuda_graph_ms, require_cuda
 from ldm_tpu_torch.perf.probe13 import GROUPS, site_args
 
 MODES = ("noop", "gnonly", "center", "full")
@@ -119,8 +123,8 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
             got = probe_block(mode, *args).float()
             want = probe_block_torch(mode, *args).float()
             err = ((got - want).abs().max() / want.abs().max().clamp_min(1e-6)).item()
-            ms = cuda_ms(lambda: probe_block(mode, *args), iters=a.iters)
-            plain_ms = cuda_ms(lambda: probe_block_torch(mode, *args), iters=a.iters)
+            ms = cuda_graph_ms(lambda: probe_block(mode, *args), iters=a.iters)
+            plain_ms = cuda_graph_ms(lambda: probe_block_torch(mode, *args), iters=a.iters)
             rows.append({"mode": mode, "b": B, "dtype": "bfloat16", "ms": ms,
                          "delta_ms": ms - prev, "plain_ms": plain_ms, "rel_err": err,
                          "ok": err <= TOL, "card": tag})
