@@ -5,10 +5,13 @@
 
 Runs from the root of a checkout and drives the port's two main paths at the
 flagship width (configs/pixel_diffusion_model_cifar10.yaml, random weights
-from a seed), through their entry points: the class-conditional ancestral
-DDPM sampler with classifier-free guidance (``ldm_tpu_torch.generate.main``)
-and the diffusion trainer (``ldm_tpu_torch.train.run``).  Phases, each
-printing its own lines; any failure raises and exits nonzero:
+from a seed), through their entry points: the class-conditional samplers
+with classifier-free guidance (``ldm_tpu_torch.generate.main``: ancestral
+DDPM, DDIM, DPM-Solver++(2M)) and the diffusion trainer
+(``ldm_tpu_torch.train.run``).  Both run as they do by default on a card: one
+sampler step and one train step captured into CUDA graphs and replayed; the
+eager loops are timed beside them.  Phases, each printing its own lines; any
+failure raises and exits nonzero:
 
 1. device: a CUDA card or exit; its name and power limit; TF32 off.
 2. build: nvcc builds every kernel source of ldm_tpu_torch/csrc/, one
@@ -18,32 +21,52 @@ printing its own lines; any failure raises and exits nonzero:
    kernel: the bf16 kernels with a product must have the first, the fp32
    kernels none, and no kernel the second.
 3. forward kernel vs plain: at the 8 attention sites of the 32px UNet at
-   2B=20 and 2B=128, and at the 64px and 128px sites at 2B=4; fp32 (<= 1e-4)
+   2B=20 and 2B=128, at the 64px and 128px sites at 2B=4, and at the two
+   narrow sites of configs/smoke_synthetic.yaml ((256, 8) and (64, 16), the
+   first zero-padded to 16 columns by the wrapper) at 2B=20; fp32 (<= 1e-4)
    and bf16 (<= 3e-2 + one bf16 spacing of the output); each line names
    the path its plan took (cluster: the item kept in shared memory; tiled:
    through global scratch) and the CTAs an item; timed at 2B=128 bf16, the
    kernel and the plain version alike by CUDA-graph replay (device time, no
    host in it); the bound from the shapes.
-4. backward kernels vs plain: the 8 sites at B=64 and the 64px sites at
-   B=4, fp32 and bf16, each of the 8 grads within its stated tolerance, two
+4. backward kernels vs plain: the 8 sites at B=64, the 64px sites at
+   B=4 and the two narrow sites at B=8, fp32 and bf16, each of the 8 grads within its stated tolerance, two
    launches bit-identical; timed at B=64 bf16 as the forward.
 5. full-width UNet: 20,350,915 parameters; kernel-path vs plain-path
    forward (fp32 <= 1e-3; the bf16 difference is printed) and loss
    gradients at B=8 (fp32: every grad within 1e-3 x its leaf's max; every
-   to_qkv / to_out grad non-zero; the bf16 difference is printed).
-6. the sampling slice: generate.main at T=400, CFG 3, B=10 (2B=20), bf16;
-   every kernel's count is set to 0 just before and read just after: the
-   forward kernel must launch exactly 8 x 400 times, the others not at all;
-   uint8 (10, 32, 32, 3) images from a finite x0; a 10-step fp32 trajectory through the kernel
-   against the plain path; ms/step of 20 sampler steps at B=64 (median of 5
-   runs).
+   to_qkv / to_out grad non-zero; the bf16 difference is printed); the same
+   UNet's forward at 64px (the shape of configs/protocol_hard_64.yaml) at
+   2B=4, kernel path vs plain path (fp32 <= 1e-3, bf16 finite).
+6. the sampling slice: generate.main at T=400, CFG 3, B=10 (2B=20), bf16,
+   as a replayed graph; every kernel's count is set to 0 just before and
+   read just after: the forward kernel must launch exactly 8 x (400 replayed
+   steps + the 3 eager warm-up steps before the capture) times, the others
+   not at all; uint8 (10, 32, 32, 3) images from a finite x0; then a DDIM-50
+   and a DPM-Solver++-15 request at B=10 with the same count rule, and
+   configs/smoke_synthetic.yaml (attention at C = 8 and C = 16) through
+   generate.main, graphed against ``--eager``; fp32 10-step trajectories at
+   B=2: ancestral (injected x_T, the injected noise through the graph's
+   fixed buffer) graphed vs eager vs the plain path, DDIM eta=0 and
+   DPM-Solver++ graphed vs eager (each <= 1e-3); ms/step of 20 sampler steps
+   at B=64 and at B=10, graphed and eager (median of 5 runs each, every run
+   printed), beside the device's time for one replay.
 7. the training slice: train.run for 3 epochs of 9 steps at B=64, bf16, on
-   the synthetic fallback data, with the T=400 sample grid at epoch 2; the
-   backward kernels must launch exactly 8 x (train steps) times (all counts
-   set to 0 before, read after, again around one counted train step); finite
+   the synthetic fallback data (3 eager warm-up steps, 24 replayed), with
+   the T=400 sample grid at epoch 2; the backward kernels must launch
+   exactly 8 x (train steps) times (all counts set to 0 before, read after,
+   again around one replayed train step: 8 forward + 8 backward); finite
    losses, the last epoch's below the first's; checkpoint and metrics files;
-   a --resume run restores the step; ms/step of the train step at B=64
-   (median of 5 runs of 10 steps).
+   a --resume run restores the step and a capturable Adam's state and
+   trains on through a new capture; a graphed and an eager fp32 trainer from
+   the same state and the same injected t / eps / drop: the losses of 8
+   steps (5 replayed) within 1e-3 and the to_qkv / to_out.0 weights moved
+   alike; after the replays an eager eval_step on the kernel path equals the
+   plain-path model loaded from the same state_dict (1e-3: the kernel weight
+   copies are not stale); one epoch of configs/smoke_synthetic.yaml (the
+   backward kernels at C = 8); ms/step of the train step at B=64 graphed and
+   eager (median of 5 runs of 10 steps, every run printed) beside the
+   device's time for one replay.
 8. the fused ResNet-block kernel (``ops/resnet_block.py``) vs plain: at
    the 11 ResNet sites of the 32px flagship UNet at 2B=20 and 2B=128, at
    probe 13's four sites at 2B=256, at the 64px (4096, 64->64) site at
@@ -66,8 +89,9 @@ printing its own lines; any failure raises and exits nonzero:
    linear-attention and ResNet-block kernels and this one's timed in turns
    (``perf.compare_parent``); skipped, and said so, without it.
 11. one JSON line of per-kernel results (each with its launches on the main
-   paths, its time, the plain version's and its bound), the card's line,
-   and last ``{"ok": true, "device": {...}}``.
+   paths, its time, the plain version's and its bound) and the three
+   headline paths' host ms/step graphed and eager beside the device's ms a
+   replay, the card's line, and last ``{"ok": true, "device": {...}}``.
 
 No CPU fallback: without a card it exits nonzero before printing a result.
 """
@@ -89,14 +113,17 @@ import torch.nn.functional as F
 
 from ldm_tpu_torch import generate, train
 from ldm_tpu_torch.diffusion.ddpm import GaussianDiffusion
-from ldm_tpu_torch.factory import build_model, load_config
+from ldm_tpu_torch.factory import build_diffusion, build_model, load_config
 from ldm_tpu_torch.ops import build
 from ldm_tpu_torch.ops import linear_attention as la
 from ldm_tpu_torch.ops import resnet_block as rb
 from ldm_tpu_torch.perf import compare_parent, probe7, probe13, probe13b
 from ldm_tpu_torch.perf.common import card, cuda_graph_ms
+from ldm_tpu_torch.training.diffusion_trainer import DiffusionTrainer
+from ldm_tpu_torch.utils.graphs import WARMUP_STEPS
 
 FLAGSHIP = "configs/pixel_diffusion_model_cifar10.yaml"
+SMOKE = "configs/smoke_synthetic.yaml"  # channels 8, multipliers [1, 2], 16px, T=8
 N_PARAMS = 20_350_915
 # (site, N, C) of the 8 linear-attention blocks of the 32px flagship UNet
 SITES = [("enc0", 1024, 64), ("enc1", 256, 128), ("enc2", 64, 256),
@@ -105,6 +132,9 @@ SITES = [("enc0", 1024, 64), ("enc1", 256, 128), ("enc2", 64, 256),
 # the 64px UNet's sites and the largest 128px one, checked at 2B=4
 LARGE_SITES = [("64px-l0", 4096, 64), ("64px-l1", 1024, 128), ("64px-l2", 256, 256),
                ("64px-l3", 64, 512), ("128px-l0", 16384, 64)]
+# the attention sites of configs/smoke_synthetic.yaml: narrower than the
+# kernels' 16-column step (the wrapper zero-pads the first) and at it
+NARROW_SITES = [("smoke-l0", 256, 8), ("smoke-l1", 64, 16)]
 # |kernel - plain| <= atol + rtol * |plain|.  fp32: summation order only.
 # bf16: 3e-2 as tests/test_linear_attention_op.py allows, plus one bf16
 # spacing of the output (2^-7 |y|): y itself is bf16, spaced 2^-5 = 3.1e-2
@@ -162,6 +192,35 @@ def read_counts() -> dict:
 
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
+
+
+def host_ms(run, steps: int, runs: int = 5) -> list:
+    """Host-clock ms a step of ``run()`` (``steps`` steps), from a device
+    sync to a device sync, ``runs`` times.  The host's clock varies from run
+    to run on a shared machine: callers print every run and the median."""
+    out = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) / steps * 1e3)
+    return out
+
+
+def path_line(name: str, graphed: list, eager: list, device_ms: float, tag: str) -> dict:
+    """One headline path: host ms/step graphed and eager (every run, the
+    medians) beside the device's ms for one replay; the graphed median must
+    be below the eager one."""
+    g, e = float(np.median(graphed)), float(np.median(eager))
+    print(f"{name}: host {g:.3f} ms/step as a replayed graph (runs "
+          f"{' '.join(f'{r:.3f}' for r in graphed)}), {e:.3f} ms/step eager (runs "
+          f"{' '.join(f'{r:.3f}' for r in eager)}), device {device_ms:.3f} ms a replay; host / "
+          f"device {g / device_ms:.3f} graphed, {e / device_ms:.3f} eager [{tag}]")
+    if not g < e:
+        raise AssertionError(f"{name}: graphed {g} ms/step is not below eager {e}")
+    return {"graphed_ms": g, "eager_ms": e, "device_ms": device_ms,
+            "graphed_runs": graphed, "eager_runs": eager}
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -263,7 +322,7 @@ def check_kernel(tag: str) -> dict:
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     paths = {}
     cases = [(b, site) for b in (20, 128) for site in SITES]
-    cases += [(4, site) for site in LARGE_SITES]
+    cases += [(4, site) for site in LARGE_SITES] + [(20, site) for site in NARROW_SITES]
     for dtype in (torch.float32, torch.bfloat16):
         for b, (site, n, c) in cases:
             x, p = site_inputs(b, n, c, dtype, seed=b + n + c)
@@ -276,7 +335,7 @@ def check_kernel(tag: str) -> dict:
             err = diff.max().item()
             atol, rtol = TOL[dtype]
             excess = (diff - atol - rtol * want.float().abs()).max().item()
-            plan = la.plan_fwd(n, c, dtype)
+            plan = la.plan_fwd(n, la.pad_width(c), dtype)
             paths.setdefault(plan.path, set()).add((n, c, str(dtype)[6:], plan.cs))
             print(f"kernel vs plain {site} (N={n}, C={c}) 2B={b} "
                   f"{str(dtype)[6:]} [{plan.path} path, {plan.cs} CTAs an item, "
@@ -321,6 +380,7 @@ def check_bwd_kernel(tag: str) -> dict:
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     paths = {}
     cases = [(TRAIN_B, site) for site in SITES] + [(4, site) for site in LARGE_SITES[:4]]
+    cases += [(8, site) for site in NARROW_SITES]
     for dtype in (torch.float32, torch.bfloat16):
         for b, (site, n, c) in cases:
             x, p = site_inputs(b, n, c, dtype, seed=b + n + c)
@@ -341,7 +401,7 @@ def check_bwd_kernel(tag: str) -> dict:
                                          f"max|plain| {scale}")
                 if not torch.equal(g, a):
                     raise AssertionError(f"bwd {site} B={b} {dtype} {name}: not deterministic")
-            plan = la.plan_bwd(n, c, dtype)
+            plan = la.plan_bwd(n, la.pad_width(c), dtype)
             paths.setdefault(plan.path, set()).add((n, c, str(dtype)[6:], plan.cs))
             print(f"bwd kernel vs plain {site} (N={n}, C={c}) B={b} {str(dtype)[6:]} "
                   f"[{plan.path} path, {plan.cs} CTAs an item, {plan.smem_bytes} B shared]: "
@@ -411,9 +471,135 @@ def check_unet_grads(config) -> None:
               f"to_out weight has a non-zero gradient")
 
 
+def check_graphed_training(config) -> None:
+    """Phase 7, the graphed step against the eager one: two fp32 trainers
+    from the same weights, the same batches and injected t / eps / drop; 8
+    steps (3 eager warm-up steps, 5 replayed).  Before the replays an eager
+    eval_step and a sample from the EMA weights fill both models' caches of
+    kernel weight copies; after them the same calls must agree with the
+    plain-path models loaded from the state_dict (the copies were remade)."""
+    with tempfile.TemporaryDirectory() as workdir:
+        _check_graphed_training(dataclasses.replace(config, use_amp=False, workdir=workdir))
+
+
+def _check_graphed_training(cfg) -> None:
+    def trainer(graphs, **overrides):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(11)
+            model = build_model(cfg, DEV, **overrides)
+        return DiffusionTrainer(cfg, model, build_diffusion(cfg, DEV), None, None,
+                                list(range(10)), device=DEV, graphs=graphs)
+
+    graphed, eager = trainer(None), trainer(False)
+    start = {k: v.clone() for k, v in graphed.model.state_dict().items()}
+    g = torch.Generator().manual_seed(12)
+
+    def batch():
+        return {"image": torch.rand(TRAIN_B, 32, 32, 3, generator=g) * 2 - 1,
+                "label": torch.randint(0, 10, (TRAIN_B,), generator=g)}
+
+    held_out = batch()
+    grid = [1, 5, 9]
+    worst = 0.0
+    for step in range(8):
+        if step == WARMUP_STEPS:  # the last eager calls before the replays
+            graphed.eval_step(held_out, 0)
+            graphed.sample(grid, cfg_scale=3.0, method="dpmpp", ddim_steps=5)
+        b = batch()
+        draws = dict(t=torch.randint(0, T_STEPS, (TRAIN_B,), generator=g),
+                     eps=torch.randn(TRAIN_B, 32, 32, 3, generator=g),
+                     drop=torch.tensor(step % 3 == 0))
+        la_, lb = graphed.train_step(b, **draws), eager.train_step(b, **draws)
+        rel = abs(la_["loss"].item() - lb["loss"].item()) / lb["loss"].item()
+        worst = max(worst, rel)
+        print(f"  fp32 step {step}: loss graphed {la_['loss'].item():.6f} eager "
+              f"{lb['loss'].item():.6f}, grad norm {la_['grad_norm'].item():.4f} / "
+              f"{lb['grad_norm'].item():.4f}")
+        if rel > UNET_FP32_TOL:
+            raise AssertionError(f"step {step}: graphed loss off the eager one by {rel}")
+    if graphed.step_counts != {"graphed": 8 - WARMUP_STEPS, "eager": WARMUP_STEPS}:
+        raise AssertionError(f"step counts {graphed.step_counts}")
+    if graphed.state.step != 8 or int(graphed.state.step_t) != 8:
+        raise AssertionError("the graphed trainer's step counters are off")
+    moved = 0.0
+    others = dict(eager.model.named_parameters())
+    for name, p in graphed.model.named_parameters():
+        if "to_qkv" in name or "to_out.0.weight" in name:
+            da, db = p.detach() - start[name], others[name].detach() - start[name]
+            scale = db.abs().max().item()
+            moved = max(moved, (da - db).abs().max().item() / scale)
+            if not scale > 0 or (da - db).abs().max().item() > UNET_FP32_TOL * scale:
+                raise AssertionError(f"{name}: moved {da.abs().max().item()} graphed, {scale} "
+                                     f"eager")
+    print(f"graphed vs eager fp32 trainer, 8 steps ({8 - WARMUP_STEPS} replayed): worst loss "
+          f"difference {worst:.2e} of the loss; every to_qkv / to_out.0 weight moved, the "
+          f"same way within {moved:.2e} of its largest move")
+
+    plain = trainer(False, attention_impl="torch")
+    plain.state.load_state_dict(graphed.state.state_dict())
+    got, want = graphed.eval_step(held_out, 0).item(), plain.eval_step(held_out, 0).item()
+    images = graphed.sample(grid, cfg_scale=3.0, method="dpmpp", ddim_steps=5)
+    images_plain = plain.sample(grid, cfg_scale=3.0, method="dpmpp", ddim_steps=5)
+    off = np.abs(images.astype(np.int32) - images_plain.astype(np.int32)).max()
+    print(f"after the replays: eager eval_step on the kernel path {got:.6f}, plain-path model "
+          f"from the same state_dict {want:.6f}; EMA sample grid (DPM-Solver++, 5 steps) "
+          f"within {off} of 255 of the plain path's")
+    if abs(got - want) > UNET_FP32_TOL * want or off > 1:
+        raise AssertionError("the kernel weight copies are stale after replayed steps")
+
+
+def check_smoke_config(tag: str) -> None:
+    """configs/smoke_synthetic.yaml on the card (attention at C = 8, which the
+    wrapper pads to the kernels' 16 columns, and at C = 16): requests through
+    generate.main graphed and eager, the kernel path against the plain path,
+    and one epoch of training."""
+    cfg = load_config(SMOKE)
+    t_steps, blocks = cfg.diffusion.n_steps, 4
+    out = {}
+    for how, extra, steps in (("graphed", [], t_steps + WARMUP_STEPS), ("eager", ["--eager"],
+                                                                         t_steps)):
+        zero_counts()
+        with tempfile.TemporaryDirectory() as d:
+            out[how] = generate.main([SMOKE, "--device", "cuda", "--out",
+                                      os.path.join(d, "x.npy"), *extra])
+        counts = read_counts()
+        if counts != dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": blocks * steps}:
+            raise AssertionError(f"the {how} smoke request launched {counts}")
+    err = np.abs(out["graphed"].x0 - out["eager"].x0).max()
+    m_kernel, m_plain = seeded_pair(cfg, seed=cfg.seed)
+    diffusion = build_diffusion(cfg, DEV)
+    classes = torch.arange(10, device=DEV)
+    x0 = [diffusion.sample(m, classes, (16, 16, 1), cfg_scale=3.0, null_label=m.null_label,
+                           generator=torch.Generator(device=DEV).manual_seed(0))
+          for m in (m_kernel, m_plain)]
+    err_plain = (x0[0] - x0[1]).abs().max().item()
+    print(f"{SMOKE} (attention at C=8, C=16) T={t_steps} B=10 fp32: images "
+          f"{out['graphed'].images.shape}; graphed vs eager max_abs_err {err:.3e}; kernel path "
+          f"vs plain path max_abs_err {err_plain:.3e}; forward launches {blocks} x "
+          f"({t_steps} + {WARMUP_STEPS} warm-up) graphed, {blocks} x {t_steps} eager [{tag}]")
+    if (out["graphed"].images.shape != (10, 16, 16, 1) or not np.isfinite(out["graphed"].x0).all()
+            or err > UNET_FP32_TOL or err_plain > UNET_FP32_TOL):
+        raise AssertionError(f"smoke config: errs {err}, {err_plain}")
+    with tempfile.TemporaryDirectory() as workdir:
+        # debugging cuts the data to two batches: too few to reach the capture
+        cfg = dataclasses.replace(cfg, workdir=workdir, epochs=1, debugging=False,
+                                  data=dataclasses.replace(cfg.data, synthetic_size=160))
+        zero_counts()
+        res = train.run(cfg, DEV)
+        counts = read_counts()
+    steps = res.trainer.state.step
+    print(f"{SMOKE} trained 1 epoch of {steps} steps at B=8: train loss "
+          f"{res.history['train_loss']}, steps {res.trainer.step_counts}, backward launches "
+          f"{counts['linear_attention_bwd']} (want {blocks * steps})")
+    if (steps != 16 or counts["linear_attention_bwd"] != blocks * steps
+            or res.trainer.step_counts != {"graphed": 16 - WARMUP_STEPS, "eager": WARMUP_STEPS}
+            or not np.isfinite(res.history["train_loss"]).all()):
+        raise AssertionError(f"smoke training: {steps} steps, {counts}")
+
+
 def check_training(config, tag: str) -> dict:
     """Phase 7: the training slice through train.run, then a resume and the
-    train step's time."""
+    train step's time, graphed and eager."""
     with tempfile.TemporaryDirectory() as workdir:
         cfg = dataclasses.replace(
             config, workdir=workdir, epochs=3,
@@ -429,8 +615,12 @@ def check_training(config, tag: str) -> dict:
               f"epoch {hist['train_loss']}, val loss {hist['val_loss']}; kernel launches: "
               f"backward {bwd_launches} (want {8 * steps}), forward {fwd_launches}; "
               f"all counts {run_counts}")
+        step_counts = res.trainer.step_counts
+        print(f"train steps replayed as a CUDA graph / eager: {step_counts}")
         if steps != 27 or bwd_launches != 8 * steps or any(run_counts[k] for k in OFF_PATH):
             raise AssertionError(f"{steps} steps, launches {run_counts}")
+        if step_counts != {"graphed": 27 - WARMUP_STEPS, "eager": WARMUP_STEPS}:
+            raise AssertionError(f"step counts {step_counts}")
         losses = hist["train_loss"] + hist["val_loss"]
         if not np.isfinite(losses).all() or not hist["train_loss"][-1] < hist["train_loss"][0]:
             raise AssertionError(f"losses {hist}")
@@ -446,33 +636,55 @@ def check_training(config, tag: str) -> dict:
         again = train.run(dataclasses.replace(cfg, epochs=0), DEV, resume=True)
         if again.resumed_from != steps:
             raise AssertionError(f"resume restored step {again.resumed_from}, want {steps}")
-        print(f"--resume restored step {again.resumed_from}")
-
-        trainer = res.trainer
+        # the restored optimizer is capturable: its step counts on the device,
+        # its moments the saved ones; training goes on through a new capture
+        trainer, resumed = res.trainer, again.trainer
+        opt, opt0 = resumed.state.optimizer, trainer.state.optimizer
+        first, first0 = resumed.state.params()[0], trainer.state.params()[0]
+        adam_step = opt.state[first]["step"]
+        restored = int(adam_step.item())
+        if not (all(g_["capturable"] for g_ in opt.param_groups) and adam_step.is_cuda
+                and restored == steps and int(resumed.state.step_t) == steps
+                and torch.equal(opt.state[first]["exp_avg_sq"], opt0.state[first0]["exp_avg_sq"])):
+            raise AssertionError("the resumed optimizer's state is not the saved one")
         gen = torch.Generator().manual_seed(6)
         batch = {"image": torch.rand(TRAIN_B, 32, 32, 3, generator=gen) * 2 - 1,
                  "label": torch.randint(0, 10, (TRAIN_B,), generator=gen)}
-        trainer.train_step(batch)  # warm-up
+        pairs = [(resumed.train_step(batch)["loss"].item(), trainer.train_step(batch)["loss"].item())
+                 for _ in range(WARMUP_STEPS + 2)]
+        print(f"--resume restored step {again.resumed_from} and a capturable Adam (its step "
+              f"count {restored} on {adam_step.device}); {len(pairs)} more steps, "
+              f"resumed (3 eager, then a new capture) / original (replayed) losses: "
+              f"{' '.join(f'{a:.5f}/{b:.5f}' for a, b in pairs)}")
+        if resumed.state.step != steps + len(pairs) or resumed.step_counts["graphed"] != 2 or any(
+                not np.isfinite(a) or abs(a - b) > 1e-2 * b for a, b in pairs):
+            raise AssertionError(f"the resumed run left the original's path: {pairs}")
+        del again, resumed, opt
+
         zero_counts()
         trainer.train_step(batch)
         per_step = read_counts()
-        print(f"one train step launches: {per_step}")
+        print(f"one replayed train step launches: {per_step}")
         if per_step != dict.fromkeys(OFF_PATH, 0) | {"linear_attention_fwd": 8,
                                                      "linear_attention_bwd": 8}:
             raise AssertionError(f"a train step launched the kernels {per_step} times")
-        runs = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
+
+        def ten_steps():
             for _ in range(10):
                 trainer.train_step(batch)
-            torch.cuda.synchronize()
-            runs.append((time.perf_counter() - t0) / 10 * 1e3)
-        step_ms = float(np.median(runs))
-        print(f"train step B={TRAIN_B} bf16: {step_ms:.3f} ms/step, median of 5 runs of 10 "
-              f"steps ({' '.join(f'{r:.3f}' for r in runs)}), {1e3 / step_ms:.3f} steps/s "
-              f"[{tag}]")
-    return {"run_counts": run_counts, "step_ms": step_ms, "per_step": per_step}
+
+        graphed = host_ms(ten_steps, 10)
+        device_ms = trainer.train_graph.device_ms(10)
+        trainer.graphs = False  # the same trainer's eager step
+        ten_steps()
+        eager = host_ms(ten_steps, 10)
+        trainer.graphs = True
+        trainer.train_step(batch)  # back on the graph: .grad is the graph's again
+        if not all(p.grad is g_ for p, g_ in zip(trainer.state.params(), trainer.train_graph.grads)):
+            raise AssertionError("after eager steps a replay did not restore the graph's grads")
+        path = path_line(f"train step B={TRAIN_B} bf16", graphed, eager, device_ms, tag)
+    return {"run_counts": run_counts, "step_ms": path["graphed_ms"], "per_step": per_step,
+            "path": path}
 
 
 def seeded_pair(config, seed: int = 0):
@@ -508,22 +720,114 @@ def check_unet(config) -> None:
             raise AssertionError(f"fp32 UNet kernel vs plain err {err} > {UNET_FP32_TOL}")
 
 
+def check_unet_64px(config) -> None:
+    """Phase 5, 64px: the full-width UNet's forward at the shape of
+    configs/protocol_hard_64.yaml (attention sites (4096, 64), (1024, 128),
+    (256, 256), (64, 512)), 2B=4, kernel path vs plain path."""
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(4, 64, 64, 3, generator=g).to(DEV)
+    t = torch.randint(0, T_STEPS, (4,), generator=g).to(DEV)
+    y = torch.tensor([3, 7, 10, 10]).to(DEV)
+    for use_amp in (False, True):
+        m_kernel, m_plain = seeded_pair(dataclasses.replace(config, use_amp=use_amp), seed=8)
+        with torch.inference_mode():
+            ek, ep = m_kernel(x, t, y), m_plain(x, t, y)
+        err = (ek - ep).abs().max().item()
+        dt = "bf16" if use_amp else "fp32"
+        print(f"full-width UNet at 64px 2B=4 {dt}: kernel path vs plain path max_abs_err "
+              f"{err:.3e}, |eps| max {ep.abs().max().item():.3f}")
+        if ek.shape != (4, 64, 64, 3) or not torch.isfinite(ek).all():
+            raise AssertionError(f"{dt} 64px UNet output {ek.shape} not finite")
+        if not use_amp and err > UNET_FP32_TOL:
+            raise AssertionError(f"fp32 64px UNet kernel vs plain err {err} > {UNET_FP32_TOL}")
+
+
 def check_trajectory(config) -> None:
-    """A short fp32 CFG trajectory through the kernel against the plain path,
-    same weights, same injected x_T and noise."""
+    """Short fp32 CFG trajectories, same weights, same injected x_T: the
+    ancestral sampler graphed (the injected noise copied into the graph's
+    fixed buffer) vs eager vs the plain path; DDIM eta=0 and DPM-Solver++
+    graphed vs eager."""
     m_kernel, m_plain = seeded_pair(dataclasses.replace(config, use_amp=False), seed=2)
     diffusion = GaussianDiffusion(10, device=DEV)
     g = torch.Generator().manual_seed(3)
     x_init = torch.randn(2, 32, 32, 3, generator=g)
-    noise = torch.randn(10, 2, 32, 32, 3, generator=g)
+    noise = torch.randn(10, 2, 32, 32, 3, generator=g).to(DEV)
     classes = torch.tensor([3, 7], device=DEV)
-    out = [diffusion.sample(m, classes, (32, 32, 3), cfg_scale=3.0, null_label=10,
-                            x_init=x_init, noise=lambda t: noise[t])
-           for m in (m_kernel, m_plain)]
-    err = (out[0] - out[1]).abs().max().item()
-    print(f"10-step fp32 CFG trajectory B=2: kernel path vs plain path max_abs_err {err:.3e}")
-    if not (torch.isfinite(out[0]).all() and err <= UNET_FP32_TOL):
-        raise AssertionError(f"trajectory err {err}")
+    kw = dict(cfg_scale=3.0, null_label=10, x_init=x_init)
+    shape = (32, 32, 3)
+    graphed = diffusion.sample(m_kernel, classes, shape, noise=lambda t: noise[t], graph=True, **kw)
+    eager = diffusion.sample(m_kernel, classes, shape, noise=lambda t: noise[t], **kw)
+    plain = diffusion.sample(m_plain, classes, shape, noise=lambda t: noise[t], **kw)
+    errs = {"ancestral graphed vs eager": (graphed - eager).abs().max().item(),
+            "ancestral graphed vs plain path": (graphed - plain).abs().max().item()}
+    for name, fn in (("DDIM eta=0", diffusion.sample_ddim), ("DPM-Solver++", diffusion.sample_dpmpp)):
+        a = fn(m_kernel, classes, shape, n_sample_steps=5, graph=True, **kw)
+        b = fn(m_kernel, classes, shape, n_sample_steps=5, graph=False, **kw)
+        errs[f"{name} (5 steps) graphed vs eager"] = (a - b).abs().max().item()
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{name} trajectory not finite")
+    print("fp32 CFG trajectories B=2, T=10, max_abs_err: "
+          + "; ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    if not torch.isfinite(graphed).all() or max(errs.values()) > UNET_FP32_TOL:
+        raise AssertionError(f"trajectory errs {errs}")
+
+
+def check_requests(config, tag: str) -> dict:
+    """Phase 6, the requests through generate.main at B=10, bf16, as
+    replayed graphs: ancestral T=400, DDIM-50, DPM-Solver++-15.  Counts set
+    to 0 before each, read after: the forward kernel 8 x (the sampler's
+    steps + the warm-up steps before the capture) times, no other kernel."""
+    host = GaussianDiffusion(T_STEPS)  # the samplers' step tables, on the host
+    requests = [("ddpm", [], T_STEPS),
+                ("ddim", ["--sampler", "ddim", "--ddim-steps", "50"],
+                 len(host.ddim_timesteps(50)[0])),
+                ("dpmpp", ["--sampler", "dpmpp", "--ddim-steps", "15"],
+                 len(host._dpmpp_coeffs(15)[0]))]
+    out = {}
+    for name, extra, steps in requests:
+        zero_counts()
+        with tempfile.TemporaryDirectory() as d:
+            res = generate.main([FLAGSHIP, "--per-class", "1", "--device", "cuda",
+                                 "--out", os.path.join(d, "x.npy"), *extra])
+        counts = read_counts()
+        want = 8 * (steps + WARMUP_STEPS)
+        print(f"kernel launches in the {name} request of {steps} steps: {counts} (want {want} "
+              f"of the forward kernel: 8 x ({steps} replayed + {WARMUP_STEPS} warm-up steps), "
+              f"and no other)")
+        if counts != dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": want}:
+            raise AssertionError(f"the {name} request launched {counts}")
+        if res.images.dtype != np.uint8 or res.images.shape != (10, 32, 32, 3):
+            raise AssertionError(f"images {res.images.dtype} {res.images.shape}")
+        if not np.isfinite(res.x0).all():
+            raise AssertionError("x0 not finite")
+        print(f"request {name} {steps} steps CFG 3 B=10 bf16: {10 / res.seconds:.3f} img/s "
+              f"({res.seconds:.3f} s of which warm-up and capture {res.capture_seconds:.3f} s; "
+              f"x0 in [{res.x0.min():.3f}, {res.x0.max():.3f}]) [{tag}]")
+        out[name] = {"counts": counts, "steps": steps, "seconds": res.seconds,
+                     "capture_seconds": res.capture_seconds}
+    return out
+
+
+def check_sampler_speed(model, b: int, tag: str) -> dict:
+    """Host ms/step of 20 ancestral CFG sampler steps at batch ``b`` (bf16),
+    graphed and eager, and the device's time for one replay."""
+    diffusion = GaussianDiffusion(20, device=DEV)
+    classes = (torch.arange(b) % 10).to(DEV)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+
+    def run(graph: bool):
+        diffusion.sample(model, classes, (32, 32, 3), cfg_scale=3.0,
+                         null_label=model.null_label, generator=gen, graph=graph)
+
+    runs = {}
+    for graph in (True, False):
+        run(graph)  # warm-up, and the capture
+        runs[graph] = host_ms(lambda: run(graph), 20)
+    (captured,) = diffusion.sampler_graphs()
+    if captured.graph.replays != 6 * 20:
+        raise AssertionError(f"{captured.graph.replays} replays in 6 runs of 20 steps")
+    device_ms = captured.device_ms(20)
+    return path_line(f"sampler B={b} (2B={2 * b}) bf16", runs[True], runs[False], device_ms, tag)
 
 
 def rb_inputs(b: int, site: str, side: int, cin: int, cout: int, dtype, seed: int):
@@ -720,55 +1024,31 @@ def main(argv=None) -> None:
     config = load_config(FLAGSHIP)
     check_unet(config)
     check_unet_grads(config)
+    check_unet_64px(config)
 
-    phase("6 the sampling slice: generate.main, T=400, CFG 3, B=10, bf16")
+    phase("6 the sampling slice: generate.main as replayed graphs, CFG 3, B=10, bf16")
     if config.diffusion.n_steps != T_STEPS or not config.use_amp:
         raise AssertionError("flagship config is not T=400 with use_amp")
-    zero_counts()
-    res = generate.main([FLAGSHIP, "--per-class", "1", "--device", "cuda"])
-    sample_counts = read_counts()
+    requests = check_requests(config, tag)
+    sample_counts = requests["ddpm"]["counts"]
     launches = sample_counts["linear_attention_fwd"]
-    print(f"kernel launches in the sampler run of {T_STEPS} steps: {sample_counts} "
-          f"(want {8 * T_STEPS} of the forward kernel and no other)")
-    if sample_counts != dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": 8 * T_STEPS}:
-        raise AssertionError(f"the sampler run launched {sample_counts}")
-    if res.images.dtype != np.uint8 or res.images.shape != (10, 32, 32, 3):
-        raise AssertionError(f"images {res.images.dtype} {res.images.shape}")
-    if not np.isfinite(res.x0).all():
-        raise AssertionError("x0 not finite")
-    print(f"sampler T=400 CFG 3 B=10 bf16: {10 / res.seconds:.3f} img/s "
-          f"({res.seconds:.3f} s, x0 in [{res.x0.min():.3f}, {res.x0.max():.3f}]) [{tag}]")
-
+    check_smoke_config(tag)
     check_trajectory(config)
-
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(config.seed)
         model = build_model(config, DEV).eval()
-    diffusion = GaussianDiffusion(20, device=DEV)
-    classes = (torch.arange(64) % 10).to(DEV)
-    gen = torch.Generator(device=DEV).manual_seed(0)
+    paths = {"sampler_b64": check_sampler_speed(model, 64, tag),
+             "request_b10": check_sampler_speed(model, 10, tag)}
+    for name in ("sampler_b64", "request_b10"):
+        b = 64 if name == "sampler_b64" else 10
+        print(f"{name}: {b / (paths[name]['graphed_ms'] * 1e-3 * T_STEPS):.3f} img/s at T=400 "
+              f"from the graphed median [{tag}]")
+    del model
 
-    def run():
-        diffusion.sample(model, classes, (32, 32, 3), cfg_scale=3.0,
-                         null_label=model.null_label, generator=gen)
-
-    run()  # warm-up
-    # the loop is launched from the host, whose clock varies from run to run
-    # on a shared machine: report every run and the median
-    runs = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        runs.append((time.perf_counter() - t0) / 20 * 1e3)
-    step_ms = float(np.median(runs))
-    print(f"sampler B=64 (2B=128) bf16: {step_ms:.3f} ms/step, median of 5 runs of "
-          f"20 steps ({' '.join(f'{r:.3f}' for r in runs)}), "
-          f"{64 / (step_ms * 1e-3 * T_STEPS):.3f} img/s at T=400 [{tag}]")
-
-    phase("7 the training slice: train.run, 3 epochs, B=64, bf16")
+    phase("7 the training slice: train.run as a replayed graph, 3 epochs, B=64, bf16")
     training = check_training(config, tag)
+    paths["train_b64"] = training["path"]
+    check_graphed_training(config)
 
     phase("8 the ResNet-block kernel vs plain, and ResNetBlockFn")
     t_rb = time.perf_counter()
@@ -800,9 +1080,10 @@ def main(argv=None) -> None:
     def per_step(name: str) -> dict:
         """Launches a sampler step and a train step, from the counts read
         around the T-step request and around the one counted train step."""
-        if sample_counts[name] % T_STEPS:
-            raise AssertionError(f"{name}: {sample_counts[name]} launches in {T_STEPS} steps")
-        return {"sampler": sample_counts[name] // T_STEPS, "train": training["per_step"][name]}
+        steps = T_STEPS + WARMUP_STEPS  # replayed, and eager before the capture
+        if sample_counts[name] % steps:
+            raise AssertionError(f"{name}: {sample_counts[name]} launches in {steps} steps")
+        return {"sampler": sample_counts[name] // steps, "train": training["per_step"][name]}
 
     train_counts = training["run_counts"]
     probe_full = rb_bound(probe13.B, 32, 64, 64)
@@ -814,7 +1095,9 @@ def main(argv=None) -> None:
         "replaces": "ldm_tpu/ops/linear_attention.py:220",
         "also_replaces": "ldm_tpu/ops/linear_attention.py:333",
         "launches": launches,
-        "launches_by_path": {"sample": launches, "train": train_counts["linear_attention_fwd"]},
+        "launches_by_path": {"sample": launches, "train": train_counts["linear_attention_fwd"],
+                             "sample_ddim": requests["ddim"]["counts"]["linear_attention_fwd"],
+                             "sample_dpmpp": requests["dpmpp"]["counts"]["linear_attention_fwd"]},
         "launches_per_step": per_step("linear_attention_fwd"),
         "max_abs_err": kernel["max_abs_err"],
         "max_abs_err_fp32": kernel["max_abs_err_fp32"],
@@ -886,7 +1169,13 @@ def main(argv=None) -> None:
         "ms_by_stage": {r["stage"]: r["ms"] for r in rows7},
         "timed": "stage 6 (the whole block), (1024, 64), 2B=128, bf16; kernel and plain "
                  "version both by CUDA-graph replay",
-    }], "train_step_ms": training["step_ms"]}))
+    }], "train_step_ms": training["step_ms"], "paths": paths,
+        "paths_unit": "host ms/step (median of 5 runs) as a replayed CUDA graph and eager, and "
+                      "the device's ms for one replay; bf16; request_b10 is the B=10 request's "
+                      "step, sampler_b64 the B=64 sampler's, train_b64 the train step",
+        "requests": {k: {"steps": v["steps"], "seconds": v["seconds"],
+                         "capture_seconds": v["capture_seconds"]} for k, v in requests.items()},
+    }))
     print(card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

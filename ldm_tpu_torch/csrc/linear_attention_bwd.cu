@@ -208,7 +208,8 @@ lin_attn_bwd_item_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                          float* __restrict__ o_s, T* __restrict__ do_s, T* __restrict__ cw_s,
                          T* __restrict__ cwt_s, float* __restrict__ stats,
                          float* __restrict__ pvec, float* __restrict__ pwout,
-                         float* __restrict__ pdcw, int N, int C, float eps, BwdPlan p) {
+                         float* __restrict__ pdcw, int N, int C, int Ct, float eps,
+                         BwdPlan p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int P = PAD<T>;
   constexpr int LT = HIDDEN + P;   // row stride of a 128-wide tile
@@ -254,7 +255,14 @@ lin_attn_bwd_item_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   float* pw = pwout + (size_t)b * HIDDEN * C;
   const int cq = C >> 2;
   const int rq = R * cq;
-  const float fnc = (float)N * (float)C;
+  // C is the width of the buffers, Ct <= C the block's true width: the
+  // columns from Ct on are zero padding in x, dy, the weights and the
+  // vectors.  Products and per-channel sums pass over them unchanged; the
+  // two GroupNorms' statistics and their backward means count and walk Ct
+  // columns, and do and dx, which subtract those means, are written as zero
+  // there, so every padded column of every output is zero.
+  const float fnc = (float)N * (float)Ct;
+  const bool padded = Ct != C;
 
   // ---- GN1 statistics of x, fp32: the mean, then the variance about it
   float s = 0.f;
@@ -269,6 +277,7 @@ lin_attn_bwd_item_kernel(const T* __restrict__ x, const T* __restrict__ dy,
 #pragma unroll 4
   for (int i = tid; i < rq; i += NT) {
     float v[4];
+    if (padded && (i % cq) * 4 >= Ct) continue;  // Ct is a multiple of 4
     load4(xg + (size_t)i * 4, v);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
@@ -443,6 +452,7 @@ lin_attn_bwd_item_kernel(const T* __restrict__ x, const T* __restrict__ dy,
 #pragma unroll 4
   for (int i = tid; i < rq; i += NT) {
     float o[4];
+    if (padded && (i % cq) * 4 >= Ct) continue;
     load4(ob + (size_t)i * 4, o);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
@@ -469,7 +479,7 @@ lin_attn_bwd_item_kernel(const T* __restrict__ x, const T* __restrict__ dy,
     return (dv * g2 - m1 - (o - mean2) * rstd2 * m2) * rstd2;
   };
   column_sums<1>(R, C, sred, pv, dyg, ob, [&](float dv, float o, int c, float* a) {
-    a[0] += do_of(dv, o, g2s[c]);
+    if (!padded || c < Ct) a[0] += do_of(dv, o, g2s[c]);
   });
 
   // ---- do in T (tile and scratch), dqn = do @ cw^T, then
@@ -487,7 +497,7 @@ lin_attn_bwd_item_kernel(const T* __restrict__ x, const T* __restrict__ dy,
         load4(ob + gi, o);
         load4(g2s + c, g2);
 #pragma unroll
-        for (int u = 0; u < 4; ++u) v[u] = do_of(v[u], o[u], g2[u]);
+        for (int u = 0; u < 4; ++u) v[u] = padded && c >= Ct ? 0.f : do_of(v[u], o[u], g2[u]);
         store4(tile + r * (C + P) + c, v);
         store4(dob + gi, v);
       }
@@ -745,7 +755,7 @@ lin_attn_bwd_item_kernel(const T* __restrict__ x, const T* __restrict__ dy,
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const float xh = (xv[u] - mean1) * rstd1;
-      dv[u] += (dh[u] * sc[u] - n1 - xh * n2) * rstd1;
+      if (!padded || c < Ct) dv[u] += (dh[u] * sc[u] - n1 - xh * n2) * rstd1;
     }
     store4(dxg + (size_t)i * 4, dv);
   }
@@ -899,13 +909,14 @@ int launch(const void* x, const void* dy, const void* wqkv, const void* wqkv_t,
            const float* g1b, const float* g2s, void* dx, float* dwqkv, float* dwout,
            float* dvec, void* qkv, void* dqkv, float* o, void* do_, void* cw, void* cwt,
            float* stats, float* pvec, float* pwout, float* pdcw, float* pwqkv, int B, int N,
-           int C, int splits, float eps, const int* plan, int smem_bytes,
+           int C, int Ct, int splits, float eps, const int* plan, int smem_bytes,
            cudaStream_t stream) {
   BwdPlan p;
   static_assert(sizeof(BwdPlan) == N_PLAN * sizeof(int), "BwdPlan is N_PLAN ints");
   int* pi = reinterpret_cast<int*>(&p);
   for (int i = 0; i < N_PLAN; ++i) pi[i] = plan[i];
-  if (B < 1 || N < 1 || C < 16 || C > MAX_C || C % 16 || splits != n_splits(B, N, C) ||
+  if (B < 1 || N < 1 || C < 16 || C > MAX_C || C % 16 || Ct < 8 || Ct % 8 || Ct > C ||
+      C - Ct >= 16 || splits != n_splits(B, N, C) ||
       p.cs < 1 || p.cs > MAX_CLUSTER || HIDDEN % p.cs || p.rows * p.cs != N ||
       smem_bytes < 0 || smem_bytes > SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
@@ -928,7 +939,8 @@ int launch(const void* x, const void* dy, const void* wqkv, const void* wqkv_t,
       static_cast<const T*>(wqkv), static_cast<const T*>(wqkv_t), static_cast<const T*>(wout),
       static_cast<const T*>(wout_t), bout, g1s, g1b, g2s, static_cast<T*>(dx),
       static_cast<T*>(qkv), static_cast<T*>(dqkv), o, static_cast<T*>(do_),
-      static_cast<T*>(cw), static_cast<T*>(cwt), stats, pvec, pwout, pdcw, N, C, eps, p);
+      static_cast<T*>(cw), static_cast<T*>(cwt), stats, pvec, pwout, pdcw, N, C, Ct, eps,
+      p);
   if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -960,24 +972,28 @@ extern "C" int ldm_lin_attn_bwd_splits(int B, int N, int C) { return n_splits(B,
 // (B, N, C), cw (B * cs, 128, C), cwt (B * cs, C, 128) (read only when
 // plan.keep_cw is 0) in T; o (B, N, C), stats (B, 2), pvec (B * cs, 5, C),
 // pwout (B, 128, C), pdcw (B * cs, 128, C) and pwqkv (splits, C, 384) fp32.
-// Every pointer 16-byte aligned.
+// Every pointer 16-byte aligned.  C_true: the block's true width, a multiple
+// of 8 with C - 16 < C_true <= C; the columns (of wqkv: the rows) from C_true
+// on are zero in x, dy, the weights and the vectors, and come out zero in dx
+// and the grads.
 extern "C" int ldm_lin_attn_bwd(int dtype, const void* x, const void* dy, const void* wqkv,
                                 const void* wqkv_t, const void* wout, const void* wout_t,
                                 const float* bout, const float* g1s, const float* g1b,
                                 const float* g2s, void* dx, float* dwqkv, float* dwout,
                                 float* dvec, void* qkv, void* dqkv, float* o, void* do_,
                                 void* cw, void* cwt, float* stats, float* pvec, float* pwout,
-                                float* pdcw, float* pwqkv, int B, int N, int C, int splits,
-                                float eps, const int* plan, int smem_bytes, void* stream) {
+                                float* pdcw, float* pwqkv, int B, int N, int C, int C_true,
+                                int splits, float eps, const int* plan, int smem_bytes,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(x, dy, wqkv, wqkv_t, wout, wout_t, bout, g1s, g1b, g2s, dx, dwqkv,
                          dwout, dvec, qkv, dqkv, o, do_, cw, cwt, stats, pvec, pwout, pdcw,
-                         pwqkv, B, N, C, splits, eps, plan, smem_bytes, s);
+                         pwqkv, B, N, C, C_true, splits, eps, plan, smem_bytes, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, dy, wqkv, wqkv_t, wout, wout_t, bout, g1s, g1b, g2s, dx,
                                  dwqkv, dwout, dvec, qkv, dqkv, o, do_, cw, cwt, stats, pvec,
-                                 pwout, pdcw, pwqkv, B, N, C, splits, eps, plan, smem_bytes,
-                                 s);
+                                 pwout, pdcw, pwqkv, B, N, C, C_true, splits, eps, plan,
+                                 smem_bytes, s);
   return (int)cudaErrorInvalidValue;
 }

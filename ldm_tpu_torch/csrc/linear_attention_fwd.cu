@@ -128,7 +128,7 @@ lin_attn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wqkv_t,
                     const float* __restrict__ g1s, const float* __restrict__ g1b,
                     const float* __restrict__ g2s, const float* __restrict__ g2b,
                     T* __restrict__ y, T* __restrict__ qkv_scratch,
-                    T* __restrict__ cw_scratch, int N, int C, float eps, FwdPlan p) {
+                    T* __restrict__ cw_scratch, int N, int C, int Ct, float eps, FwdPlan p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int P = PAD<T>;
   constexpr int LT = HIDDEN + P;   // row stride of a 128-wide tile
@@ -163,7 +163,12 @@ lin_attn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wqkv_t,
   const T* wq = p.stage_w ? wst : wqkv_t;
   const int cq = C >> 2;               // 4-element groups a row
   const int rq = R * cq;               // and in the CTA's rows
-  const float fnc = (float)N * (float)C;
+  // C is the width of the buffers, Ct <= C the block's true width: the
+  // columns from Ct on are zero padding (x, the weights and the vectors
+  // alike), which every product and sum passes over unchanged, but not a
+  // variance about a mean: GroupNorm's statistics count and walk Ct columns
+  const float fnc = (float)N * (float)Ct;
+  const bool padded = Ct != C;
   // the peers read this CTA's shared memory until they pass the last barrier
   auto finish = [&]() { if (cs > 1) cg::this_cluster().sync(); };
 
@@ -183,6 +188,7 @@ lin_attn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wqkv_t,
 #pragma unroll 4
   for (int i = tid; i < rq; i += NT) {
     float v[4];
+    if (padded && (i % cq) * 4 >= Ct) continue;  // Ct is a multiple of 4
     load4(xg + (size_t)(i / cq) * C + (i % cq) * 4, v);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
@@ -423,6 +429,7 @@ lin_attn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wqkv_t,
 #pragma unroll 4
   for (int i = tid; i < rq; i += NT) {
     float o[4];
+    if (padded && (i % cq) * 4 >= Ct) continue;
     load4(outb + (size_t)(i / cq) * ldo + (i % cq) * 4, o);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
@@ -466,13 +473,14 @@ template <typename T, int STAGE> cudaError_t raise_smem_limit() {
 template <typename T, int STAGE>
 int launch(const void* x, const void* wqkv_t, const void* wout_t, const float* bout,
            const float* g1s, const float* g1b, const float* g2s, const float* g2b, void* y,
-           void* qkv_scratch, void* cw_scratch, int B, int N, int C, float eps,
+           void* qkv_scratch, void* cw_scratch, int B, int N, int C, int Ct, float eps,
            const int* plan, int smem_bytes, cudaStream_t stream) {
   FwdPlan p;
   static_assert(sizeof(FwdPlan) == N_PLAN * sizeof(int), "FwdPlan is N_PLAN ints");
   int* pi = reinterpret_cast<int*>(&p);
   for (int i = 0; i < N_PLAN; ++i) pi[i] = plan[i];
-  if (B < 1 || N < 1 || C < 16 || C % 16 || p.cs < 1 || p.cs > MAX_CLUSTER ||
+  if (B < 1 || N < 1 || C < 16 || C % 16 || Ct < 8 || Ct % 8 || Ct > C || C - Ct >= 16 ||
+      p.cs < 1 || p.cs > MAX_CLUSTER ||
       p.rows * p.cs != N || smem_bytes < 0 || smem_bytes > SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
   const cudaError_t err = raise_smem_limit<T, STAGE>();
@@ -492,8 +500,8 @@ int launch(const void* x, const void* wqkv_t, const void* wout_t, const float* b
   const cudaError_t lerr = cudaLaunchKernelEx(
       &cfg, lin_attn_fwd_kernel<T, STAGE>, static_cast<const T*>(x),
       static_cast<const T*>(wqkv_t), static_cast<const T*>(wout_t), bout, g1s, g1b, g2s, g2b,
-      static_cast<T*>(y), static_cast<T*>(qkv_scratch), static_cast<T*>(cw_scratch), N, C, eps,
-      p);
+      static_cast<T*>(y), static_cast<T*>(qkv_scratch), static_cast<T*>(cw_scratch), N, C, Ct,
+      eps, p);
   if (lerr != cudaSuccess) return (int)lerr;
   return (int)cudaGetLastError();
 }
@@ -501,10 +509,10 @@ int launch(const void* x, const void* wqkv_t, const void* wout_t, const float* b
 template <typename T>
 int launch_stage(int stage, const void* x, const void* wqkv_t, const void* wout_t,
                  const float* bout, const float* g1s, const float* g1b, const float* g2s,
-                 const float* g2b, void* y, void* qkv, void* cw, int B, int N, int C,
+                 const float* g2b, void* y, void* qkv, void* cw, int B, int N, int C, int Ct,
                  float eps, const int* plan, int smem_bytes, cudaStream_t s) {
-#define LA_ARGS x, wqkv_t, wout_t, bout, g1s, g1b, g2s, g2b, y, qkv, cw, B, N, C, eps, plan, \
-                smem_bytes, s
+#define LA_ARGS x, wqkv_t, wout_t, bout, g1s, g1b, g2s, g2b, y, qkv, cw, B, N, C, Ct, eps, \
+                plan, smem_bytes, s
   switch (stage) {
     case 1: return launch<T, 1>(LA_ARGS);
     case 2: return launch<T, 2>(LA_ARGS);
@@ -523,7 +531,9 @@ int launch_stage(int stage, const void* x, const void* wqkv_t, const void* wout_
 // kernel.  dtype: 0 = float32, 1 = bfloat16: the type of x, y, the scratch and
 // the two weights.  x, y: (B, N, C), C a multiple of 16; wqkv_t: (384, C),
 // the transpose of Wqkv; wout_t: (C, 128), the transpose of Wout; vectors
-// (C,) fp32.  plan: the 10 ints of a FwdPlan (host memory), smem_bytes the
+// (C,) fp32.  C_true: the block's true width, a multiple of 8 with
+// C - 16 < C_true <= C; the columns from C_true on are zero in x, the
+// weights and the vectors, and come out zero in y.  plan: the 10 ints of a FwdPlan (host memory), smem_bytes the
 // dynamic shared memory it takes.  qkv_scratch (B, N, 384) and cw_scratch
 // (B * cs, C, 128) in the compute type are read only when plan.keep is 0.
 // Every pointer 16-byte aligned.
@@ -531,15 +541,16 @@ extern "C" int ldm_lin_attn_fwd_stage(int stage, int dtype, const void* x, const
                                       const void* wout_t, const float* bout, const float* g1s,
                                       const float* g1b, const float* g2s, const float* g2b,
                                       void* y, void* qkv_scratch, void* cw_scratch, int B,
-                                      int N, int C, float eps, const int* plan,
+                                      int N, int C, int C_true, float eps, const int* plan,
                                       int smem_bytes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_stage<float>(stage, x, wqkv_t, wout_t, bout, g1s, g1b, g2s, g2b, y,
-                               qkv_scratch, cw_scratch, B, N, C, eps, plan, smem_bytes, s);
+                               qkv_scratch, cw_scratch, B, N, C, C_true, eps, plan, smem_bytes,
+                               s);
   if (dtype == 1)
     return launch_stage<__nv_bfloat16>(stage, x, wqkv_t, wout_t, bout, g1s, g1b, g2s, g2b, y,
-                                       qkv_scratch, cw_scratch, B, N, C, eps, plan,
+                                       qkv_scratch, cw_scratch, B, N, C, C_true, eps, plan,
                                        smem_bytes, s);
   return (int)cudaErrorInvalidValue;
 }
@@ -549,7 +560,9 @@ extern "C" int ldm_lin_attn_fwd(int dtype, const void* x, const void* wqkv_t,
                                 const void* wout_t, const float* bout, const float* g1s,
                                 const float* g1b, const float* g2s, const float* g2b, void* y,
                                 void* qkv_scratch, void* cw_scratch, int B, int N, int C,
-                                float eps, const int* plan, int smem_bytes, void* stream) {
+                                int C_true, float eps, const int* plan, int smem_bytes,
+                                void* stream) {
   return ldm_lin_attn_fwd_stage(6, dtype, x, wqkv_t, wout_t, bout, g1s, g1b, g2s, g2b, y,
-                                qkv_scratch, cw_scratch, B, N, C, eps, plan, smem_bytes, stream);
+                                qkv_scratch, cw_scratch, B, N, C, C_true, eps, plan, smem_bytes,
+                                stream);
 }

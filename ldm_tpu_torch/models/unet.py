@@ -230,10 +230,15 @@ class LinAttnBlock(Residual):
             raise ValueError(f"attention impl must be None or 'torch', got {impl!r}")
         self.heads, self.dim_head, self.impl = heads, dim_head, impl
         self._kernel_w_key, self._kernel_w = None, None
+        self.replayed_steps = 0
 
     def _weights_key(self) -> tuple:
+        """What the cached copies are good for: the two weights' addresses and
+        versions, and the count of replayed steps.  A replayed CUDA graph
+        that updates the weights in place bumps no version counter; its owner
+        says so through :meth:`UNet.weights_replayed`."""
         wq, wo = self.fn.fn.to_qkv.weight, self.fn.fn.to_out[0].weight
-        return (wq.data_ptr(), wq._version, wo.data_ptr(), wo._version)
+        return (wq.data_ptr(), wq._version, wo.data_ptr(), wo._version, self.replayed_steps)
 
     def kernel_weights(self, dtype: torch.dtype, backward: bool = False) -> KernelWeights:
         """The (3H, C, 1, 1) / (C, H, 1, 1) conv weights as the kernels read
@@ -241,7 +246,9 @@ class LinAttnBlock(Residual):
         orientations; the forward's two alone until a backward asks).  Made
         once per weight version and compute type: again only when a weight
         changes (an optimizer step, a load_state_dict and any in-place update
-        bump its version) or moves, not on every call of the sampler's loop."""
+        bump its version; a replayed graph's update is counted in
+        ``replayed_steps``) or moves, not on every call of the sampler's loop.
+        A C that is no multiple of 16 comes zero-padded (``ops.pad_width``)."""
         key = (self._weights_key(), dtype)
         kw = self._kernel_w
         if key != self._kernel_w_key or (backward and kw.wqkv is None):
@@ -352,6 +359,32 @@ class UNet(nn.Module):
         )
         if device is not None:
             self.to(device)
+
+    # ---- the attention kernels' weight copies and CUDA graphs
+    def lin_attn_blocks(self) -> List[LinAttnBlock]:
+        return [m for m in self.modules() if isinstance(m, LinAttnBlock)]
+
+    def weights_replayed(self) -> None:
+        """Tell the blocks that a replayed CUDA graph changed the weights in
+        place (no version counter moved): their cached kernel copies are
+        stale, and the next eager call makes new ones."""
+        for block in self.lin_attn_blocks():
+            block.replayed_steps += 1
+
+    def drop_kernel_weights(self) -> None:
+        """Forget the cached kernel copies.  Before the capture of a step that
+        updates the weights: the copies are then made inside the captured
+        region, so every replay makes them again from the current weights."""
+        for block in self.lin_attn_blocks():
+            block._kernel_w_key, block._kernel_w = None, None
+
+    def kernel_weights_state(self) -> tuple:
+        """(key, copies): what the blocks' cached kernel copies are good for,
+        and the copies themselves.  A captured graph that read the copies
+        holds them (their memory must not be reused while it can replay) and
+        is stale once the key has changed."""
+        blocks = self.lin_attn_blocks()
+        return tuple(b._weights_key() for b in blocks), [b._kernel_w for b in blocks]
 
     @property
     def null_label(self) -> int:

@@ -131,8 +131,9 @@ def load() -> types.SimpleNamespace:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fwd = libs["linear_attention_fwd.cu"].ldm_lin_attn_fwd
     # dtype, x, wqkv_t, wout_t, bout, g1s, g1b, g2s, g2b, y, qkv scratch,
-    # ctx@Wout scratch, B, N, C, eps, plan (host ints), smem bytes, stream
-    fwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, f,
+    # ctx@Wout scratch, B, N, C, the true C, eps, plan (host ints), smem bytes,
+    # stream
+    fwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, f,
                     ctypes.POINTER(ctypes.c_int), i, p]
     fwd.restype = i
     stage = libs["linear_attention_fwd.cu"].ldm_lin_attn_fwd_stage
@@ -144,9 +145,9 @@ def load() -> types.SimpleNamespace:
     splits.restype = i
     bwd = bwd_lib.ldm_lin_attn_bwd
     # dtype, x, dy, wqkv, wqkv_t, wout, wout_t, bout, g1s, g1b, g2s, dx, dwqkv,
-    # dwout, dvec, 11 scratch buffers, B, N, C, splits, eps, plan (host
-    # ints), smem bytes, stream
-    bwd.argtypes = [i] + [p] * 25 + [i, i, i, i, f, ctypes.POINTER(ctypes.c_int), i, p]
+    # dwout, dvec, 11 scratch buffers, B, N, C, the true C, splits, eps, plan
+    # (host ints), smem bytes, stream
+    bwd.argtypes = [i] + [p] * 25 + [i, i, i, i, i, f, ctypes.POINTER(ctypes.c_int), i, p]
     bwd.restype = i
     rb = libs["resnet_block_fwd.cu"].ldm_resnet_block_fwd
     # dtype, x, temb, n1s, n1b, w1, b1, n2s, n2b, w2, b2, ws, bs, y, h1 scratch,

@@ -82,6 +82,7 @@ def linear_attention_block_torch(
     dim_head: int,
     eps: float = 1e-5,
     compute_dtype: torch.dtype = torch.float32,
+    stat_c: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the fused block (linear_attention_block_xla).
 
@@ -90,13 +91,22 @@ def linear_attention_block_torch(
       wqkv: (C, 3*heads*dim_head) fused qkv projection, no bias.
       wout/bout: (heads*dim_head, C) / (C,) output projection.
       gn{1,2}_scale/bias: (C,) GroupNorm affine params (pre-norm / post-norm).
+      stat_c: the kernels' treatment of a zero-padded width (:func:`pad_width`):
+        the two GroupNorms take their statistics over the first ``stat_c``
+        columns alone.  None: over all C.
     """
     hidden = heads * dim_head
     cd = compute_dtype
     acc = _stat_dtype(cd)
+    sc = x.shape[-1] if stat_c is None else stat_c
+
+    def stats(t):  # mean and variance of an item over its first sc columns
+        live = t[..., :sc]
+        return (live.mean(dim=(1, 2), keepdim=True),
+                live.var(dim=(1, 2), keepdim=True, correction=0))
+
     xf = x.to(acc)
-    mean = xf.mean(dim=(1, 2), keepdim=True)
-    var = xf.var(dim=(1, 2), keepdim=True, correction=0)
+    mean, var = stats(xf)
     h = ((xf - mean) * torch.rsqrt(var + eps) * gn1_scale + gn1_bias).to(cd)
 
     w = wqkv.to(cd)
@@ -125,8 +135,7 @@ def linear_attention_block_torch(
     out = torch.einsum("bdc,bnd->bnc", ctx_w, q) + bout.to(cd)
 
     of = out.to(acc)
-    mean2 = of.mean(dim=(1, 2), keepdim=True)
-    var2 = of.var(dim=(1, 2), keepdim=True, correction=0)
+    mean2, var2 = stats(of)
     o = (of - mean2) * torch.rsqrt(var2 + eps) * gn2_scale + gn2_bias
     return (x.to(acc) + o).to(x.dtype)
 
@@ -146,6 +155,7 @@ def linear_attention_block_bwd_torch(
     dim_head: int,
     eps: float = 1e-5,
     compute_dtype: torch.dtype = torch.float32,
+    stat_c: Optional[int] = None,
 ) -> tuple[torch.Tensor, ...]:
     """Plain PyTorch version of the fused block's backward (_fused_kernel_bwd).
 
@@ -164,6 +174,10 @@ def linear_attention_block_bwd_torch(
     statistics and softmax sums in fp32, dy rounded to x.dtype.  The GN
     variances are two-pass, as the forward's.
 
+    ``stat_c``: the kernels' treatment of a zero-padded width
+    (:func:`pad_width`): the items' means run over the first ``stat_c``
+    columns alone, and do and dx are zero in the others.  None: all C.
+
     Returns (dx in x.dtype, dWqkv, dWout, dbout, dg1s, dg1b, dg2s, dg2b), the
     parameter grads in the parameters' dtype (fp32).
     """
@@ -172,12 +186,14 @@ def linear_attention_block_bwd_torch(
     acc = _stat_dtype(cd)
     scale = dim_head**-0.5
     b, n, c = x.shape
+    sc = c if stat_c is None else stat_c
+    live = (torch.arange(c, device=x.device) < sc).to(acc)  # 1 on the true columns
 
     def rnd(t):  # round to the compute type, carry in the statistics type
         return t.to(cd).to(acc)
 
     def item_mean(t):
-        return t.mean(dim=(1, 2), keepdim=True)
+        return t[..., :sc].mean(dim=(1, 2), keepdim=True)
 
     def norm(t):
         mu = item_mean(t)
@@ -207,7 +223,7 @@ def linear_attention_block_bwd_torch(
     dg2s = (dyf * ohat).sum(dim=(0, 1))
     dg2b = dyf.sum(dim=(0, 1))
     dhat2 = dyf * gn2_scale.to(acc)
-    do = (dhat2 - item_mean(dhat2) - ohat * item_mean(dhat2 * ohat)) * inv2
+    do = (dhat2 - item_mean(dhat2) - ohat * item_mean(dhat2 * ohat)) * inv2 * live
     dbout = do.sum(dim=(0, 1))
     do = rnd(do)
     dqn = do @ cw.transpose(1, 2)  # (B, N, H)
@@ -225,20 +241,42 @@ def linear_attention_block_bwd_torch(
     dg1s = (dh * xhat).sum(dim=(0, 1))
     dg1b = dh.sum(dim=(0, 1))
     dhat1 = dh * gn1_scale.to(acc)
-    dx = dyf + (dhat1 - item_mean(dhat1) - xhat * item_mean(dhat1 * xhat)) * inv1
+    dx = dyf + (dhat1 - item_mean(dhat1) - xhat * item_mean(dhat1 * xhat)) * inv1 * live
     grads = (dwqkv, dwout, dbout, dg1s, dg1b, dg2s, dg2b)
     params = (wqkv, wout, bout, gn1_scale, gn1_bias, gn2_scale, gn2_bias)
     return (dx.to(x.dtype),) + tuple(g.to(p.dtype) for g, p in zip(grads, params))
 
 
-MAX_C_FWD = 768  # the forward kernel's widest C: a 64-row fp32 tile of C values
-MAX_C_BWD = 512  # the backward kernel's: that tile beside the fp32 dqn tile
+# On a CUDA tensor the block runs in inference up to C = 768 and trains up to
+# C = 512: the forward kernel's widest C is a 64-row fp32 tile of C values
+# in shared memory, the backward kernel's that tile beside the fp32 dqn tile.
+# A UNet with an attention site wider than 512 samples on the card but cannot
+# train there (LinearAttentionBlockFn refuses it in its forward).
+MAX_C_FWD = 768
+MAX_C_BWD = 512
+MIN_C = 8  # the narrowest C, and what C must be a multiple of
+C_STEP = 16  # the kernels' buffers are this multiple wide: narrower C is zero-padded
 SMEM_LIMIT = 232_448  # dynamic shared memory one CTA can take on an H100
 TILE_R = 64  # rows of a tile
 MAX_CLUSTER = 8  # the portable cluster size
 MIN_ROWS = 128  # the fewest rows of an item a CTA of a cluster takes
 _VEC_FWD = (4 * HIDDEN + 8 + 8) * 4  # kmax, ksum and their partials; red; slots
 _VEC_BWD = (6 * HIDDEN + 256 + 8 + 16) * 4  # + inner and its partial; sred
+
+
+def pad_width(c: int) -> int:
+    """The width of the kernels' buffers for a block of true width ``c``: the
+    next multiple of 16 (the tensor-core products walk C in steps of 16).
+    The wrappers pad x, dy, the projections and the vectors with zero columns
+    up to it, hand the kernels both widths, and slice the outputs; the
+    kernels take GroupNorm's statistics over the true columns alone."""
+    return -(-c // C_STEP) * C_STEP
+
+
+def _pad_last(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` with zero columns appended up to ``width``; itself if it is that wide."""
+    extra = width - t.shape[-1]
+    return t if extra == 0 else torch.nn.functional.pad(t, (0, extra))
 
 
 def cluster_size(n: int) -> int:
@@ -403,8 +441,11 @@ def make_kernel_weights(wqkv: torch.Tensor, wout: torch.Tensor, dtype: torch.dty
                         backward: bool = True) -> KernelWeights:
     """``wqkv`` (C, 3H) and ``wout`` (H, C), of any strides (the UNet hands in
     transposed views of its 1x1-conv weights), as :class:`KernelWeights` in
-    ``dtype``; without ``backward`` only the forward's two."""
+    ``dtype``; without ``backward`` only the forward's two.  A C that is no
+    multiple of 16 is zero-padded to :func:`pad_width`."""
     with torch.no_grad():
+        cp = pad_width(wout.shape[1])
+        wqkv, wout = _pad_last(wqkv.t(), cp).t(), _pad_last(wout, cp)
         return KernelWeights(
             _copy_as(wqkv, dtype) if backward else None, _copy_as(wqkv.t(), dtype),
             _copy_as(wout, dtype) if backward else None, _copy_as(wout.t(), dtype))
@@ -414,7 +455,8 @@ def _check_cuda_args(x, params, heads, dim_head, compute_dtype, max_c=MAX_C_FWD,
                      weights: Optional[KernelWeights] = None) -> None:
     """Raise on anything the kernels do not take.  With ``weights`` the two
     projections in ``params`` may be views of any strides (only their shapes
-    are checked); the kernels read ``weights``."""
+    are checked); the kernels read ``weights``, which are :func:`pad_width`
+    of C wide."""
     if heads * dim_head != HIDDEN or dim_head != DIM_HEAD:
         raise ValueError(
             f"kernel is written for heads*dim_head={HIDDEN}, dim_head={DIM_HEAD}; "
@@ -428,17 +470,19 @@ def _check_cuda_args(x, params, heads, dim_head, compute_dtype, max_c=MAX_C_FWD,
             f"got x {x.dtype}, compute {compute_dtype}"
         )
     b, n, c = x.shape
-    # a 64-row tile of C values must fit in shared memory; the tensor-core
-    # products walk C in steps of 16
-    if b < 1 or n < 1 or not 16 <= c <= max_c or c % 16:
+    # a 64-row tile of C values must fit in shared memory; the UNet's widths
+    # are multiples of 8 (its ResNet blocks' GroupNorm(8)), and the wrappers
+    # pad one that is no multiple of 16
+    if b < 1 or n < 1 or not MIN_C <= c <= max_c or c % MIN_C:
         raise ValueError(
-            f"kernel takes B, N >= 1 and C a multiple of 16 in [16, {max_c}], got {b, n, c}"
-        )
+            f"kernel takes B, N >= 1 and C a multiple of {MIN_C} in [{MIN_C}, {max_c}], "
+            f"got {b, n, c}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned")
     shapes = [(c, 3 * HIDDEN), (HIDDEN, c)] + [(c,)] * 5
+    cp = pad_width(c)
     names = ("wqkv", "wout", "bout", "gn1_scale", "gn1_bias", "gn2_scale", "gn2_bias")
     for i, (name, p, shape) in enumerate(zip(names, params, shapes)):
         if p.device != x.device:
@@ -455,8 +499,8 @@ def _check_cuda_args(x, params, heads, dim_head, compute_dtype, max_c=MAX_C_FWD,
         for name, w in weights._asdict().items():
             if w is None:
                 continue
-            want = {"wqkv": shapes[0], "wqkv_t": shapes[0][::-1],
-                    "wout": shapes[1], "wout_t": shapes[1][::-1]}[name]
+            want = {"wqkv": (cp, 3 * HIDDEN), "wqkv_t": (3 * HIDDEN, cp),
+                    "wout": (HIDDEN, cp), "wout_t": (cp, HIDDEN)}[name]
             if (w.device != x.device or w.dtype != x.dtype or tuple(w.shape) != want
                     or not w.is_contiguous() or w.data_ptr() % 16):
                 raise ValueError(
@@ -487,7 +531,10 @@ def _launch_kernel(x, params, *, heads, dim_head, eps, compute_dtype,
     if weights is None:
         weights = make_kernel_weights(params[0], params[1], x.dtype, backward=False)
     _check_cuda_args(x, params, heads, dim_head, compute_dtype, weights=weights)
-    b, n, c = x.shape
+    b, n, c_true = x.shape
+    c = pad_width(c_true)
+    x = _pad_last(x, c)
+    params = (*params[:2], *(_pad_last(p, c) for p in params[2:]))
     plan = plan_fwd(n, c, x.dtype)
     lib = build.load()
     y = torch.empty_like(x)
@@ -499,16 +546,16 @@ def _launch_kernel(x, params, *, heads, dim_head, eps, compute_dtype,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         args = (_DTYPE_CODE[x.dtype], x.data_ptr(), weights.wqkv_t.data_ptr(),
                 weights.wout_t.data_ptr(), *(p.data_ptr() for p in params[2:]),
-                y.data_ptr(), _ptr(qkv_scratch), _ptr(cw_scratch), b, n, c, float(eps),
-                _plan_array(plan), plan.smem_bytes, stream)
+                y.data_ptr(), _ptr(qkv_scratch), _ptr(cw_scratch), b, n, c, c_true,
+                float(eps), _plan_array(plan), plan.smem_bytes, stream)
         if stage is None:
             err = lib.ldm_lin_attn_fwd(*args)
         else:
             err = lib.ldm_lin_attn_fwd_stage(stage, *args)
     if err != 0:
         raise RuntimeError(f"linear-attention kernel launch failed: CUDA error {err} "
-                           f"(shape {b, n, c}, {plan})")
-    return y
+                           f"(shape {b, n, c_true}, {plan})")
+    return y if c == c_true else y[..., :c_true].contiguous()
 
 
 def _launch_bwd_kernel(x, dy, params, *, heads, dim_head, eps, compute_dtype,
@@ -520,10 +567,13 @@ def _launch_bwd_kernel(x, dy, params, *, heads, dim_head, eps, compute_dtype,
         weights = make_kernel_weights(params[0], params[1], x.dtype)
     _check_cuda_args(x, params, heads, dim_head, compute_dtype, max_c=MAX_C_BWD,
                      weights=weights)
-    b, n, c = x.shape
+    b, n, c_true = x.shape
+    c = pad_width(c_true)
     dy = dy.to(x.dtype).contiguous()
     if dy.shape != x.shape or dy.data_ptr() % 16:
         raise ValueError(f"dy must be a 16-byte aligned {tuple(x.shape)} tensor")
+    x, dy = _pad_last(x, c), _pad_last(dy, c)
+    params = (*params[:2], *(_pad_last(p, c) for p in params[2:]))
     plan = plan_bwd(n, c, x.dtype)
     lib = build.load()
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -554,12 +604,15 @@ def _launch_bwd_kernel(x, dy, params, *, heads, dim_head, eps, compute_dtype,
             *(w.data_ptr() for w in weights), *(p.data_ptr() for p in params[2:6]),
             dx.data_ptr(), dwqkv.data_ptr(), dwout.data_ptr(), dvec.data_ptr(),
             *(_ptr(t) for t in scratch.values()),
-            b, n, c, splits, float(eps), _plan_array(plan), plan.smem_bytes, stream,
+            b, n, c, c_true, splits, float(eps), _plan_array(plan), plan.smem_bytes, stream,
         )
     if err != 0:
         raise RuntimeError(f"linear-attention backward launch failed: CUDA error {err} "
-                           f"(shape {b, n, c}, {plan})")
+                           f"(shape {b, n, c_true}, {plan})")
     linear_attention_block_bwd.launches += 1
+    if c != c_true:
+        dx, dwqkv = dx[..., :c_true].contiguous(), dwqkv[:c_true]
+        dwout, dvec = dwout[:, :c_true], dvec[:, :c_true]
     return (dx, dwqkv, dwout, *dvec.unbind(0))
 
 

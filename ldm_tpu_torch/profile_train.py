@@ -5,7 +5,11 @@ flagship UNet by default.
     python -m ldm_tpu_torch.profile_train [config] [--batch 64] [--steps 10]
         [--runs 5] [--device cuda] [--trace-dir DIR]
 
-Random weights from the config's seed and a random batch.  It prints:
+Random weights from the config's seed and a random batch.  On a CUDA device
+the step is profiled as it runs by default there (everything after the draws
+captured into a CUDA graph and replayed) and then as the eager step that
+launches every kernel from Python; on the CPU there is only the eager step.
+For each it prints:
 
 * ``ms/step``: ``--runs`` unprofiled runs of ``--steps`` train steps each,
   host clock from a device sync to a device sync;
@@ -56,11 +60,32 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         "label": torch.randint(0, d.num_classes, (args.batch,), generator=g),
     }
 
+    results = {}
+    loops = ["graphed", "eager"] if trainer.graphs else ["eager"]
+    for how in loops:
+        trainer.graphs = how == "graphed"
+        res = _profile_step(args, trainer, batch, f"B={args.batch} {how} train step", tag, device)
+        prof = res.pop("prof")
+        if args.trace_dir:
+            os.makedirs(args.trace_dir, exist_ok=True)
+            name = f"train_B{args.batch}.json" if how == loops[0] else f"train_B{args.batch}_{how}.json"
+            prof.export_chrome_trace(os.path.join(args.trace_dir, name))
+        if how == loops[0]:
+            results = res   # the default step's readings; the eager ones beside them
+        else:
+            results[how] = res
+    return results
+
+
+def _profile_step(args, trainer, batch, name: str, tag: str, device: torch.device) -> dict:
+    """Host ms/step and the profiler's breakdown of the step, graphed or
+    eager as ``trainer.graphs`` says."""
+
     def run():
         for _ in range(args.steps):
             trainer.train_step(batch)
 
-    run()  # warm-up: cuDNN's choices, the kernels' build and load
+    run()  # warm-up: cuDNN's choices, the kernels' build and load, the capture
     _sync(device)
     walls = []
     for _ in range(args.runs):
@@ -68,7 +93,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         run()
         _sync(device)
         walls.append((time.perf_counter() - t0) / args.steps * 1e3)
-    print(f"B={args.batch} train step ms/step ({args.runs} runs of {args.steps} steps): "
+    print(f"{name} ms/step ({args.runs} runs of {args.steps} steps): "
           + " ".join(f"{w:.3f}" for w in walls) + tag, flush=True)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -83,7 +108,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
     n_kernels = sum(e.count for e in kernels)
-    print(f"B={args.batch} profiled: wall {wall_ms:.3f} ms for {args.steps} steps, device "
+    print(f"{name} profiled: wall {wall_ms:.3f} ms for {args.steps} steps, device "
           f"busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}% busy), device kernels "
           f"{n_kernels} ({n_kernels / args.steps:.1f}/step){tag}", flush=True)
     groups = {"linear-attention forward kernel": "lin_attn_fwd",
@@ -91,17 +116,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     split = {name: sum(e.device_time_total for e in kernels if key in e.key) / 1e3 / args.steps
              for name, key in groups.items()}
     split["everything else"] = busy_ms / args.steps - sum(split.values())
-    for name, ms in split.items():
-        print(f"  {ms:9.4f} ms/step  {name}")
+    for group, ms in split.items():
+        print(f"  {ms:9.4f} ms/step  {group}")
     print("  top kernels:")
     for e in sorted(kernels, key=lambda e: -e.device_time_total)[:10]:
         print(f"  {e.device_time_total / 1e3 / args.steps:9.4f} ms/step "
               f"{e.count / args.steps:6.1f}/step  {e.key[:100]}")
-    if args.trace_dir:
-        os.makedirs(args.trace_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.trace_dir, f"train_B{args.batch}.json"))
     return {"ms_per_step": walls, "busy_ms": busy_ms, "wall_ms": wall_ms,
-            "kernels": n_kernels, "split_ms_per_step": split}
+            "kernels": n_kernels, "split_ms_per_step": split, "prof": prof}
 
 
 if __name__ == "__main__":

@@ -3,7 +3,12 @@
 config -> data loaders -> UNet + diffusion -> DiffusionTrainer -> train().
 
     python -m ldm_tpu_torch.train configs/pixel_diffusion_model_cifar10.yaml \\
-        [--epochs N] [--resume] [--device cuda] [--strict-data]
+        [--epochs N] [--resume] [--device cuda] [--strict-data] [--eager]
+
+On a CUDA device the train step (everything after the step's random draws)
+and the sample grid's sampler steps run as CUDA graphs captured once and
+replayed; ``--eager`` asks for the steps that launch every kernel from
+Python (the only ones on the CPU).
 
 Data come from ``ldm_tpu_torch.data`` (the JAX package's numpy readers and
 loaders, resized without JAX): when the dataset's files are not under the
@@ -34,7 +39,8 @@ class Run(NamedTuple):
     resumed_from: Optional[int]  # the step a --resume run restored, else None
 
 
-def build_trainer(config: Config, device, strict_data: bool = False) -> DiffusionTrainer:
+def build_trainer(config: Config, device, strict_data: bool = False,
+                  eager: bool = False) -> DiffusionTrainer:
     train_loader, val_loader, _test_loader, classes = create_dataloaders(
         config, allow_synthetic_fallback=not strict_data
     )
@@ -43,15 +49,17 @@ def build_trainer(config: Config, device, strict_data: bool = False) -> Diffusio
         model = build_model(config)
     model.to(device)
     return DiffusionTrainer(config, model, build_diffusion(config, device),
-                            train_loader, val_loader, classes, device=device)
+                            train_loader, val_loader, classes, device=device,
+                            graphs=False if eager else None)
 
 
 def run(config: Config, device="cuda", resume: bool = False,
-        strict_data: bool = False) -> Run:
+        strict_data: bool = False, eager: bool = False) -> Run:
     """Build the trainer for ``config`` on ``device``, resume from the latest
-    checkpoint if asked and one exists, and train ``config.epochs`` epochs."""
+    checkpoint if asked and one exists, and train ``config.epochs`` epochs;
+    ``eager``: without CUDA graphs."""
     device = torch.device(device)
-    trainer = build_trainer(config, device, strict_data)
+    trainer = build_trainer(config, device, strict_data, eager)
     resumed = None
     if resume and trainer.resume_latest():
         resumed = trainer.state.step
@@ -69,11 +77,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Run:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--strict-data", action="store_true",
                     help="fail instead of falling back to synthetic data")
+    ap.add_argument("--eager", action="store_true",
+                    help="launch every kernel from Python instead of replaying CUDA graphs")
     args = ap.parse_args(argv)
     config = load_config(args.config)
     if args.epochs is not None:
         config = dataclasses.replace(config, epochs=args.epochs)
-    return run(config, args.device, resume=args.resume, strict_data=args.strict_data)
+    return run(config, args.device, resume=args.resume, strict_data=args.strict_data,
+               eager=args.eager)
 
 
 if __name__ == "__main__":

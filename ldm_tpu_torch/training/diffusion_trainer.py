@@ -14,6 +14,19 @@ drawn from a generator on the device seeded from (seed, step), the
 counterpart of ``fold_in(key, step)``; eval batches and the sample grid have
 streams of their own (salted as the JAX trainer salts them).
 
+On a CUDA device the step runs as a CUDA graph captured once and replayed
+(``utils/graphs.py``): what the JAX package's jitted, state-donated step is
+to its trainer.  The draws stay eager and per step (a generator seeded from
+(seed, step), so a resumed run continues the stream) and go into fixed
+buffers with the batch; everything after them is replayed: the noising, the
+label drop, forward, loss, backward (the attention blocks' backward kernels
+included), the gradient norm, Adam, the EMA and the device's step counter.
+There is one graph, for the first batch shape the trainer meets; the first
+steps at that shape run eagerly (they warm the capture up and are real
+steps), and a batch of another shape (a last, short batch) runs the eager
+step.  ``graphs=False`` asks for the eager step everywhere; on the CPU there
+is no other.
+
 The epoch is a Python loop over the batches (the JAX trainer's non-scan
 path); per-step losses stay on the device and are read once an epoch.  The
 validation loss applies the CFG lerp; every ``sample_every`` epochs a sample
@@ -24,7 +37,7 @@ at the ``checkpoint_every`` cadence and at the end.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,10 +48,12 @@ from ldm_tpu_torch.diffusion.ddpm import GaussianDiffusion
 from ldm_tpu_torch.training import checkpoint as ckpt
 from ldm_tpu_torch.training.early_stopping import EarlyStopping
 from ldm_tpu_torch.training.state import TrainState, step_generator
+from ldm_tpu_torch.utils.graphs import WARMUP_STEPS, StepGraph, side_stream, use_graphs
 from ldm_tpu_torch.utils.logging import MetricsLogger, Throughput, global_norm
 
 EVAL_SALT = 0x5EED     # the JAX trainer's salts: eval batches and sample grids
 SAMPLE_SALT = 0x5A7712
+SAMPLERS = ("ddpm", "ddim", "dpmpp")
 
 
 class DiffusionTrainer:
@@ -53,7 +68,11 @@ class DiffusionTrainer:
         device=None,
         logger: Optional[MetricsLogger] = None,
         cfg_scale: Optional[float] = None,
+        graphs: Optional[bool] = None,
     ):
+        """``graphs``: None runs the train step and the samplers as replayed
+        CUDA graphs on a CUDA device and eagerly elsewhere; False asks for
+        the eager paths; True on another device raises."""
         if config.loss_fn != "mse":
             raise ValueError("diffusion training uses MSE")
         self.config = config
@@ -74,6 +93,11 @@ class DiffusionTrainer:
             save_fn=self._save_best, min_delta_rel=config.early_stopping_min_delta_rel,
         )
         self._best: Optional[dict] = None
+        self.graphs = use_graphs(self.device, graphs)
+        self._graph: Optional[_TrainGraph] = None
+        self._graph_shape: Optional[tuple] = None  # the batch shape the graph is for
+        self._warm_steps = 0                       # eager steps taken at that shape
+        self.step_counts = {"graphed": 0, "eager": 0}
         self._warmed_up = False
         self._last_rates: Dict[str, float] = {}
         self._last_grad_norm = 0.0
@@ -82,17 +106,28 @@ class DiffusionTrainer:
     def model(self):
         return self.state.model
 
+    @property
+    def train_graph(self) -> Optional["_TrainGraph"]:
+        """The captured train step, once there is one."""
+        return self._graph
+
     # ------------------------------------------------------------ the step
     def dropped_labels(self, y: torch.Tensor, drop: Optional[torch.Tensor] = None,
                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """CFG label drop to the null label: one Bernoulli(p) for the whole
         batch (``label_drop_mode: batch``, the reference's) or one per sample
         (``sample``).  ``drop`` (bool, () or (B,)) overrides the draw."""
+        return torch.where(self.draw_drop(y, drop, generator), self.model.null_label, y)
+
+    def draw_drop(self, y: torch.Tensor, drop: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The drop mask of :meth:`dropped_labels` on y's device: ``drop``
+        if given, else drawn from ``generator``."""
         dc = self.config.diffusion
         if drop is None:
             shape = tuple(y.shape) if dc.label_drop_mode == "sample" else ()
             drop = torch.rand(shape, generator=generator, device=y.device) < dc.label_drop_prob
-        return torch.where(drop.to(y.device), self.model.null_label, y)
+        return drop.to(y.device)
 
     def _batch(self, batch: dict) -> Tuple[torch.Tensor, torch.Tensor]:
         image = torch.as_tensor(batch["image"]).to(self.device, torch.float32)
@@ -106,22 +141,57 @@ class DiffusionTrainer:
 
         Returns ``{"loss", "grad_norm"}`` as device scalars (no host sync).
         The parameters' ``.grad`` keep this step's gradients afterwards.
+
+        The draws (t, eps, the drop mask; whatever is not given) are made
+        eagerly from the step's generator.  The rest runs eagerly, or with
+        ``graphs`` as one replayed CUDA graph: for the first batch shape met,
+        after ``WARMUP_STEPS`` eager steps at that shape; a batch of another
+        shape runs the eager step.  ``step_counts`` counts both kinds.
         """
         state = self.state
         x0, y = self._batch(batch)  # encode is the identity for pixel DDPM
         gen = None
         if t is None or eps is None or drop is None:
             gen = step_generator(self.config.seed, state.step, self.device)
-        eps, xt, t = self.diffusion.noise_batch(x0, t=t, eps=eps, generator=gen)
-        y = self.dropped_labels(y, drop=drop, generator=gen)
+        t, eps = self.diffusion.draw_t_eps(x0, t, eps, gen)
+        drop = self.draw_drop(y, drop, gen)
 
+        if self.graphs:
+            if self._graph_shape is None:
+                self._graph_shape = tuple(x0.shape)
+            if tuple(x0.shape) == self._graph_shape:
+                if self._warm_steps >= WARMUP_STEPS:
+                    if self._graph is None:
+                        self._graph = _TrainGraph(self, x0, y, t, eps)
+                    self.step_counts["graphed"] += 1
+                    return self._graph.step(x0, y, t, eps, drop)
+                self._warm_steps += 1
+                self.step_counts["eager"] += 1
+                with side_stream(self.device):  # where warm-up for a capture runs
+                    out = self._device_step(x0, y, t, eps, drop)
+                state.count_step()
+                return out
+        self.step_counts["eager"] += 1
+        out = self._device_step(x0, y, t, eps, drop)
+        state.count_step()
+        if self._graph is not None:
+            self._graph.grads_moved = True
+        return out
+
+    def _device_step(self, x0, y, t, eps, drop) -> Dict[str, torch.Tensor]:
+        """Everything of a step after the draws, as a function of device
+        tensors alone: the noising, the label drop, forward, loss, backward,
+        the gradient norm, Adam and the EMA."""
+        state = self.state
+        xt = self.diffusion.q_sample(x0, t, eps)
+        y = torch.where(drop, state.model.null_label, y)
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
         eps_theta = state.model(xt, t, y)
         loss = torch.mean((eps.to(torch.float32) - eps_theta) ** 2)
         loss.backward()
         gnorm = global_norm([p.grad for p in state.params()])
-        state.apply_gradients()
+        state.update()
         return {"loss": loss.detach(), "grad_norm": gnorm}
 
     @torch.no_grad()
@@ -163,6 +233,8 @@ class DiffusionTrainer:
     def load_state(self, path: str) -> None:
         sd = ckpt.load_state(path, map_location=self.device)
         self.state.load_state_dict(sd)
+        # a captured step holds the addresses of the optimizer's old state
+        self._graph, self._warm_steps = None, 0
         self.early_stopping.restore(sd.get("best_val_loss", float("inf")))
 
     def resume_latest(self) -> bool:
@@ -237,20 +309,96 @@ class DiffusionTrainer:
         # leave both the best and the latest state on disk whatever the cadence
         self.save_latest()
         self._flush_best()
+        self.logger.log({"train_steps_graphed": self.step_counts["graphed"],
+                         "train_steps_eager": self.step_counts["eager"]}, step=cfg.epochs)
+        print(f"train steps: {self.step_counts['graphed']} replayed as a CUDA graph, "
+              f"{self.step_counts['eager']} eager")
         return history
 
     # ----------------------------------------------------------------- sample
     def sample(self, classes, cfg_scale: float = 0.0, use_ema: bool = True,
-               generator: Optional[torch.Generator] = None) -> np.ndarray:
-        """One image per entry of ``classes`` through the ancestral CFG
-        sampler, from the EMA weights by default; uint8 NHWC."""
+               generator: Optional[torch.Generator] = None, method: str = "ddpm",
+               ddim_steps: int = 50, eta: float = 0.0) -> np.ndarray:
+        """One image per entry of ``classes``, from the EMA weights by
+        default; uint8 NHWC.  ``method``: "ddpm" (the ancestral CFG sampler),
+        "ddim" (``ddim_steps`` steps, ``eta``) or "dpmpp" (DPM-Solver++(2M),
+        ``ddim_steps`` steps)."""
         model = (self.state.ema if use_ema else self.model).eval()
         if generator is None:
             generator = step_generator(self.config.seed, 0, self.device, SAMPLE_SALT)
         classes = torch.as_tensor(np.asarray(classes), dtype=torch.int64, device=self.device)
-        x0 = self.diffusion.sample(model, classes, self.image_shape, cfg_scale=cfg_scale,
-                                   null_label=model.null_label, generator=generator)
+        x0 = run_sampler(self.diffusion, method, model, classes, self.image_shape,
+                         ddim_steps=ddim_steps, eta=eta, cfg_scale=cfg_scale,
+                         null_label=model.null_label, generator=generator,
+                         graph=None if self.graphs else False)
         return reverse_transform(x0.cpu().numpy())
+
+
+def run_sampler(diffusion: GaussianDiffusion, method: str, model, classes, image_shape,
+                ddim_steps: int = 50, eta: float = 0.0, **kw) -> torch.Tensor:
+    """``diffusion``'s sampler ``method`` ("ddpm", "ddim", "dpmpp"; the
+    ``--sampler`` of the entry points); ``kw`` go to it."""
+    if method == "ddpm":
+        return diffusion.sample(model, classes, image_shape, **kw)
+    if method == "ddim":
+        return diffusion.sample_ddim(model, classes, image_shape, n_sample_steps=ddim_steps,
+                                     eta=eta, **kw)
+    if method == "dpmpp":
+        return diffusion.sample_dpmpp(model, classes, image_shape, n_sample_steps=ddim_steps,
+                                      **kw)
+    raise ValueError(f"sampler must be one of {SAMPLERS}, got {method!r}")
+
+
+class _TrainGraph:
+    """The train step after the draws as one CUDA graph, with its fixed input
+    buffers (image, label, t, eps, the drop mask) and its outputs.
+
+    Captured after the trainer's eager warm-up steps.  Just before the
+    capture both models' cached kernel weight copies are dropped, so the
+    attention blocks make them inside the captured region and every replay
+    makes them again from the weights Adam has moved; inside, the grads are
+    set to None once, so the backward allocates them from the graph's pool
+    and every replay writes them in place."""
+
+    def __init__(self, trainer: DiffusionTrainer, x0, y, t, eps):
+        self.trainer = trainer
+        state = trainer.state
+        self.x0, self.y, self.t, self.eps = (v.clone() for v in (x0, y, t, eps))
+        self.drop = torch.zeros(y.shape, dtype=torch.bool, device=y.device)
+
+        def drop_copies():
+            for m in (state.model, state.ema):
+                m.drop_kernel_weights()
+
+        self.graph = StepGraph(
+            lambda: trainer._device_step(self.x0, self.y, self.t, self.eps, self.drop),
+            trainer.device, warmup=0, before_capture=drop_copies)
+        drop_copies()  # the copies made under capture belong to the graph's pool
+        self.grads: List[torch.Tensor] = [p.grad for p in state.params()]
+        self.grads_moved = False  # an eager step has put other tensors in .grad
+
+    def device_ms(self, replays: int = 10) -> float:
+        """The device's time for one replayed step, in ms: ``replays`` real
+        steps on the batch and draws the buffers hold."""
+        ms = self.graph.device_ms(replays)
+        for _ in range(replays):
+            self.trainer.state.count_replayed_step()
+        self.trainer.step_counts["graphed"] += replays
+        return ms
+
+    def step(self, x0, y, t, eps, drop) -> Dict[str, torch.Tensor]:
+        for buf, val in ((self.x0, x0), (self.y, y), (self.t, t), (self.eps, eps),
+                         (self.drop, drop)):
+            buf.copy_(val)  # a () drop mask broadcasts over the batch
+        out = self.graph.replay()
+        state = self.trainer.state
+        state.count_replayed_step()
+        if self.grads_moved:  # .grad shows this step's gradients again
+            for p, g in zip(state.params(), self.grads):
+                p.grad = g
+            self.grads_moved = False
+        # clones: the next replay overwrites the graph's outputs
+        return {k: v.clone() for k, v in out.items()}
 
 
 def _clone(sd):

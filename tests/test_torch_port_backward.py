@@ -152,7 +152,7 @@ def test_bwd_kernel_takes_c_up_to_512():
     p = [torch.zeros(768, 3 * HIDDEN), torch.zeros(HIDDEN, 768)] + [torch.zeros(768)] * 5
     with torch.no_grad():
         la._check_cuda_args(x, p, HEADS, DIM_HEAD, torch.float32)
-        with pytest.raises(ValueError, match=r"\[16, 512\]"):
+        with pytest.raises(ValueError, match=r"\[8, 512\]"):  # the wrapper pads C = 8
             la._check_cuda_args(x, p, HEADS, DIM_HEAD, torch.float32, max_c=la.MAX_C_BWD)
     la.plan_fwd(4, 768, torch.float32)
     with pytest.raises(ValueError, match=r"\[16, 512\]"):

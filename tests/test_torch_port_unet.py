@@ -104,3 +104,25 @@ def test_flagship_parameters_and_keys_match_the_bridge():
     assert sorted(ours) == sorted(bridged)
     for k, v in ours.items():
         assert tuple(v.shape) == bridged[k].shape, k
+
+
+def test_unet_matches_flax_fp32_at_64px():
+    """One forward at 64px, four levels (channels 16, multipliers 1/2/4/8:
+    attention sites (4096, 16), (1024, 32), (256, 64), (64, 128) and back),
+    B=1, fp32, at the module tolerance: the depth and the image size of
+    configs/protocol_hard_64.yaml at a narrow width."""
+    kw = dict(in_channels=3, out_channels=3, channels=16, channel_multipliers=(1, 2, 4, 8),
+              num_classes=10)
+    flax_model = FlaxUNet(**kw)
+    params = jax.device_get(jax.jit(flax_model.init)(
+        jax.random.key(0), jnp.zeros((1, 64, 64, 3)), jnp.zeros((1,), jnp.int32),
+        jnp.zeros((1,), jnp.int32)))
+    model = UNet(**kw).eval()
+    model.load_state_dict(unet_from_flax(params), strict=True)
+    x, t, y = inputs(1, 64, 3, seed=64)
+    want = np.asarray(jax.jit(flax_model.apply)(params, jnp.asarray(x), jnp.asarray(t),
+                                                jnp.asarray(y)))
+    with torch.no_grad():
+        got = model(torch.from_numpy(x), torch.from_numpy(t).long(), torch.from_numpy(y).long())
+    assert got.shape == want.shape == (1, 64, 64, 3) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
