@@ -66,7 +66,26 @@ failure raises and exits nonzero:
    copies are not stale); one epoch of configs/smoke_synthetic.yaml (the
    backward kernels at C = 8); ms/step of the train step at B=64 graphed and
    eager (median of 5 runs of 10 steps, every run printed) beside the
-   device's time for one replay.
+   device's time for one replay.  train.run takes the device-resident epoch
+   (``training/scan_epochs.py``: the dataset on the card, the batch gathered
+   inside the replayed step); one epoch through it gives losses and weights
+   bit-identical to the per-batch loop fed the same permutation; host
+   ms/step of both epoch paths (median of 5 epochs of 9 steps) beside the
+   device's ms a replay of each.
+7b. the serving slice: ``serving.builder.build_generation_service`` over the
+   flagship's random weights written as a state_dict, B=64, CFG 3, bf16, the
+   native slot queue (asserted), DDIM-50: a 10-image request alone and again
+   under 16 concurrent clients, bit-identical, and equal bit for bit to
+   ``sample_ddim`` at B=64 on the same x_T in the same slots; the same
+   request through ``POST /generate`` (npy) on 127.0.0.1; 2,048 images from 8
+   client threads (img/s, padded share, latency p50 / p95, the batcher's
+   host ms a batch beside the device's, and the device's ms a served batch
+   and busy share from CUDA events around each batch's sampler) and ten
+   1-image requests one at a time (p50); ``stop()`` resolves every future
+   it drains; the forward kernel launched 8 x (50 x batches + 3 warm-up
+   steps) times, no other.  Then DPM-Solver++-15 saturated the same way.
+   A repeated ``sample_ddim`` / ``sample_dpmpp`` call at B=64 makes no host
+   sync (``torch.cuda.set_sync_debug_mode("error")``).
 8. the fused ResNet-block kernel (``ops/resnet_block.py``) vs plain: at
    the 11 ResNet sites of the 32px flagship UNet at 2B=20 and 2B=128, at
    probe 13's four sites at 2B=256, at the 64px (4096, 64->64) site at
@@ -99,19 +118,24 @@ No CPU fallback: without a card it exits nonzero before printing a result.
 from __future__ import annotations
 
 import argparse
+import base64
 import dataclasses
+import io
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ldm_tpu_torch import generate, train
+from ldm_tpu_torch.data.transforms import reverse_transform, scale_to_minus_one_one
 from ldm_tpu_torch.diffusion.ddpm import GaussianDiffusion
 from ldm_tpu_torch.factory import build_diffusion, build_model, load_config
 from ldm_tpu_torch.ops import build
@@ -119,6 +143,9 @@ from ldm_tpu_torch.ops import linear_attention as la
 from ldm_tpu_torch.ops import resnet_block as rb
 from ldm_tpu_torch.perf import compare_parent, probe7, probe13, probe13b
 from ldm_tpu_torch.perf.common import card, cuda_graph_ms
+from ldm_tpu_torch.serving import GenerationHTTPServer
+from ldm_tpu_torch.serving.builder import build_generation_service, load_sampler
+from ldm_tpu_torch.serving.service import slot_x_init
 from ldm_tpu_torch.training.diffusion_trainer import DiffusionTrainer
 from ldm_tpu_torch.utils.graphs import WARMUP_STEPS
 
@@ -169,6 +196,10 @@ RB_EDGE_CASES = [(2, RB_SITES[4]), (3, RB_SITES[3]), (5, ("ragged", 8, 40, 24))]
 # (SiLU in fp32, conv2 + bias + shortcut in fp32), the plain version at the
 # XLA path's (SiLU in bf16, each conv output in bf16), a few bf16 spacings.
 RB_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the serving phase: the service's one batch size, and the request held
+# alone, under load, through HTTP and against sample_ddim
+SERVE_B = 64
+REF_CLASSES, REF_SEED = list(range(10)), 1234
 
 
 # every kernel wrapper's count of launches, by the kernel's name in the result
@@ -617,6 +648,12 @@ def check_training(config, tag: str) -> dict:
               f"all counts {run_counts}")
         step_counts = res.trainer.step_counts
         print(f"train steps replayed as a CUDA graph / eager: {step_counts}")
+        scan = res.trainer.epoch_scan
+        if scan is None or res.trainer.scan_graph is None or res.trainer.train_graph is not None:
+            raise AssertionError("train.run did not take the device-resident epoch's graph")
+        print(f"train.run took the device-resident epoch: {scan.n} images of "
+              f"{scan.image_shape} uint8 on the card, {scan.n_batches} steps an epoch, the "
+              f"batch gathered inside the replayed step")
         if steps != 27 or bwd_launches != 8 * steps or any(run_counts[k] for k in OFF_PATH):
             raise AssertionError(f"{steps} steps, launches {run_counts}")
         if step_counts != {"graphed": 27 - WARMUP_STEPS, "eager": WARMUP_STEPS}:
@@ -683,8 +720,364 @@ def check_training(config, tag: str) -> dict:
         if not all(p.grad is g_ for p, g_ in zip(trainer.state.params(), trainer.train_graph.grads)):
             raise AssertionError("after eager steps a replay did not restore the graph's grads")
         path = path_line(f"train step B={TRAIN_B} bf16", graphed, eager, device_ms, tag)
+        epochs = time_epoch_paths(trainer, cfg.seed, tag)
     return {"run_counts": run_counts, "step_ms": path["graphed_ms"], "per_step": per_step,
-            "path": path}
+            "path": path, "epochs": epochs}
+
+
+def time_epoch_paths(trainer, seed: int, tag: str) -> dict:
+    """Phase 7: host ms/step of the two epoch paths, graphed (median of 5
+    epochs): the device-resident epoch and the per-batch loop over the
+    loader (its gather and the batch's upload in every step), beside the
+    device's ms a replay of each step, the two read one after the other."""
+    scan = trainer.epoch_scan
+
+    def scan_epoch():
+        scan.start_epoch(seed, trainer.state.step // scan.n_batches)
+        for _ in range(scan.n_batches):
+            trainer.scan_step(scan)
+
+    def loop_epoch():
+        for b in trainer.train_loader:
+            trainer.train_step(b)
+
+    if len(trainer.train_loader) != scan.n_batches:
+        raise AssertionError("the two epoch paths take different step counts")
+    runs = {"scan": host_ms(scan_epoch, scan.n_batches), "loop": host_ms(loop_epoch, scan.n_batches)}
+    device = {"scan": trainer.scan_graph.device_ms(10), "loop": trainer.train_graph.device_ms(10)}
+    med = {k: float(np.median(v)) for k, v in runs.items()}
+    print(f"epoch paths B={TRAIN_B} bf16, host ms/step (median of 5 epochs of {scan.n_batches} "
+          f"steps): device-resident {med['scan']:.3f} (runs "
+          f"{' '.join(f'{r:.3f}' for r in runs['scan'])}), per-batch loop {med['loop']:.3f} (runs "
+          f"{' '.join(f'{r:.3f}' for r in runs['loop'])}); device {device['scan']:.3f} / "
+          f"{device['loop']:.3f} ms a replay; host / device {med['scan'] / device['scan']:.3f} / "
+          f"{med['loop'] / device['loop']:.3f} [{tag}]")
+    return {"scan_ms": med["scan"], "loop_ms": med["loop"], "scan_device_ms": device["scan"],
+            "loop_device_ms": device["loop"], "scan_runs": runs["scan"], "loop_runs": runs["loop"]}
+
+
+class ScanOrder:
+    """The per-batch loop's batches in a device-resident epoch's order,
+    gathered and scaled on the host as the loader does."""
+
+    def __init__(self, scan, dataset, seed: int, state):
+        self.scan, self.dataset, self.seed, self.state = scan, dataset, seed, state
+
+    def __iter__(self):
+        for row in self.scan.permutation(self.seed, self.state.step // self.scan.n_batches):
+            yield {"image": scale_to_minus_one_one(self.dataset.images[row]),
+                   "label": self.dataset.labels[row]}
+
+
+def differing_weights(a, b) -> list:
+    """The names of the model and EMA tensors in which two trainers differ."""
+    out = []
+    for part in ("model", "ema"):
+        other = getattr(b.state, part).state_dict()
+        out += [f"{part}.{k}" for k, v in getattr(a.state, part).state_dict().items()
+                if not torch.equal(v, other[k])]
+    return out
+
+
+def check_epoch_paths(config) -> dict:
+    """Phase 7: one epoch (3 eager warm-up steps, 6 replayed) through the
+    device-resident epoch and through the per-batch loop fed the same
+    permutation, two trainers from the same seeded weights: the epoch's loss
+    and grad norm and every model and EMA tensor bit for bit.  Both run the
+    same draws and, after the gather, the same captured step; the scaling
+    table makes x0 equal."""
+    with tempfile.TemporaryDirectory() as workdir:
+        cfg = dataclasses.replace(config, workdir=workdir, epochs=1,
+                                  data=dataclasses.replace(config.data,
+                                                           synthetic_size=SYNTHETIC_SIZE))
+        scanned = train.build_trainer(cfg, DEV)
+        looped = train.build_trainer(dataclasses.replace(cfg, scan_epochs=False), DEV)
+        looped.train_loader = ScanOrder(scanned.epoch_scan, scanned.train_loader.dataset,
+                                        cfg.seed, looped.state)
+        losses = (scanned._train_epoch(), looped._train_epoch())
+        gnorms = (scanned._last_grad_norm, looped._last_grad_norm)
+    counts = (scanned.step_counts, looped.step_counts)
+    if (scanned.scan_graph is None or looped.train_graph is None
+            or counts != ({"graphed": 6, "eager": WARMUP_STEPS},) * 2):
+        raise AssertionError(f"the epoch paths did not replay their graphs: {counts}")
+    diff = differing_weights(scanned, looped)
+    print(f"device-resident epoch vs per-batch loop, same permutation, B={TRAIN_B} bf16: loss "
+          f"{losses[0]!r} / {losses[1]!r}, grad norm {gnorms[0]!r} / {gnorms[1]!r}; {len(diff)} "
+          f"of the model and EMA tensors differ {diff[:4]}")
+    if losses[0] != losses[1] or gnorms[0] != gnorms[1] or diff:
+        raise AssertionError("the device-resident epoch differs from the per-batch loop")
+    return {"bit_identical": True, "loss": losses[0]}
+
+
+def percentile(values, q: float) -> float:
+    """The service's own rule: the value at index int(len * q) of the sorted list."""
+    v = sorted(values)
+    return v[min(len(v) - 1, int(len(v) * q))]
+
+
+def time_batches(svc) -> list:
+    """Wrap the started service's sampler in CUDA events on the batcher
+    thread's stream; returns the list of (start, end) pairs, one a batch."""
+    spans, sample_fn = [], svc.sample_fn
+
+    def timed(*args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = sample_fn(*args)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    svc.sample_fn = timed
+    return spans
+
+
+def device_timeline(spans) -> dict:
+    """The device's side of a run's batches: its ms a batch back to back
+    (median) and its busy share between the first batch's start and the last
+    one's end (the gaps hold the uploads, the uint8 packing and any idle)."""
+    torch.cuda.synchronize()
+    busy = [s.elapsed_time(e) for s, e in spans]
+    span = spans[0][0].elapsed_time(spans[-1][1])
+    return {"device_ms_per_batch_served": float(np.median(busy)),
+            "device_busy_share": sum(busy) / span, "device_span_s": span / 1e3}
+
+
+def saturate(svc, spans: list, clients: int = 8, images: int = 2048, n: int = 32) -> dict:
+    """``images`` images from ``clients`` threads, each submitting requests of
+    ``n`` mixed classes one after another: img/s over the wall time, the
+    padded share of the slots, latency p50 / p95 (client side) and the
+    batcher's host ms a batch, from the service's counters around the run,
+    and the device's timeline of the run's batches from ``spans``."""
+    per_client = images // (clients * n)
+    lat, errors = [], []
+
+    def client(k: int):
+        for r in range(per_client):
+            ids = ((np.arange(n) + k + r) % 10).tolist()
+            t = time.perf_counter()
+            try:
+                out = svc.submit(ids, n=n, seed=1000 * k + r).result(timeout=600)
+                if out.shape != (n, 32, 32, 3):
+                    errors.append(out.shape)
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+            lat.append(time.perf_counter() - t)
+
+    s0, k0 = svc.stats(), len(spans)
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    wall = time.perf_counter() - t0
+    s1 = svc.stats()
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"saturated run: {errors[:3]}")
+    batches = s1.batches - s0.batches
+    if len(spans) - k0 != batches:
+        raise AssertionError(f"{len(spans) - k0} batches timed of {batches}")
+    host = s1.host_ms_per_batch * s1.batches - s0.host_ms_per_batch * s0.batches
+    return {"images": clients * per_client * n, "clients": clients, "n": n, "wall_s": wall,
+            "img_s": clients * per_client * n / wall, "batches": batches,
+            "padded_share": (s1.padded_slots - s0.padded_slots) / (batches * svc.batch_size),
+            "latency_p50_s": percentile(lat, 0.5), "latency_p95_s": percentile(lat, 0.95),
+            "host_ms_per_batch": host / batches, **device_timeline(spans[k0:])}
+
+
+def under_load(svc, clients: int = 16) -> tuple:
+    """The reference request submitted while ``clients`` threads send three
+    requests each of mixed n and classes; returns its images and the load's
+    image count."""
+    rng = np.random.default_rng(7)
+    plans = [[(int(rng.integers(1, 25)), int(rng.integers(0, 10)), int(rng.integers(1, 2**30)))
+              for _ in range(3)] for _ in range(clients)]
+    done, errors = [], []
+
+    def client(plan):
+        for n, c, seed in plan:
+            try:
+                done.append(svc.submit(((np.arange(n) + c) % 10).tolist(), n=n,
+                                       seed=seed).result(timeout=600).shape[0])
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(p,)) for p in plans]
+    for t in threads:
+        t.start()
+    time.sleep(0.05)  # the clients' first requests are queued
+    images = svc.submit(REF_CLASSES, n=10, seed=REF_SEED).result(timeout=600)
+    for t in threads:
+        t.join(600)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"load clients: {errors[:3]}")
+    return images, sum(done)
+
+
+def via_http(svc) -> np.ndarray:
+    """The reference request through POST /generate (npy) on 127.0.0.1."""
+    server = GenerationHTTPServer(svc, host="127.0.0.1", port=0).start()
+    try:
+        body = json.dumps({"class_id": REF_CLASSES, "n": 10, "seed": REF_SEED,
+                           "format": "npy"}).encode()
+        req = urllib.request.Request(server.address + "/generate", data=body, method="POST",
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            out = json.loads(r.read())
+    finally:
+        server.stop()
+    return np.stack([np.load(io.BytesIO(base64.b64decode(b))) for b in out["images"]])
+
+
+def serve(config, ckpt: str, sampler: str, sampler_steps: int, steps: int, tag: str,
+          checks: bool) -> dict:
+    """One service over ``ckpt`` at B=64; every count set to 0 before it is
+    built and read after it stopped.  ``checks``: the reference request alone,
+    under load and through HTTP, light load and the drain; always the
+    saturated run."""
+    zero_counts()
+    svc = build_generation_service(config, ckpt, sampler=sampler, ddim_steps=sampler_steps,
+                                   batch_size=SERVE_B)
+    if svc._slotq is None:
+        raise AssertionError("the native slot queue did not load")
+    t0 = time.perf_counter()
+    svc.start(warmup=True)
+    out = {"start_s": time.perf_counter() - t0}
+    spans = time_batches(svc)  # after the capture: the workers record outside it
+    drained = []
+    try:
+        if checks:
+            out["alone"] = svc.submit(REF_CLASSES, n=10, seed=REF_SEED).result(timeout=600)
+            out["under_load"], out["load_images"] = under_load(svc)
+            out["http"] = via_http(svc)
+        out["saturated"] = saturate(svc, spans)
+        if checks:
+            lat = []
+            s0 = svc.stats()
+            for i in range(10):
+                t = time.perf_counter()
+                svc.submit(i % 10, n=1, seed=5000 + i).result(timeout=600)
+                lat.append(time.perf_counter() - t)
+            s1 = svc.stats()
+            out["light_p50_s"], out["light_runs_s"] = percentile(lat, 0.5), lat
+            # the batcher's time a batch on an idle card: its launches still
+            # wait for room in the stream's queue once that is full
+            out["light_host_ms_per_batch"] = (
+                s1.host_ms_per_batch * s1.batches - s0.host_ms_per_batch * s0.batches) / (
+                s1.batches - s0.batches)
+            drained = [svc.submit(c, n=5, seed=100 + c) for c in range(6)]
+    finally:
+        svc.stop()
+    out["counts"], out["batches"] = read_counts(), svc.stats().batches
+    if not all(f.done() and f.result(timeout=1).shape == (5, 32, 32, 3) for f in drained):
+        raise AssertionError("stop() left a drained request unresolved")
+    want = 8 * (steps * out["batches"] + WARMUP_STEPS)
+    print(f"serving {sampler}-{steps}: {out['batches']} batches of {SERVE_B} (the warm-up's "
+          f"included); kernel launches {out['counts']} (want {want} of the forward kernel: 8 x "
+          f"({steps} x {out['batches']} + {WARMUP_STEPS} warm-up steps), and no other)"
+          f"{'; stop() resolved the 6 requests it drained' if drained else ''}")
+    if out["counts"] != dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": want}:
+        raise AssertionError(f"the {sampler} service launched {out['counts']}")
+    return out
+
+
+def check_serving(config, tag: str) -> dict:
+    """Phase 7b: the serving slice at full width, B=64, CFG 3, bf16: DDIM-50
+    with every check, then DPM-Solver++-15 saturated."""
+    host = GaussianDiffusion(T_STEPS)
+    steps = {"ddim": len(host.ddim_timesteps(50)[0]), "dpmpp": len(host._dpmpp_coeffs(15)[0])}
+    cfg = config.diffusion.cfg_scale
+    dt = "bf16" if config.use_amp else "fp32"
+    shape = (32, 32, 3)
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = os.path.join(d, "diffusion_model_ema.pt")
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(config.seed)
+            torch.save(build_model(config).state_dict(), ckpt)
+        runs = {"ddim": serve(config, ckpt, "ddim", 50, steps["ddim"], tag, checks=True),
+                "dpmpp": serve(config, ckpt, "dpmpp", 15, steps["dpmpp"], tag, checks=False)}
+        # the reference: sample_ddim at B=64 on the x_T the service gave the
+        # request alone (slots 0-9; the pad slots' seed 0, index 0, class 0)
+        model, diffusion = load_sampler(config, ckpt, device=DEV)
+        pads = SERVE_B - 10
+        seeds = np.array([REF_SEED] * 10 + [0] * pads, np.int32)
+        idxs = np.array(list(range(10)) + [0] * pads, np.int32)
+        x_init, _ = slot_x_init(seeds, idxs, shape)
+        classes = torch.tensor(REF_CLASSES + [0] * pads, device=DEV)
+        kw = dict(cfg_scale=cfg, null_label=model.null_label, x_init=x_init,
+                  generator=torch.Generator(device=DEV).manual_seed(0))
+        x0 = diffusion.sample_ddim(model, classes, shape, n_sample_steps=50, eta=0.0, **kw)
+        reference = reverse_transform(x0.cpu().numpy())[:10]
+        device_ms = {"ddim": diffusion.sampler_graphs()[-1].device_ms(20)}
+        diffusion.sample_dpmpp(model, classes, shape, n_sample_steps=15, **kw)
+        device_ms["dpmpp"] = diffusion.sampler_graphs()[-1].device_ms(20)
+        # a repeated call at a served shape, its inputs on the card, waits for
+        # the device nowhere: the service's batcher keeps the queue full
+        kw.update(x_init=x_init.to(DEV), generator=torch.Generator(device=DEV).manual_seed(0))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            diffusion.sample_ddim(model, classes, shape, n_sample_steps=50, eta=0.0, **kw)
+            diffusion.sample_dpmpp(model, classes, shape, n_sample_steps=15, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        print("a repeated sample_ddim / sample_dpmpp call at B=64 under "
+              "torch.cuda.set_sync_debug_mode('error'): no host sync")
+    d = runs["ddim"]
+    alone = d["alone"]
+    off = np.abs(alone.astype(np.int32) - d["under_load"].astype(np.int32))
+    checks = {"alone == under load": np.array_equal(alone, d["under_load"]),
+              f"alone == sample_ddim B={SERVE_B}": np.array_equal(alone, reference),
+              "alone == POST /generate npy": np.array_equal(alone, d["http"])}
+    print(f"serving ddim-{steps['ddim']} B={SERVE_B} CFG {cfg} {dt}: the 10-image request (seed {REF_SEED}) "
+          f"alone, under {d['load_images']} images of 16 concurrent clients, through HTTP and "
+          f"against sample_ddim: {checks}; alone vs under load: {int((off > 0).sum())} pixels "
+          f"differ, by at most {int(off.max())}; images {alone.shape} {alone.dtype}, values "
+          f"{int(alone.min())}-{int(alone.max())}")
+    if not all(checks.values()) or alone.shape != (10,) + shape or len(np.unique(alone)) < 50:
+        raise AssertionError(f"serving checks failed: {checks}")
+    out = {}
+    for name, r in runs.items():
+        sat = r["saturated"]
+        dev_batch = steps[name] * device_ms[name]
+        print(f"serving {name}-{steps[name]} B={SERVE_B} CFG {cfg} {dt}, saturated ({sat['images']} "
+              f"images from {sat['clients']} clients, n={sat['n']}): {sat['img_s']:.3f} img/s "
+              f"({sat['wall_s']:.3f} s, {sat['batches']} batches), padded share "
+              f"{sat['padded_share']:.4f}, latency p50 {sat['latency_p50_s']:.4f} s p95 "
+              f"{sat['latency_p95_s']:.4f} s; host {sat['host_ms_per_batch']:.3f} ms a batch (the "
+              f"batcher's) against the device's {dev_batch:.3f} ({steps[name]} x "
+              f"{device_ms[name]:.4f} ms a replay), device-bound {SERVE_B / dev_batch * 1e3:.3f} "
+              f"img/s; served, the device {sat['device_ms_per_batch_served']:.3f} ms a batch "
+              f"(median), busy {sat['device_busy_share']:.4f} of its {sat['device_span_s']:.3f} s "
+              f"from the first batch's start to the last one's end; start with warm-up and "
+              f"capture {r['start_s']:.3f} s [{tag}]")
+        out[name] = {**sat, "steps": steps[name], "device_ms_per_replay": device_ms[name],
+                     "device_ms_per_batch": dev_batch, "device_bound_img_s":
+                     SERVE_B / dev_batch * 1e3, "launches": r["counts"]["linear_attention_fwd"],
+                     "batches_served": r["batches"], "start_s": r["start_s"]}
+    x_init_ms = host_x_init_ms(shape)
+    print(f"serving ddim-{steps['ddim']} light load, ten 1-image requests one at a time: latency p50 "
+          f"{d['light_p50_s']:.4f} s (runs {' '.join(f'{v:.4f}' for v in d['light_runs_s'])}); "
+          f"the batcher's time {d['light_host_ms_per_batch']:.3f} ms a batch on an idle card (its "
+          f"launches wait for room in the stream's queue); the host's x_T draws for {SERVE_B} "
+          f"slots {x_init_ms:.3f} ms (median of 20) [{tag}]")
+    out["ddim"]["light_p50_s"] = d["light_p50_s"]
+    out["ddim"]["light_host_ms_per_batch"] = d["light_host_ms_per_batch"]
+    out["x_init_ms"] = x_init_ms
+    return out
+
+
+def host_x_init_ms(shape, runs: int = 20) -> float:
+    """The batcher's own work of drawing a batch's x_T on the host (one CPU
+    generator a slot), in ms, median of ``runs``."""
+    seeds, idxs = np.arange(SERVE_B, dtype=np.int32), np.zeros(SERVE_B, np.int32)
+    times = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        slot_x_init(seeds, idxs, shape)
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
 
 
 def seeded_pair(config, seed: int = 0):
@@ -1049,6 +1442,11 @@ def main(argv=None) -> None:
     training = check_training(config, tag)
     paths["train_b64"] = training["path"]
     check_graphed_training(config)
+    epoch_check = check_epoch_paths(config)
+
+    phase("7b the serving slice: build_generation_service, B=64, CFG 3, bf16, DDIM-50 and "
+          "DPM-Solver++-15")
+    serving = check_serving(config, tag)
 
     phase("8 the ResNet-block kernel vs plain, and ResNetBlockFn")
     t_rb = time.perf_counter()
@@ -1097,7 +1495,9 @@ def main(argv=None) -> None:
         "launches": launches,
         "launches_by_path": {"sample": launches, "train": train_counts["linear_attention_fwd"],
                              "sample_ddim": requests["ddim"]["counts"]["linear_attention_fwd"],
-                             "sample_dpmpp": requests["dpmpp"]["counts"]["linear_attention_fwd"]},
+                             "sample_dpmpp": requests["dpmpp"]["counts"]["linear_attention_fwd"],
+                             "serve_ddim": serving["ddim"]["launches"],
+                             "serve_dpmpp": serving["dpmpp"]["launches"]},
         "launches_per_step": per_step("linear_attention_fwd"),
         "max_abs_err": kernel["max_abs_err"],
         "max_abs_err_fp32": kernel["max_abs_err_fp32"],
@@ -1175,6 +1575,14 @@ def main(argv=None) -> None:
                       "step, sampler_b64 the B=64 sampler's, train_b64 the train step",
         "requests": {k: {"steps": v["steps"], "seconds": v["seconds"],
                          "capture_seconds": v["capture_seconds"]} for k, v in requests.items()},
+        "epoch_paths": {**training["epochs"], **epoch_check},
+        "epoch_paths_unit": "host ms/step of the device-resident epoch (scan) and the per-batch "
+                            "loop (loop), graphed, median of 5 epochs of 9 steps at B=64 bf16, "
+                            "and the device's ms a replay of each step",
+        "serving": serving,
+        "serving_unit": "B=64, CFG 3, bf16; saturated: 2,048 images from 8 client threads of "
+                        "32-image requests, latency client side; host_ms_per_batch the batcher "
+                        "thread's; device_ms_per_batch steps x the device's ms a replay",
     }))
     print(card())
     print(json.dumps({"ok": True, "device": {

@@ -88,6 +88,11 @@ class GaussianDiffusion:
             schedule, n_steps, beta_start, beta_end, device
         )
         self._graphs: dict = {}  # captured sampler steps, by _SamplerGraph.key
+        # the samplers' methods by (name, arguments), their tables uploaded
+        # once: a copy from pageable host memory waits for the stream, so a
+        # caller that samples again and again (a service's batcher) would
+        # wait for the device at every call
+        self._methods: dict = {}
         # host seconds the last sample* call spent on warm-up and capture
         self.last_capture_seconds = 0.0
 
@@ -269,6 +274,14 @@ class GaussianDiffusion:
         return torch.as_tensor(np.asarray(values), dtype=dtype,
                                device=self.schedule.betas.device)
 
+    def _method(self, key: tuple, make: Callable[[], _Method]) -> _Method:
+        """The method for ``key`` (a sampler's name and arguments), made by
+        ``make`` at the first call and kept."""
+        method = self._methods.get(key)
+        if method is None:
+            method = self._methods[key] = make()
+        return method
+
     @torch.inference_mode()
     def sample(
         self,
@@ -301,10 +314,12 @@ class GaussianDiffusion:
         Returns:
           x_0 of shape (B, H, W, C), float32.
         """
-        ts = np.arange(self.n_steps - 1, -1, -1, dtype=np.int64)
-        method = _Method("ddpm", ts, (self._table(ts, torch.int64),), 1, True, ("ddpm",))
-        return self._loop(eps_model, method, classes, image_shape, cfg_scale, null_label,
-                          x_init, noise, generator, graph)
+        def make():
+            ts = np.arange(self.n_steps - 1, -1, -1, dtype=np.int64)
+            return _Method("ddpm", ts, (self._table(ts, torch.int64),), 1, True, ("ddpm",))
+
+        return self._loop(eps_model, self._method(("ddpm",), make), classes, image_shape,
+                          cfg_scale, null_label, x_init, noise, generator, graph)
 
     def ddim_timesteps(self, n_sample_steps: int) -> Tuple[np.ndarray, np.ndarray]:
         """DDIM's (t, t_prev) by step: an evenly spaced subsequence of the
@@ -336,9 +351,13 @@ class GaussianDiffusion:
         ancestral sampler's stochasticity with the beta-tilde variance.  The
         other arguments are :meth:`sample`'s."""
         eta = float(eta)
-        ts, t_prevs = self.ddim_timesteps(n_sample_steps)
-        tables = (self._table(ts, torch.int64), self._table(t_prevs, torch.int64))
-        method = _Method("ddim", ts, tables, 1, eta != 0.0, ("ddim", len(ts), eta), eta)
+
+        def make():
+            ts, t_prevs = self.ddim_timesteps(n_sample_steps)
+            tables = (self._table(ts, torch.int64), self._table(t_prevs, torch.int64))
+            return _Method("ddim", ts, tables, 1, eta != 0.0, ("ddim", len(ts), eta), eta)
+
+        method = self._method(("ddim", int(n_sample_steps), eta), make)
         return self._loop(eps_model, method, classes, image_shape, cfg_scale, null_label,
                           x_init, noise, generator, graph)
 
@@ -408,11 +427,14 @@ class GaussianDiffusion:
         with D = x0_i on the first step and on the final projection to x_0.
         The carry is (x_t, the previous x0 prediction), the latter starting
         from zeros.  Deterministic: ``generator`` draws x_T only."""
-        sub, c_x, c_d, c2 = self._dpmpp_coeffs(n_sample_steps, order)
-        tables = (self._table(sub, torch.int64),) + tuple(
-            self._table(c, torch.float32) for c in (c_x, c_d, c2))
-        method = _Method("dpmpp", sub.astype(np.int64), tables, 2, False,
-                         ("dpmpp", len(sub), int(order)))
+        def make():
+            sub, c_x, c_d, c2 = self._dpmpp_coeffs(n_sample_steps, order)
+            tables = (self._table(sub, torch.int64),) + tuple(
+                self._table(c, torch.float32) for c in (c_x, c_d, c2))
+            return _Method("dpmpp", sub.astype(np.int64), tables, 2, False,
+                           ("dpmpp", len(sub), int(order)))
+
+        method = self._method(("dpmpp", int(n_sample_steps), int(order)), make)
         return self._loop(eps_model, method, classes, image_shape, cfg_scale, null_label,
                           x_init, None, generator, graph)
 

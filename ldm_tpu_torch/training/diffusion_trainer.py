@@ -21,14 +21,19 @@ to its trainer.  The draws stay eager and per step (a generator seeded from
 buffers with the batch; everything after them is replayed: the noising, the
 label drop, forward, loss, backward (the attention blocks' backward kernels
 included), the gradient norm, Adam, the EMA and the device's step counter.
-There is one graph, for the first batch shape the trainer meets; the first
-steps at that shape run eagerly (they warm the capture up and are real
-steps), and a batch of another shape (a last, short batch) runs the eager
-step.  ``graphs=False`` asks for the eager step everywhere; on the CPU there
-is no other.
+The graphs are for the first batch shape the trainer meets: one for batches
+the caller hands over (copied into its input buffers) and one for the
+device-resident epoch (below); the first steps at that shape run eagerly
+(they warm the capture up and are real steps), and a batch of another shape
+(a last, short batch) runs the eager step.  ``graphs=False`` asks for the
+eager step everywhere; on the CPU there is no other.
 
-The epoch is a Python loop over the batches (the JAX trainer's non-scan
-path); per-step losses stay on the device and are read once an epoch.  The
+The epoch is device-resident where the JAX trainer's is a ``lax.scan``
+(``training/scan_epochs.py``, ``config.scan_epochs``, the standard loader
+with ``drop_last``): the dataset lies on the device as uint8 and each step
+gathers its batch there, inside the replayed step.  Otherwise it is a Python
+loop over the loader's batches.  Either way the per-step losses stay on the
+device and are read once an epoch.  The
 validation loss applies the CFG lerp; every ``sample_every`` epochs a sample
 grid is drawn from the EMA weights through the ancestral CFG sampler;
 early stopping keeps the best state, and full-state checkpoints are written
@@ -47,6 +52,7 @@ from ldm_tpu_torch.data.transforms import reverse_transform
 from ldm_tpu_torch.diffusion.ddpm import GaussianDiffusion
 from ldm_tpu_torch.training import checkpoint as ckpt
 from ldm_tpu_torch.training.early_stopping import EarlyStopping
+from ldm_tpu_torch.training.scan_epochs import EpochScan, build_epoch_scan
 from ldm_tpu_torch.training.state import TrainState, step_generator
 from ldm_tpu_torch.utils.graphs import WARMUP_STEPS, StepGraph, side_stream, use_graphs
 from ldm_tpu_torch.utils.logging import MetricsLogger, Throughput, global_norm
@@ -94,13 +100,17 @@ class DiffusionTrainer:
         )
         self._best: Optional[dict] = None
         self.graphs = use_graphs(self.device, graphs)
-        self._graph: Optional[_TrainGraph] = None
-        self._graph_shape: Optional[tuple] = None  # the batch shape the graph is for
+        # the captured steps by batch source: None (the caller's batches) or
+        # the EpochScan whose batches the step gathers itself
+        self._graphs: Dict[Optional[EpochScan], _TrainGraph] = {}
+        self._graph_shape: Optional[tuple] = None  # the batch shape the graphs are for
         self._warm_steps = 0                       # eager steps taken at that shape
         self.step_counts = {"graphed": 0, "eager": 0}
         self._warmed_up = False
         self._last_rates: Dict[str, float] = {}
         self._last_grad_norm = 0.0
+        self.epoch_scan = build_epoch_scan(train_loader, self.device,
+                                           enabled=config.scan_epochs)
 
     @property
     def model(self):
@@ -108,8 +118,13 @@ class DiffusionTrainer:
 
     @property
     def train_graph(self) -> Optional["_TrainGraph"]:
-        """The captured train step, once there is one."""
-        return self._graph
+        """The captured train step on the caller's batches, once there is one."""
+        return self._graphs.get(None)
+
+    @property
+    def scan_graph(self) -> Optional["_TrainGraph"]:
+        """The captured train step of the device-resident epoch, once there is one."""
+        return self._graphs.get(self.epoch_scan) if self.epoch_scan is not None else None
 
     # ------------------------------------------------------------ the step
     def dropped_labels(self, y: torch.Tensor, drop: Optional[torch.Tensor] = None,
@@ -148,8 +163,22 @@ class DiffusionTrainer:
         after ``WARMUP_STEPS`` eager steps at that shape; a batch of another
         shape runs the eager step.  ``step_counts`` counts both kinds.
         """
-        state = self.state
         x0, y = self._batch(batch)  # encode is the identity for pixel DDPM
+        return self._step(x0, y, t, eps, drop)
+
+    def scan_step(self, scan: EpochScan, t: Optional[torch.Tensor] = None,
+                  eps: Optional[torch.Tensor] = None,
+                  drop: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """:meth:`train_step` on the next row of ``scan``'s epoch: the batch
+        is gathered on the device, inside the replayed step where there is
+        one; the draws are the same as for the same batch handed over."""
+        scan.take()
+        return self._step(scan.x_like, scan.y_like, t, eps, drop, scan)
+
+    def _step(self, x0, y, t, eps, drop, scan: Optional[EpochScan] = None):
+        """The draws from (x0, y)'s shapes, then the step on (x0, y) or on
+        ``scan``'s next batch."""
+        state = self.state
         gen = None
         if t is None or eps is None or drop is None:
             gen = step_generator(self.config.seed, state.step, self.device)
@@ -161,21 +190,20 @@ class DiffusionTrainer:
                 self._graph_shape = tuple(x0.shape)
             if tuple(x0.shape) == self._graph_shape:
                 if self._warm_steps >= WARMUP_STEPS:
-                    if self._graph is None:
-                        self._graph = _TrainGraph(self, x0, y, t, eps)
+                    graph = self._graphs.get(scan)
+                    if graph is None:
+                        graph = self._graphs[scan] = _TrainGraph(self, x0, y, t, eps, scan)
                     self.step_counts["graphed"] += 1
-                    return self._graph.step(x0, y, t, eps, drop)
+                    return graph.step(x0, y, t, eps, drop)
                 self._warm_steps += 1
                 self.step_counts["eager"] += 1
                 with side_stream(self.device):  # where warm-up for a capture runs
-                    out = self._device_step(x0, y, t, eps, drop)
+                    out = self._device_step(*_source(x0, y, scan), t, eps, drop)
                 state.count_step()
                 return out
         self.step_counts["eager"] += 1
-        out = self._device_step(x0, y, t, eps, drop)
+        out = self._device_step(*_source(x0, y, scan), t, eps, drop)
         state.count_step()
-        if self._graph is not None:
-            self._graph.grads_moved = True
         return out
 
     def _device_step(self, x0, y, t, eps, drop) -> Dict[str, torch.Tensor]:
@@ -234,7 +262,8 @@ class DiffusionTrainer:
         sd = ckpt.load_state(path, map_location=self.device)
         self.state.load_state_dict(sd)
         # a captured step holds the addresses of the optimizer's old state
-        self._graph, self._warm_steps = None, 0
+        self._graphs.clear()
+        self._warm_steps = 0
         self.early_stopping.restore(sd.get("best_val_loss", float("inf")))
 
     def resume_latest(self) -> bool:
@@ -248,11 +277,22 @@ class DiffusionTrainer:
     def _train_epoch(self) -> float:
         tput = Throughput()
         losses, gnorms = [], []
-        for batch in self.train_loader:
-            m = self.train_step(batch)
+
+        def record(m: Dict[str, torch.Tensor], n: int) -> None:
             losses.append(m["loss"])
             gnorms.append(m["grad_norm"])
-            tput.update(len(batch["label"]))
+            tput.update(n)
+
+        scan = self.epoch_scan
+        if scan is not None:
+            # the epoch index from the step, as the JAX trainer derives it:
+            # a resumed run continues the shuffle stream
+            scan.start_epoch(self.config.seed, self.state.step // scan.n_batches)
+            for _ in range(scan.n_batches):
+                record(self.scan_step(scan), scan.batch_size)
+        else:
+            for batch in self.train_loader:
+                record(self.train_step(batch), len(batch["label"]))
         if not losses:
             raise ValueError("train loader yielded no batches")
         loss = torch.stack(losses).mean().item()  # the epoch's one host sync
@@ -349,9 +389,17 @@ def run_sampler(diffusion: GaussianDiffusion, method: str, model, classes, image
     raise ValueError(f"sampler must be one of {SAMPLERS}, got {method!r}")
 
 
+def _source(x0, y, scan: Optional[EpochScan]):
+    """The step's batch: (x0, y) as given, or ``scan``'s next, gathered on the device."""
+    return scan.next_batch() if scan is not None else (x0, y)
+
+
 class _TrainGraph:
     """The train step after the draws as one CUDA graph, with its fixed input
-    buffers (image, label, t, eps, the drop mask) and its outputs.
+    buffers (image, label, t, eps, the drop mask) and its outputs.  With a
+    ``scan`` the graph gathers its batch from the device-resident epoch
+    instead (the scan's row counter advances at every replay) and has no
+    image or label buffers.
 
     Captured after the trainer's eager warm-up steps.  Just before the
     capture both models' cached kernel weight copies are dropped, so the
@@ -360,8 +408,10 @@ class _TrainGraph:
     set to None once, so the backward allocates them from the graph's pool
     and every replay writes them in place."""
 
-    def __init__(self, trainer: DiffusionTrainer, x0, y, t, eps):
+    def __init__(self, trainer: DiffusionTrainer, x0, y, t, eps,
+                 scan: Optional[EpochScan] = None):
         self.trainer = trainer
+        self.scan = scan
         state = trainer.state
         self.x0, self.y, self.t, self.eps = (v.clone() for v in (x0, y, t, eps))
         self.drop = torch.zeros(y.shape, dtype=torch.bool, device=y.device)
@@ -371,32 +421,39 @@ class _TrainGraph:
                 m.drop_kernel_weights()
 
         self.graph = StepGraph(
-            lambda: trainer._device_step(self.x0, self.y, self.t, self.eps, self.drop),
+            lambda: trainer._device_step(*_source(self.x0, self.y, scan), self.t, self.eps,
+                                         self.drop),
             trainer.device, warmup=0, before_capture=drop_copies)
         drop_copies()  # the copies made under capture belong to the graph's pool
         self.grads: List[torch.Tensor] = [p.grad for p in state.params()]
-        self.grads_moved = False  # an eager step has put other tensors in .grad
 
     def device_ms(self, replays: int = 10) -> float:
         """The device's time for one replayed step, in ms: ``replays`` real
-        steps on the batch and draws the buffers hold."""
-        ms = self.graph.device_ms(replays)
+        steps on the batch and draws the buffers hold (a scan's graph on its
+        epoch's first row: the counter is set back before each replay)."""
+        ms = self.graph.device_ms(replays, before=None if self.scan is None else
+                                  self.scan.row.zero_)
         for _ in range(replays):
             self.trainer.state.count_replayed_step()
         self.trainer.step_counts["graphed"] += replays
         return ms
 
     def step(self, x0, y, t, eps, drop) -> Dict[str, torch.Tensor]:
-        for buf, val in ((self.x0, x0), (self.y, y), (self.t, t), (self.eps, eps),
-                         (self.drop, drop)):
+        """One replay on these draws and, without a scan, this batch."""
+        inputs = [(self.t, t), (self.eps, eps), (self.drop, drop)]
+        if self.scan is None:
+            inputs += [(self.x0, x0), (self.y, y)]
+        for buf, val in inputs:
             buf.copy_(val)  # a () drop mask broadcasts over the batch
         out = self.graph.replay()
         state = self.trainer.state
         state.count_replayed_step()
-        if self.grads_moved:  # .grad shows this step's gradients again
-            for p, g in zip(state.params(), self.grads):
+        params = state.params()
+        if params[0].grad is not self.grads[0]:
+            # an eager step or another graph put other tensors in .grad:
+            # show this step's gradients again
+            for p, g in zip(params, self.grads):
                 p.grad = g
-            self.grads_moved = False
         # clones: the next replay overwrites the graph's outputs
         return {k: v.clone() for k, v in out.items()}
 

@@ -183,6 +183,32 @@ def test_samplers_need_a_source_of_randomness(pair):
     assert d.sample_dpmpp(model, y, SHAPE, null_label=10, x_init=x_init).shape == (1,) + SHAPE
 
 
+def test_repeated_calls_build_their_tables_once(pair):
+    """A sampler's tables reach the device once per (sampler, arguments): a
+    repeated call makes no host-to-device copy (on a card such a copy waits
+    for the stream, and a service samples at every batch), and gives the
+    same images."""
+    model = pair[2]
+    d = GaussianDiffusion(4)
+    made = []
+    table = d._table
+    d._table = lambda values, dtype: made.append(len(values)) or table(values, dtype)
+    y, x_init = torch.tensor([1, 2]), torch.randn((2,) + SHAPE, generator=torch.Generator())
+    calls = [lambda: d.sample(model, y, SHAPE, null_label=10, x_init=x_init,
+                              generator=torch.Generator().manual_seed(0)),
+             lambda: d.sample_ddim(model, y, SHAPE, n_sample_steps=2, null_label=10,
+                                   x_init=x_init),
+             lambda: d.sample_dpmpp(model, y, SHAPE, n_sample_steps=2, null_label=10,
+                                    x_init=x_init)]
+    for call, tables in zip(calls, (1, 2, 4)):
+        before = len(made)
+        first, n = call(), len(made)
+        assert n - before == tables
+        assert torch.equal(call(), first) and len(made) == n
+    d.sample_ddim(model, y, SHAPE, n_sample_steps=3, null_label=10, x_init=x_init)
+    assert len(made) == n + 2  # other arguments, other tables
+
+
 def test_graphs_exist_on_cuda_alone(pair):
     """On the CPU there is only the eager loop: the default takes it, and a
     caller who asks for the graph by name gets an error, not the loop."""
