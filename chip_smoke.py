@@ -86,6 +86,30 @@ failure raises and exits nonzero:
    steps) times, no other.  Then DPM-Solver++-15 saturated the same way.
    A repeated ``sample_ddim`` / ``sample_dpmpp`` call at B=64 makes no host
    sync (``torch.cuda.set_sync_debug_mode("error")``).
+7c. the protocol slice: ``ldm_tpu_torch.main.main`` (the five-mix
+   augmentation protocol) for both generator families at full width, bf16,
+   CFG 3, ``--negative-control``: the flagship pixel DDPM and
+   configs/protocol_flow_hard.yaml (rectified flow), each on 2,560 synthetic
+   CIFAR-10-shaped images (1,152 generator-train images: 18 steps of 64),
+   1 generator epoch, 2 classifier epochs of ResNet-18, 32 images a class,
+   Phase C in chunks of 128 (2B=256) with the family's sampler (ancestral
+   T=400; Heun-25).  Counts set to 0 before each run and read after: the
+   forward kernel 8 a train step and 8 x 2 a validation batch in Phase A,
+   8 (Heun: 16) a sampler step and warm-up step in Phase C, the backward
+   kernel 8 a train step, none in the classifier's phases.  Printed: wall
+   seconds by phase, launches by phase, Phase C img/s and the device's ms a
+   sampler step, the F1s and FIDs (no quality assertion: one epoch on
+   synthetic data).  Checks: Phase C's first chunk again from the same state
+   and generator, bit-identical; exp2 retrained twice, the protocol's F1
+   both times and weights and BatchNorm buffers bit-identical; the graphed
+   classifier step against the eager one over 8 steps (fp32, 1e-3);
+   host ms a classifier step graphed and eager beside the device's ms a
+   replay (B=64, ResNet-18, bf16), under cuDNN's deterministic algorithms
+   and under its defaults (where two runs under the defaults differ, the
+   first parameter that differs is named); a 10-step Heun trajectory,
+   kernel path against plain path and graphed against eager (fp32, 1e-3);
+   the graphed flow train step against the eager one (phase 7's check with
+   the flow's draws).
 8. the fused ResNet-block kernel (``ops/resnet_block.py``) vs plain: at
    the 11 ResNet sites of the 32px flagship UNet at 2B=20 and 2B=128, at
    probe 13's four sites at 2B=256, at the 64px (4096, 64->64) site at
@@ -134,10 +158,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ldm_tpu_torch import generate, train
+from ldm_tpu_torch import generate, main as protocol_main, train
 from ldm_tpu_torch.data.transforms import reverse_transform, scale_to_minus_one_one
+from ldm_tpu_torch.data.datasets import synthetic_dataset
+from ldm_tpu_torch.data.loader import DataLoader
 from ldm_tpu_torch.diffusion.ddpm import GaussianDiffusion
-from ldm_tpu_torch.factory import build_diffusion, build_model, load_config
+from ldm_tpu_torch.diffusion.flow import RectifiedFlow
+from ldm_tpu_torch.experiments import augmentation as aug
+from ldm_tpu_torch.factory import build_classifier, build_diffusion, build_model, load_config
 from ldm_tpu_torch.ops import build
 from ldm_tpu_torch.ops import linear_attention as la
 from ldm_tpu_torch.ops import resnet_block as rb
@@ -147,6 +175,8 @@ from ldm_tpu_torch.serving import GenerationHTTPServer
 from ldm_tpu_torch.serving.builder import build_generation_service, load_sampler
 from ldm_tpu_torch.serving.service import slot_x_init
 from ldm_tpu_torch.training.diffusion_trainer import DiffusionTrainer
+from ldm_tpu_torch.training.resnet_trainer import ResNetTrainer
+from ldm_tpu_torch.training.state import step_generator
 from ldm_tpu_torch.utils.graphs import WARMUP_STEPS
 
 FLAGSHIP = "configs/pixel_diffusion_model_cifar10.yaml"
@@ -200,6 +230,12 @@ RB_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # alone, under load, through HTTP and against sample_ddim
 SERVE_B = 64
 REF_CLASSES, REF_SEED = list(range(10)), 1234
+# the protocol phase: both generator families, their overrides of the
+# configs (written to a temporary config), and the main entry point's flags
+FLOW = "configs/protocol_flow_hard.yaml"
+PROTOCOL = {"pixel": FLAGSHIP, "flow": FLOW}
+PROTOCOL_SIZE, PROTOCOL_PER_CLASS, PROTOCOL_CLF_EPOCHS, SAMPLE_B = 2560, 32, 2, 128
+PROTOCOL_EXPS = [name for name, _, _ in aug.EXPERIMENTS] + ["exp2_broken"]
 
 
 # every kernel wrapper's count of launches, by the kernel's name in the result
@@ -352,7 +388,7 @@ def check_kernel(tag: str) -> dict:
     kw = dict(heads=4, dim_head=32)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     paths = {}
-    cases = [(b, site) for b in (20, 128) for site in SITES]
+    cases = [(b, site) for b in (20, 128, 2 * SAMPLE_B) for site in SITES]
     cases += [(4, site) for site in LARGE_SITES] + [(20, site) for site in NARROW_SITES]
     for dtype in (torch.float32, torch.bfloat16):
         for b, (site, n, c) in cases:
@@ -522,6 +558,7 @@ def _check_graphed_training(cfg) -> None:
                                 list(range(10)), device=DEV, graphs=graphs)
 
     graphed, eager = trainer(None), trainer(False)
+    flow = isinstance(graphed.diffusion, RectifiedFlow)
     start = {k: v.clone() for k, v in graphed.model.state_dict().items()}
     g = torch.Generator().manual_seed(12)
 
@@ -537,7 +574,8 @@ def _check_graphed_training(cfg) -> None:
             graphed.eval_step(held_out, 0)
             graphed.sample(grid, cfg_scale=3.0, method="dpmpp", ddim_steps=5)
         b = batch()
-        draws = dict(t=torch.randint(0, T_STEPS, (TRAIN_B,), generator=g),
+        draws = dict(t=(torch.rand(TRAIN_B, generator=g) if flow else
+                        torch.randint(0, T_STEPS, (TRAIN_B,), generator=g)),
                      eps=torch.randn(TRAIN_B, 32, 32, 3, generator=g),
                      drop=torch.tensor(step % 3 == 0))
         la_, lb = graphed.train_step(b, **draws), eager.train_step(b, **draws)
@@ -562,7 +600,8 @@ def _check_graphed_training(cfg) -> None:
             if not scale > 0 or (da - db).abs().max().item() > UNET_FP32_TOL * scale:
                 raise AssertionError(f"{name}: moved {da.abs().max().item()} graphed, {scale} "
                                      f"eager")
-    print(f"graphed vs eager fp32 trainer, 8 steps ({8 - WARMUP_STEPS} replayed): worst loss "
+    print(f"graphed vs eager fp32 {type(graphed.diffusion).__name__} trainer, 8 steps "
+          f"({8 - WARMUP_STEPS} replayed): worst loss "
           f"difference {worst:.2e} of the loss; every to_qkv / to_out.0 weight moved, the "
           f"same way within {moved:.2e} of its largest move")
 
@@ -1378,6 +1417,267 @@ def check_probes() -> dict:
             "probe7": (rows7, launches7)}
 
 
+def protocol_config(family: str, workdir: str) -> str:
+    """The family's config with the phase's overrides (2,560 synthetic
+    images, one generator epoch, the run directory under ``workdir``),
+    written as JSON (which YAML reads) beside it; ``configs/`` is not
+    touched."""
+    raw = dataclasses.asdict(load_config(PROTOCOL[family]))
+    raw.update(workdir=workdir, epochs=1, sample_every=0)
+    raw["data"]["synthetic_size"] = PROTOCOL_SIZE
+    path = os.path.join(workdir, f"protocol_{family}.yaml")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return path
+
+
+def protocol_launches(family: str, config) -> dict:
+    """The launches each phase must make, from the shapes: Phase A's train
+    steps (8 forward and 8 backward launches each) and validation batches
+    (two forwards: CFG's lerp), Phase C's sampler steps over the chunks plus
+    the warm-up steps before each capture (a Heun step is two forwards), the
+    classifier phases none."""
+    n_train = int(0.9 * (PROTOCOL_SIZE // 2))
+    steps = n_train // config.batch_size
+    val_batches = (PROTOCOL_SIZE // 2 - n_train) // config.batch_size
+    chunks = -(-10 * PROTOCOL_PER_CLASS // SAMPLE_B)
+    if family == "flow":
+        c_steps = c_broken = 25   # Heun-25, 2 forwards a step; broken: the other direction
+        per = 16
+    else:
+        c_steps, c_broken, per = T_STEPS, 5, 8  # ancestral T=400; broken: DDIM-5, cfg 0
+    want = {"A": {"linear_attention_block": 8 * steps + 16 * val_batches,
+                  "linear_attention_block_bwd": 8 * steps},
+            "C": {"linear_attention_block": per * (chunks * c_steps + WARMUP_STEPS)},
+            "C_broken": {"linear_attention_block": (per if family == "flow" else 8)
+                         * (chunks * c_broken + WARMUP_STEPS)}}
+    return {phase: {"linear_attention_block": 0, "linear_attention_block_bwd": 0,
+                    "resnet_block": 0} | want.get(phase, {})
+            for phase in ["A", "C", "C_broken"] + PROTOCOL_EXPS}
+
+
+def rerun_exp2(result, config) -> None:
+    """exp2 (the classifier on the synthetic set alone) retrained twice
+    through the protocol's own trainer: the protocol's F1 both times, and
+    the two runs' weights and BatchNorm buffers bit-identical (``reset``
+    restarts the validation loader's shuffle, so a rerun sees the passes the
+    protocol's exp2 saw)."""
+    rt = result.classifier_trainer
+    synth = result.synthetic
+    exp2 = aug._mix(synth, synth, 0.0, 1.0, aug._exp_seed(config.seed, "exp2"))
+    states, f1s = [], []
+    for i in range(2):
+        rt.reset(seed=aug._exp_seed(config.seed, "exp2"), name=f"resnet_exp2_rerun{i}")
+        rt.set_train_data(exp2)
+        rt.train()
+        f1s.append(rt.test()["f1_micro"])
+        states.append({k: v.clone() for k, v in rt.model.state_dict().items()})
+    differ = [k for k in states[0] if not torch.equal(states[0][k], states[1][k])]
+    print(f"exp2 retrained twice: test F1 {f1s[0]!r}, {f1s[1]!r} (the protocol's "
+          f"{result.test_f1['exp2']!r}); weights and BatchNorm buffers bit-identical: "
+          f"{not differ}")
+    if f1s != [result.test_f1["exp2"]] * 2 or differ:
+        raise AssertionError(f"exp2 reruns: F1 {f1s}, differing tensors {differ[:5]}")
+
+
+def rerun_chunk(result, config, sampler: str, ddim_steps: int) -> None:
+    """Phase C's first chunk again, from the same state and the same
+    generator: the same images, bit for bit."""
+    dt = result.diffusion_trainer
+    labels = result.synthetic.labels[:SAMPLE_B]
+    n = len(labels)
+    labels = np.concatenate([labels, np.zeros(SAMPLE_B - n, np.int32)])  # the tail's padding
+    gen = step_generator(config.seed, aug.GENERATE_SALT, DEV, aug.GENERATE_SALT)
+    again = dt.sample(labels, cfg_scale=config.diffusion.cfg_scale, generator=gen,
+                      method=sampler, ddim_steps=ddim_steps)
+    same = np.array_equal(again[:n], result.synthetic.images[:n])
+    print(f"Phase C's first chunk ({n} images) again from the same state and "
+          f"generator: bit-identical {same}")
+    if not same:
+        raise AssertionError("Phase C is not reproducible")
+
+
+def classifier_trainer(dtype_amp: bool, graphs, workdir: str) -> ResNetTrainer:
+    """The protocol's ResNet-18 on 640 synthetic 32px images at B=64, from
+    the seed-0 init (reset)."""
+    cfg = dataclasses.replace(load_config(FLAGSHIP), use_amp=dtype_amp, workdir=workdir,
+                              loss_fn="cross-entropy", project_name="clf_check")
+    ds = synthetic_dataset(SYNTHETIC_SIZE, 32, 3, train=True)
+    return ResNetTrainer(cfg, build_classifier(cfg, 3, 10, device=DEV),
+                         DataLoader(ds, TRAIN_B, seed=0), None, list(range(10)), device=DEV,
+                         graphs=graphs)
+
+
+def classifier_batches(n: int, seed: int) -> list:
+    g = torch.Generator().manual_seed(seed)
+    return [{"image": torch.rand(TRAIN_B, 32, 32, 3, generator=g) * 2 - 1,
+             "label": torch.randint(0, 10, (TRAIN_B,), generator=g)} for _ in range(n)]
+
+
+def check_classifier_steps(tag: str) -> dict:
+    """The classifier's step on the card: graphed against eager in fp32 (8
+    steps, 3 eager warm-up and 5 replayed, from one init: losses and every
+    weight within 1e-3 of its leaf's scale); then host ms a step graphed and
+    eager (median of 5 runs of 10 steps) and the device's ms a replay at
+    B=64 in bf16, under cuDNN's deterministic algorithms (the protocol's
+    setting) and under its defaults; whether two runs under the defaults
+    give the same weights (else the first parameter that differs)."""
+    with tempfile.TemporaryDirectory() as workdir:
+        graphed, eager = (classifier_trainer(False, g, workdir) for g in (None, False))
+        worst = 0.0
+        for step, b in enumerate(classifier_batches(8, 21)):
+            la_, lb = graphed.train_step(b)["loss"].item(), eager.train_step(b)["loss"].item()
+            worst = max(worst, abs(la_ - lb) / lb)
+        others = dict(eager.model.named_parameters())
+        w_err = max((p.detach() - others[n].detach()).abs().max().item()
+                    / max(others[n].detach().abs().max().item(), 1e-6)
+                    for n, p in graphed.model.named_parameters())
+        print(f"classifier fp32, graphed vs eager over 8 steps "
+              f"({graphed.step_counts['graphed']} replayed): worst loss difference "
+              f"{worst:.2e} of the loss, weights within {w_err:.2e} of their leaf's max")
+        if graphed.step_counts != {"graphed": 8 - WARMUP_STEPS, "eager": WARMUP_STEPS} or \
+                worst > UNET_FP32_TOL or w_err > UNET_FP32_TOL:
+            raise AssertionError(f"graphed classifier step off the eager one: {worst}, {w_err}")
+
+        out = {}
+        batches = classifier_batches(10, 22)
+        for deterministic in (True, False):
+            torch.backends.cudnn.deterministic = deterministic
+            trainers = {g: classifier_trainer(True, g, workdir) for g in (None, False)}
+            runs = {}
+            for g, rt in trainers.items():
+                for b in batches[:WARMUP_STEPS + 1]:
+                    rt.train_step(b)  # warm-up and, graphed, the capture
+                runs[g] = host_ms(lambda: [rt.train_step(b) for b in batches], len(batches))
+            device_ms = trainers[None].train_graph.device_ms(20)
+            name = f"classifier step B={TRAIN_B} ResNet-18 bf16, cudnn.deterministic=" \
+                   f"{deterministic}"
+            out[f"deterministic_{deterministic}"] = path_line(name, runs[None], runs[False],
+                                                              device_ms, tag)
+        # two eager runs under the defaults from one init on the same batches
+        states = []
+        for _ in range(2):
+            rt = classifier_trainer(True, False, workdir)
+            for b in batches:
+                rt.train_step(b)
+            states.append(rt.model.state_dict())
+        differ = [k for k in states[0] if not torch.equal(states[0][k], states[1][k])]
+        out["default_bit_identical"] = not differ
+        out["default_first_differing"] = differ[0] if differ else None
+        print(f"two classifier runs of 10 steps under cuDNN's default algorithms: "
+              f"bit-identical {not differ}"
+              + (f"; the first tensor that differs: {differ[0]} ({len(differ)} differ)"
+                 if differ else ""))
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def check_heun_trajectory(config) -> None:
+    """A 10-step Heun trajectory (CFG 3, B=2, fp32, the flow's time scale):
+    the kernel path graphed against the plain path and against the kernel
+    path's eager loop, and Euler graphed against eager."""
+    m_kernel, m_plain = seeded_pair(dataclasses.replace(config, use_amp=False), seed=4)
+    flow = RectifiedFlow(T_STEPS, device=DEV)
+    g = torch.Generator().manual_seed(5)
+    x_init = torch.randn(2, 32, 32, 3, generator=g)
+    classes = torch.tensor([2, 8], device=DEV)
+    kw = dict(cfg_scale=3.0, null_label=10, x_init=x_init, n_sample_steps=10)
+    shape = (32, 32, 3)
+    graphed = flow.sample_dpmpp(m_kernel, classes, shape, graph=True, **kw)
+    errs = {"Heun graphed vs plain path":
+            (graphed - flow.sample_dpmpp(m_plain, classes, shape, graph=False, **kw)).abs().max(),
+            "Heun graphed vs eager":
+            (graphed - flow.sample_dpmpp(m_kernel, classes, shape, graph=False, **kw)).abs().max(),
+            "Euler graphed vs eager":
+            (flow.sample_ddim(m_kernel, classes, shape, graph=True, **kw)
+             - flow.sample_ddim(m_kernel, classes, shape, graph=False, **kw)).abs().max()}
+    errs = {k: v.item() for k, v in errs.items()}
+    moved = (graphed - x_init.to(DEV)).abs().max().item()
+    print("fp32 flow CFG trajectories B=2, 10 steps, max_abs_err: "
+          + "; ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (x moved {moved:.3f})")
+    if not torch.isfinite(graphed).all() or max(errs.values()) > UNET_FP32_TOL or moved < 1e-2:
+        raise AssertionError(f"flow trajectory errs {errs}, moved {moved}")
+
+
+def run_protocol(family: str, tag: str) -> dict:
+    """One family's protocol through ``ldm_tpu_torch.main.main``, counted and
+    checked; returns its numbers."""
+    with tempfile.TemporaryDirectory() as workdir:
+        path = protocol_config(family, workdir)
+        config = load_config(path)
+        zero_counts()
+        t0 = time.perf_counter()
+        result = protocol_main.main([path, "--per-class", str(PROTOCOL_PER_CLASS),
+                                     "--classifier-epochs", str(PROTOCOL_CLF_EPOCHS),
+                                     "--negative-control", "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        dt = result.diffusion_trainer
+        sampler, ddim_steps = aug.phase_c_sampler_default(dt, None, None)
+        print(f"{family}: {type(dt.diffusion).__name__}, Phase C {sampler} "
+              f"({ddim_steps if sampler != 'ddpm' else dt.diffusion.n_steps} steps), "
+              f"{wall:.1f} s in all; kernel launches in the run: {counts}")
+        print(f"{family} wall seconds by phase: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in result.seconds.items()))
+        print(f"{family} attention launches by phase (forward / backward): "
+              + ", ".join(f"{k} {v['linear_attention_block']} / "
+                          f"{v['linear_attention_block_bwd']}"
+                          for k, v in result.launches.items()))
+        want = protocol_launches(family, config)
+        if result.launches != want:
+            raise AssertionError(f"{family} launches by phase {result.launches}, want {want}")
+        if counts["linear_attention_fwd"] != sum(v["linear_attention_block"]
+                                                 for v in want.values()):
+            raise AssertionError(f"{family}: {counts} launches in the run")
+        (phase_c, *_) = dt.diffusion.sampler_graphs()
+        step_ms = phase_c.device_ms(10)
+        n_images = 10 * PROTOCOL_PER_CLASS
+        img_s = n_images / result.seconds["C"]
+        print(f"{family} Phase C: {n_images} images in {result.seconds['C']:.3f} s, "
+              f"{img_s:.3f} img/s (graph captures included), device {step_ms:.4f} ms a "
+              f"sampler step at 2B={2 * SAMPLE_B} [{tag}]")
+        print(f"{family} test F1: " + ", ".join(f"{k} {v:.4f}" for k, v in result.test_f1.items())
+              + f"; FID pixel {result.fid_pixel:.4f} (broken {result.fid_pixel_broken:.4f}), "
+              f"classifier {result.fid_classifier:.4f} (broken "
+              f"{result.fid_classifier_broken:.4f})")
+        for v in (result.fid_pixel, result.fid_classifier, result.fid_pixel_broken,
+                  result.fid_classifier_broken, *result.test_f1.values()):
+            if not np.isfinite(v):
+                raise AssertionError(f"{family}: a result is not finite: {result}")
+        if set(result.test_f1) != set(PROTOCOL_EXPS) or result.synthetic_size != n_images:
+            raise AssertionError(f"{family}: {result.test_f1} {result.synthetic_size}")
+        if result.synthetic.images.shape != (n_images, 32, 32, 3):
+            raise AssertionError(f"{family}: synthetic set {result.synthetic.images.shape}")
+        rerun_chunk(result, config, sampler, ddim_steps)
+        rerun_exp2(result, config)
+        return {"seconds": result.seconds, "wall_seconds": wall,
+                "launches": result.launches, "counts": counts,
+                "phase_c_img_s": img_s, "phase_c_step_device_ms": step_ms,
+                "phase_c_sampler": f"{sampler}-{ddim_steps}" if sampler != "ddpm"
+                else f"ancestral-{dt.diffusion.n_steps}",
+                "test_f1": result.test_f1, "fid_pixel": result.fid_pixel,
+                "fid_classifier": result.fid_classifier,
+                "fid_pixel_broken": result.fid_pixel_broken,
+                "fid_classifier_broken": result.fid_classifier_broken}
+
+
+def check_protocol(tag: str) -> dict:
+    """Phase 7c: both families' protocol runs, the classifier's step, the
+    Heun trajectory and the graphed flow train step.  The protocol sets
+    cuDNN's deterministic algorithms; the flags are put back after it, so
+    the phases that follow time cuDNN as before."""
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    try:
+        out = {family: run_protocol(family, tag) for family in PROTOCOL}
+        out["classifier_step"] = check_classifier_steps(tag)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    flow_config = load_config(FLOW)
+    check_heun_trajectory(flow_config)
+    check_graphed_training(flow_config)
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="another commit's tree, unpacked: its linear-attention "
@@ -1448,6 +1748,12 @@ def main(argv=None) -> None:
           "DPM-Solver++-15")
     serving = check_serving(config, tag)
 
+    phase("7c the protocol slice: ldm_tpu_torch.main for the pixel DDPM and the rectified "
+          "flow, full width, bf16, CFG 3, --negative-control")
+    t_protocol = time.perf_counter()
+    protocol = check_protocol(tag)
+    print(f"phase 7c wall time {time.perf_counter() - t_protocol:.1f} s")
+
     phase("8 the ResNet-block kernel vs plain, and ResNetBlockFn")
     t_rb = time.perf_counter()
     resnet = check_resnet_block(tag)
@@ -1497,7 +1803,9 @@ def main(argv=None) -> None:
                              "sample_ddim": requests["ddim"]["counts"]["linear_attention_fwd"],
                              "sample_dpmpp": requests["dpmpp"]["counts"]["linear_attention_fwd"],
                              "serve_ddim": serving["ddim"]["launches"],
-                             "serve_dpmpp": serving["dpmpp"]["launches"]},
+                             "serve_dpmpp": serving["dpmpp"]["launches"],
+                             "protocol_pixel": protocol["pixel"]["counts"]["linear_attention_fwd"],
+                             "protocol_flow": protocol["flow"]["counts"]["linear_attention_fwd"]},
         "launches_per_step": per_step("linear_attention_fwd"),
         "max_abs_err": kernel["max_abs_err"],
         "max_abs_err_fp32": kernel["max_abs_err_fp32"],
@@ -1512,7 +1820,9 @@ def main(argv=None) -> None:
         "also_replaces": "ldm_tpu/ops/linear_attention.py:858",
         "launches": train_counts["linear_attention_bwd"],
         "launches_by_path": {"sample": sample_counts["linear_attention_bwd"],
-                             "train": train_counts["linear_attention_bwd"]},
+                             "train": train_counts["linear_attention_bwd"],
+                             "protocol_pixel": protocol["pixel"]["counts"]["linear_attention_bwd"],
+                             "protocol_flow": protocol["flow"]["counts"]["linear_attention_bwd"]},
         "launches_per_step": per_step("linear_attention_bwd"),
         "max_abs_err": bwd["max_rel_err"],
         "max_abs_err_fp32": bwd["max_rel_err_fp32"],
@@ -1580,6 +1890,11 @@ def main(argv=None) -> None:
                             "loop (loop), graphed, median of 5 epochs of 9 steps at B=64 bf16, "
                             "and the device's ms a replay of each step",
         "serving": serving,
+        "protocol": protocol,
+        "protocol_unit": "ldm_tpu_torch.main at full width, bf16, CFG 3, 2,560 synthetic images, "
+                         "1 generator epoch, 2 classifier epochs, 32 images a class, "
+                         "--negative-control; seconds: wall by phase; classifier_step: host "
+                         "ms a step graphed / eager and the device's ms a replay, B=64",
         "serving_unit": "B=64, CFG 3, bf16; saturated: 2,048 images from 8 client threads of "
                         "32-image requests, latency client side; host_ms_per_batch the batcher "
                         "thread's; device_ms_per_batch steps x the device's ms a replay",

@@ -73,12 +73,17 @@ class DataLoader:
         self.prefetch = prefetch
         self._prefetcher = None
         self._pf_key = None
-        self._rng = np.random.default_rng(seed)
-        self._epoch = 0
+        self.seed = seed
+        self.restart()
         # build the library once here, at construction, not inside the
         # first epoch; memoized after the first loader
         if os.environ.get("LDM_TPU_NO_NATIVE") != "1":
             native.available()
+
+    def restart(self) -> None:
+        """Back to the first pass: the shuffle stream starts again from the seed."""
+        self._rng = np.random.default_rng(self.seed)
+        self._epoch = 0
 
     def __len__(self) -> int:
         n = len(self.dataset)

@@ -10,10 +10,11 @@ from __future__ import annotations
 import torch
 
 from ldm_tpu_torch.config import Config, load_config
-from ldm_tpu_torch.diffusion.ddpm import GaussianDiffusion
+from ldm_tpu_torch.diffusion.sampling import SamplingProcess
 from ldm_tpu_torch.registry import instantiate_from_config
 
-__all__ = ["build_diffusion", "build_model", "compute_dtype", "load_config"]
+__all__ = ["build_classifier", "build_diffusion", "build_model", "compute_dtype",
+           "load_config"]
 
 
 def compute_dtype(config: Config) -> torch.dtype:
@@ -31,9 +32,10 @@ def build_model(config: Config, device=None, **overrides):
     )
 
 
-def build_diffusion(config: Config, device=None) -> GaussianDiffusion:
-    """Instantiate the diffusion process from the ``diffusion:`` block, with
-    its schedule on ``device``."""
+def build_diffusion(config: Config, device=None) -> SamplingProcess:
+    """Instantiate the diffusion process from the ``diffusion:`` block
+    (``GaussianDiffusion`` or ``RectifiedFlow``), with its tables on
+    ``device``."""
     dc = config.diffusion
     return instantiate_from_config(
         {
@@ -47,4 +49,16 @@ def build_diffusion(config: Config, device=None) -> GaussianDiffusion:
             },
         },
         device=device,
+    )
+
+
+def build_classifier(config: Config, img_channels: int, num_classes: int = 10, device=None):
+    """The ResNet-18-shaped classifier the experiment protocol hardcodes
+    (``ldm_tpu/factory.py::build_classifier``), computing in the config's
+    dtype, on ``device``."""
+    return instantiate_from_config(
+        {"target": "ldm_tpu.models.resnet.ResNetBase",
+         "params": {"img_channels": img_channels, "out_channels": num_classes,
+                    "n_blocks": (2, 2, 2, 2), "n_channels": (64, 128, 256, 512)}},
+        dtype=compute_dtype(config), device=device,
     )

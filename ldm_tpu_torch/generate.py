@@ -8,7 +8,8 @@ config -> model -> diffusion -> weights -> CFG sampling ->
         [--sampler ddpm|ddim|dpmpp] [--ddim-steps 50] [--eta 0.0] [--eager]
 
 ``--sampler``: the ancestral DDPM loop over all T steps (default), DDIM or
-DPM-Solver++(2M) over ``--ddim-steps`` steps.  On a CUDA device the loop is
+DPM-Solver++(2M) over ``--ddim-steps`` steps; for a rectified-flow config
+Euler over ``n_steps``, Euler or Heun over ``--ddim-steps`` steps.  On a CUDA device the loop is
 one sampler step captured into a CUDA graph and replayed; ``--eager`` asks
 for the Python loop that launches every kernel itself (the only loop on the
 CPU).  The reported seconds are the whole request, warm-up and capture

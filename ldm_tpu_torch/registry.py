@@ -9,11 +9,15 @@ from __future__ import annotations
 from typing import Any, Callable, Dict
 
 from ldm_tpu_torch.diffusion.ddpm import GaussianDiffusion
+from ldm_tpu_torch.diffusion.flow import RectifiedFlow
+from ldm_tpu_torch.models.resnet import ResNetBase
 from ldm_tpu_torch.models.unet import UNet
 
 TARGETS: Dict[str, Callable[..., Any]] = {
     "ldm_tpu.models.unet.UNet": UNet,
+    "ldm_tpu.models.resnet.ResNetBase": ResNetBase,
     "ldm_tpu.diffusion.ddpm.GaussianDiffusion": GaussianDiffusion,
+    "ldm_tpu.diffusion.flow.RectifiedFlow": RectifiedFlow,
 }
 
 

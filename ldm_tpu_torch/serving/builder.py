@@ -1,12 +1,15 @@
 """Config and checkpoint -> a ready :class:`GenerationService` (the twin of
-``ldm_tpu/serving/builder.py``, pixel family).
+``ldm_tpu/serving/builder.py``, pixel family: the DDPM and the rectified
+flow).
 
 The service samples through the port's samplers (``run_sampler``): DDIM
 (the default: 50 steps, eta 0, deterministic, so a request's images do not
 depend on how the batcher packed it), the ancestral DDPM loop over all T
 steps, or DPM-Solver++(2M) (deterministic too, DDIM-50-class quality at
-10-15 steps).  On a CUDA device each runs as one step captured into a CUDA
-graph and replayed (``diffusion/ddpm.py``).
+10-15 steps).  A rectified-flow config maps them as the JAX builder's duck
+typing does: ``ddim`` to Euler, ``dpmpp`` to Heun, ``ddpm`` to Euler over
+``n_steps`` (all deterministic).  On a CUDA device each runs as one step
+captured into a CUDA graph and replayed (``diffusion/sampling.py``).
 
 The weights are the state_dict the port's trainer writes:
 ``<checkpoints>/diffusion_model_ema.pt`` (``use_ema``) or
@@ -22,7 +25,7 @@ from typing import Optional, Tuple
 import torch
 
 from ldm_tpu_torch.config import Config
-from ldm_tpu_torch.diffusion.ddpm import GaussianDiffusion
+from ldm_tpu_torch.diffusion.sampling import SamplingProcess
 from ldm_tpu_torch.factory import build_diffusion, build_model
 from ldm_tpu_torch.serving.service import GenerationService, XInitFn
 from ldm_tpu_torch.training.diffusion_trainer import SAMPLERS, run_sampler
@@ -37,9 +40,10 @@ def checkpoint_path(config: Config, use_ema: bool = True) -> str:
 
 
 def load_sampler(config: Config, checkpoint: Optional[str] = None, use_ema: bool = True,
-                 device="cuda") -> Tuple[torch.nn.Module, GaussianDiffusion]:
+                 device="cuda") -> Tuple[torch.nn.Module, SamplingProcess]:
     """The UNet with the checkpoint's weights (strict), in eval mode on
-    ``device``, and the config's diffusion process there."""
+    ``device``, and the config's process there (``GaussianDiffusion`` or
+    ``RectifiedFlow``)."""
     if config.type == "latent":
         raise ValueError(f"latent serving is {NOT_PORTED}")
     checkpoint = checkpoint or checkpoint_path(config, use_ema)

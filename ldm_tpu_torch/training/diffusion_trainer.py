@@ -2,8 +2,10 @@
 
 One training step (the JAX ``_step_body``): noise the batch (``noise_batch``),
 drop labels for classifier-free guidance (the whole batch at once, or per
-sample), the MSE of fp32 eps against the UNet's output, backward, Adam, EMA,
-and the global L2 norm of the grads.  Under ``use_amp`` the UNet computes in
+sample), the MSE of the process's fp32 target against the UNet's output (eps
+for ``GaussianDiffusion``; the velocity for ``RectifiedFlow``, whose t is an
+fp32 draw in [0, 1]), backward, Adam, EMA, and the global L2 norm of the
+grads.  Under ``use_amp`` the UNet computes in
 bf16 with fp32 parameters, as in the JAX package.  On a CUDA device every
 linear-attention block of the step runs the Hopper forward kernel and, in the
 backward, the Hopper backward kernel (``LinearAttentionBlockFn``).
@@ -42,20 +44,21 @@ at the ``checkpoint_every`` cadence and at the end.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ldm_tpu_torch.config import Config
 from ldm_tpu_torch.data.transforms import reverse_transform
-from ldm_tpu_torch.diffusion.ddpm import GaussianDiffusion
+from ldm_tpu_torch.diffusion.sampling import SamplingProcess
 from ldm_tpu_torch.training import checkpoint as ckpt
 from ldm_tpu_torch.training.early_stopping import EarlyStopping
 from ldm_tpu_torch.training.scan_epochs import EpochScan, build_epoch_scan
 from ldm_tpu_torch.training.state import TrainState, step_generator
-from ldm_tpu_torch.utils.graphs import WARMUP_STEPS, StepGraph, side_stream, use_graphs
+from ldm_tpu_torch.utils.graphs import CapturedStep, GraphedStep, use_graphs
 from ldm_tpu_torch.utils.logging import MetricsLogger, Throughput, global_norm
+from ldm_tpu_torch.utils.seed import check_finite
 
 EVAL_SALT = 0x5EED     # the JAX trainer's salts: eval batches and sample grids
 SAMPLE_SALT = 0x5A7712
@@ -67,7 +70,7 @@ class DiffusionTrainer:
         self,
         config: Config,
         model,  # ldm_tpu_torch.models.unet.UNet, on `device`
-        diffusion: GaussianDiffusion,
+        diffusion: SamplingProcess,  # GaussianDiffusion or RectifiedFlow
         train_loader,
         val_loader,
         classes,
@@ -99,13 +102,20 @@ class DiffusionTrainer:
             save_fn=self._save_best, min_delta_rel=config.early_stopping_min_delta_rel,
         )
         self._best: Optional[dict] = None
-        self.graphs = use_graphs(self.device, graphs)
-        # the captured steps by batch source: None (the caller's batches) or
-        # the EpochScan whose batches the step gathers itself
-        self._graphs: Dict[Optional[EpochScan], _TrainGraph] = {}
-        self._graph_shape: Optional[tuple] = None  # the batch shape the graphs are for
-        self._warm_steps = 0                       # eager steps taken at that shape
-        self.step_counts = {"graphed": 0, "eager": 0}
+
+        def drop_copies():
+            # the attention blocks make their kernel weight copies inside the
+            # captured region, so every replay makes them again from the
+            # weights Adam has moved
+            for m in (self.state.model, self.state.ema):
+                m.drop_kernel_weights()
+
+        # the step after the draws, eager or replayed: one graph a batch
+        # source (None: the caller's batches; or the EpochScan whose batches
+        # the step gathers itself)
+        self._steps = GraphedStep(self._device_step, self.state, self.device,
+                                  use_graphs(self.device, graphs),
+                                  before_capture=drop_copies)
         self._warmed_up = False
         self._last_rates: Dict[str, float] = {}
         self._last_grad_norm = 0.0
@@ -117,14 +127,29 @@ class DiffusionTrainer:
         return self.state.model
 
     @property
-    def train_graph(self) -> Optional["_TrainGraph"]:
-        """The captured train step on the caller's batches, once there is one."""
-        return self._graphs.get(None)
+    def graphs(self) -> bool:
+        """Whether the train step replays its CUDA graph; settable between
+        steps (False: the eager step, the captured graphs kept)."""
+        return self._steps.enabled
+
+    @graphs.setter
+    def graphs(self, value: bool) -> None:
+        self._steps.enabled = bool(value)
 
     @property
-    def scan_graph(self) -> Optional["_TrainGraph"]:
+    def step_counts(self) -> Dict[str, int]:
+        """Train steps taken so far: {"graphed": replays, "eager": eager steps}."""
+        return self._steps.counts
+
+    @property
+    def train_graph(self) -> Optional[CapturedStep]:
+        """The captured train step on the caller's batches, once there is one."""
+        return self._steps.captured.get(None)
+
+    @property
+    def scan_graph(self) -> Optional[CapturedStep]:
         """The captured train step of the device-resident epoch, once there is one."""
-        return self._graphs.get(self.epoch_scan) if self.epoch_scan is not None else None
+        return self._steps.captured.get(self.epoch_scan) if self.epoch_scan is not None else None
 
     # ------------------------------------------------------------ the step
     def dropped_labels(self, y: torch.Tensor, drop: Optional[torch.Tensor] = None,
@@ -183,40 +208,22 @@ class DiffusionTrainer:
         if t is None or eps is None or drop is None:
             gen = step_generator(self.config.seed, state.step, self.device)
         t, eps = self.diffusion.draw_t_eps(x0, t, eps, gen)
-        drop = self.draw_drop(y, drop, gen)
-
-        if self.graphs:
-            if self._graph_shape is None:
-                self._graph_shape = tuple(x0.shape)
-            if tuple(x0.shape) == self._graph_shape:
-                if self._warm_steps >= WARMUP_STEPS:
-                    graph = self._graphs.get(scan)
-                    if graph is None:
-                        graph = self._graphs[scan] = _TrainGraph(self, x0, y, t, eps, scan)
-                    self.step_counts["graphed"] += 1
-                    return graph.step(x0, y, t, eps, drop)
-                self._warm_steps += 1
-                self.step_counts["eager"] += 1
-                with side_stream(self.device):  # where warm-up for a capture runs
-                    out = self._device_step(*_source(x0, y, scan), t, eps, drop)
-                state.count_step()
-                return out
-        self.step_counts["eager"] += 1
-        out = self._device_step(*_source(x0, y, scan), t, eps, drop)
-        state.count_step()
-        return out
+        # a () drop mask broadcasts over the batch
+        drop = self.draw_drop(y, drop, gen).expand(y.shape)
+        return self._steps((x0, y, t, eps, drop), scan)
 
     def _device_step(self, x0, y, t, eps, drop) -> Dict[str, torch.Tensor]:
         """Everything of a step after the draws, as a function of device
-        tensors alone: the noising, the label drop, forward, loss, backward,
-        the gradient norm, Adam and the EMA."""
+        tensors alone: the noising, the label drop, forward, the MSE against
+        the process's target (eps; a flow's velocity), backward, the
+        gradient norm, Adam and the EMA."""
         state = self.state
-        xt = self.diffusion.q_sample(x0, t, eps)
+        target, xt, t_in = self.diffusion.noised(x0, t, eps)
         y = torch.where(drop, state.model.null_label, y)
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        eps_theta = state.model(xt, t, y)
-        loss = torch.mean((eps.to(torch.float32) - eps_theta) ** 2)
+        out = state.model(xt, t_in, y)
+        loss = torch.mean((target.to(torch.float32) - out) ** 2)
         loss.backward()
         gnorm = global_norm([p.grad for p in state.params()])
         state.update()
@@ -231,13 +238,13 @@ class DiffusionTrainer:
         gen = None
         if t is None or eps is None:
             gen = step_generator(self.config.seed, index, self.device, EVAL_SALT)
-        eps, xt, t = self.diffusion.noise_batch(x0, t=t, eps=eps, generator=gen)
+        target, xt, t_in = self.diffusion.noise_batch(x0, t=t, eps=eps, generator=gen)
         model = self.model.eval()
-        eps_theta = model(xt, t, y)
+        out = model(xt, t_in, y)
         if self.cfg_scale > 0:
-            eps_uncond = model(xt, t, torch.full_like(y, model.null_label))
-            eps_theta = eps_uncond + self.cfg_scale * (eps_theta - eps_uncond)
-        return torch.mean((eps.to(torch.float32) - eps_theta) ** 2)
+            uncond = model(xt, t_in, torch.full_like(y, model.null_label))
+            out = uncond + self.cfg_scale * (out - uncond)
+        return torch.mean((target.to(torch.float32) - out) ** 2)
 
     # ------------------------------------------------------------ persistence
     def _save_best(self, _state) -> None:
@@ -262,8 +269,7 @@ class DiffusionTrainer:
         sd = ckpt.load_state(path, map_location=self.device)
         self.state.load_state_dict(sd)
         # a captured step holds the addresses of the optimizer's old state
-        self._graphs.clear()
-        self._warm_steps = 0
+        self._steps.clear()
         self.early_stopping.restore(sd.get("best_val_loss", float("inf")))
 
     def resume_latest(self) -> bool:
@@ -295,7 +301,9 @@ class DiffusionTrainer:
                 record(self.train_step(batch), len(batch["label"]))
         if not losses:
             raise ValueError("train loader yielded no batches")
-        loss = torch.stack(losses).mean().item()  # the epoch's one host sync
+        # the epoch's one host sync
+        loss = check_finite("diffusion_model train_loss", torch.stack(losses).mean().item(),
+                            self.config)
         self._last_grad_norm = torch.stack(gnorms).mean().item()
         # the first epoch of the process pays for builds and warm-up: no rate
         self._last_rates = tput.rates() if self._warmed_up else {}
@@ -358,26 +366,32 @@ class DiffusionTrainer:
     # ----------------------------------------------------------------- sample
     def sample(self, classes, cfg_scale: float = 0.0, use_ema: bool = True,
                generator: Optional[torch.Generator] = None, method: str = "ddpm",
-               ddim_steps: int = 50, eta: float = 0.0) -> np.ndarray:
+               ddim_steps: int = 50, eta: float = 0.0,
+               ode_direction: float = 1.0) -> np.ndarray:
         """One image per entry of ``classes``, from the EMA weights by
-        default; uint8 NHWC.  ``method``: "ddpm" (the ancestral CFG sampler),
-        "ddim" (``ddim_steps`` steps, ``eta``) or "dpmpp" (DPM-Solver++(2M),
-        ``ddim_steps`` steps)."""
+        default; uint8 NHWC.  ``method``: "ddpm" (the ancestral CFG sampler;
+        a flow's Euler over ``n_steps``), "ddim" (``ddim_steps`` steps,
+        ``eta``; a flow's Euler) or "dpmpp" (DPM-Solver++(2M), ``ddim_steps``
+        steps; a flow's Heun).  ``ode_direction`` != 1 is the flow family's
+        negative control (passed on only then, as the JAX trainer does: a
+        DDPM process has no such argument and raises)."""
         model = (self.state.ema if use_ema else self.model).eval()
         if generator is None:
             generator = step_generator(self.config.seed, 0, self.device, SAMPLE_SALT)
         classes = torch.as_tensor(np.asarray(classes), dtype=torch.int64, device=self.device)
+        brk = {} if ode_direction == 1.0 else {"ode_direction": ode_direction}
         x0 = run_sampler(self.diffusion, method, model, classes, self.image_shape,
                          ddim_steps=ddim_steps, eta=eta, cfg_scale=cfg_scale,
                          null_label=model.null_label, generator=generator,
-                         graph=None if self.graphs else False)
+                         graph=None if self.graphs else False, **brk)
         return reverse_transform(x0.cpu().numpy())
 
 
-def run_sampler(diffusion: GaussianDiffusion, method: str, model, classes, image_shape,
+def run_sampler(diffusion: SamplingProcess, method: str, model, classes, image_shape,
                 ddim_steps: int = 50, eta: float = 0.0, **kw) -> torch.Tensor:
     """``diffusion``'s sampler ``method`` ("ddpm", "ddim", "dpmpp"; the
-    ``--sampler`` of the entry points); ``kw`` go to it."""
+    ``--sampler`` of the entry points; a ``RectifiedFlow`` maps them to
+    Euler over ``n_steps``, Euler and Heun); ``kw`` go to it."""
     if method == "ddpm":
         return diffusion.sample(model, classes, image_shape, **kw)
     if method == "ddim":
@@ -387,75 +401,6 @@ def run_sampler(diffusion: GaussianDiffusion, method: str, model, classes, image
         return diffusion.sample_dpmpp(model, classes, image_shape, n_sample_steps=ddim_steps,
                                       **kw)
     raise ValueError(f"sampler must be one of {SAMPLERS}, got {method!r}")
-
-
-def _source(x0, y, scan: Optional[EpochScan]):
-    """The step's batch: (x0, y) as given, or ``scan``'s next, gathered on the device."""
-    return scan.next_batch() if scan is not None else (x0, y)
-
-
-class _TrainGraph:
-    """The train step after the draws as one CUDA graph, with its fixed input
-    buffers (image, label, t, eps, the drop mask) and its outputs.  With a
-    ``scan`` the graph gathers its batch from the device-resident epoch
-    instead (the scan's row counter advances at every replay) and has no
-    image or label buffers.
-
-    Captured after the trainer's eager warm-up steps.  Just before the
-    capture both models' cached kernel weight copies are dropped, so the
-    attention blocks make them inside the captured region and every replay
-    makes them again from the weights Adam has moved; inside, the grads are
-    set to None once, so the backward allocates them from the graph's pool
-    and every replay writes them in place."""
-
-    def __init__(self, trainer: DiffusionTrainer, x0, y, t, eps,
-                 scan: Optional[EpochScan] = None):
-        self.trainer = trainer
-        self.scan = scan
-        state = trainer.state
-        self.x0, self.y, self.t, self.eps = (v.clone() for v in (x0, y, t, eps))
-        self.drop = torch.zeros(y.shape, dtype=torch.bool, device=y.device)
-
-        def drop_copies():
-            for m in (state.model, state.ema):
-                m.drop_kernel_weights()
-
-        self.graph = StepGraph(
-            lambda: trainer._device_step(*_source(self.x0, self.y, scan), self.t, self.eps,
-                                         self.drop),
-            trainer.device, warmup=0, before_capture=drop_copies)
-        drop_copies()  # the copies made under capture belong to the graph's pool
-        self.grads: List[torch.Tensor] = [p.grad for p in state.params()]
-
-    def device_ms(self, replays: int = 10) -> float:
-        """The device's time for one replayed step, in ms: ``replays`` real
-        steps on the batch and draws the buffers hold (a scan's graph on its
-        epoch's first row: the counter is set back before each replay)."""
-        ms = self.graph.device_ms(replays, before=None if self.scan is None else
-                                  self.scan.row.zero_)
-        for _ in range(replays):
-            self.trainer.state.count_replayed_step()
-        self.trainer.step_counts["graphed"] += replays
-        return ms
-
-    def step(self, x0, y, t, eps, drop) -> Dict[str, torch.Tensor]:
-        """One replay on these draws and, without a scan, this batch."""
-        inputs = [(self.t, t), (self.eps, eps), (self.drop, drop)]
-        if self.scan is None:
-            inputs += [(self.x0, x0), (self.y, y)]
-        for buf, val in inputs:
-            buf.copy_(val)  # a () drop mask broadcasts over the batch
-        out = self.graph.replay()
-        state = self.trainer.state
-        state.count_replayed_step()
-        params = state.params()
-        if params[0].grad is not self.grads[0]:
-            # an eager step or another graph put other tensors in .grad:
-            # show this step's gradients again
-            for p, g in zip(params, self.grads):
-                p.grad = g
-        # clones: the next replay overwrites the graph's outputs
-        return {k: v.clone() for k, v in out.items()}
 
 
 def _clone(sd):

@@ -1,5 +1,5 @@
 """The device-resident epoch (the twin of ``ldm_tpu/training/scan_epochs.py``'s
-``EpochScan`` and ``build_epoch_scan``).
+``EpochScan``, ``build_epoch_scan`` and ``PaddedEpochScan``).
 
 The JAX package runs a training epoch as one ``lax.scan`` over a uint8
 dataset on the device.  Here the dataset is uploaded once as uint8; each
@@ -7,8 +7,8 @@ epoch uploads one permutation (n int64) into a fixed (n_batches, B) index
 matrix; each step gathers its row of it on the device, its images and
 labels, and scales the uint8 values to [-1, 1] by a 256-entry fp32 table.
 The gather reads its row through a counter on the device that it advances
-itself, the way a sampler graph reads its timestep table, so the trainer's
-replayed train step (``diffusion_trainer._TrainGraph``) takes the gather in
+itself, the way a sampler graph reads its timestep table, so a trainer's
+replayed train step (``utils/graphs.py::CapturedStep``) takes the gather in
 and a replay needs no batch upload.  The draws of a step stay eager, as in
 the per-batch loop, so the two loops given the same order run the same steps.
 
@@ -25,8 +25,11 @@ the per-batch loop, so the two loops given the same order run the same steps.
 * A captured step holds the addresses of the dataset, the index matrix, the
   table and the counter: they are made once and written in place.
 
-``PaddedEpochScan`` (one program for datasets of several sizes) serves the
-classifier's mixes and waits with the classifier (ROADMAP queue 1, item 8).
+:class:`PaddedEpochScan` is one set of buffers for datasets of several sizes
+up to a capacity: the classifier's five mixes, each trained through the one
+captured train step.  The JAX package compiles one scan of ``capacity // B``
+steps and masks the updates of the steps past the data; here the captured
+step is replayed ``n // B`` times, which leaves the same state.
 """
 
 from __future__ import annotations
@@ -84,8 +87,18 @@ class EpochScan:
             perm = np.arange(self.n, dtype=np.int64)
         return perm[: self.n_batches * self.batch_size].reshape(self.n_batches, self.batch_size)
 
-    def start_epoch(self, seed: int, epoch: int) -> None:
-        self.idx.copy_(torch.from_numpy(self.permutation(seed, epoch)))
+    def start_epoch(self, seed: int, epoch: int, order: Optional[np.ndarray] = None) -> None:
+        """Write the epoch's order into the index matrix (``order``, an
+        (n_batches, B) matrix of dataset rows, in place of the drawn one
+        where given) and set the row counter to 0."""
+        if order is None:
+            order = self.permutation(seed, epoch)
+        order = np.asarray(order, np.int64)
+        if order.shape != (self.n_batches, self.batch_size) or (
+                order.size and not 0 <= order.min() <= order.max() < self.n):
+            raise ValueError(f"an epoch's order is ({self.n_batches}, {self.batch_size}) rows "
+                             f"of the {self.n} samples, got {order.shape}")
+        self.idx[: self.n_batches].copy_(torch.from_numpy(order))
         self.row.zero_()
         self._taken = 0
 
@@ -124,3 +137,32 @@ def build_epoch_scan(loader, device, enabled: bool = True) -> Optional[EpochScan
         return None
     return EpochScan(ds.images, ds.labels, loader.batch_size, device,
                      shuffle=bool(getattr(loader, "shuffle", True)))
+
+
+class PaddedEpochScan(EpochScan):
+    """An :class:`EpochScan` whose buffers hold up to ``capacity`` samples:
+    :meth:`set_data` writes a dataset of any size up to it in place (the
+    captured step keeps reading the same addresses: nothing is captured
+    again), and an epoch runs its ``n // B`` full batches."""
+
+    def __init__(self, batch_size: int, capacity: int, image_shape, device,
+                 shuffle: bool = True):
+        if capacity < batch_size:
+            raise ValueError(f"capacity {capacity} < batch_size {batch_size}")
+        super().__init__(np.zeros((capacity,) + tuple(image_shape), np.uint8),
+                         np.zeros((capacity,), np.int64), batch_size, device, shuffle)
+        self.capacity = int(capacity)
+        self.n = self.n_batches = self._taken = 0  # no data yet
+
+    def set_data(self, images: np.ndarray, labels: np.ndarray) -> None:
+        """Copy a dataset into the buffers; ends any epoch in progress."""
+        n = len(images)
+        if n > self.capacity:
+            raise ValueError(f"dataset size {n} exceeds capacity {self.capacity}")
+        if tuple(images.shape[1:]) != self.image_shape:
+            raise ValueError(f"images of shape {images.shape[1:]}, the buffers hold "
+                             f"{self.image_shape}")
+        self.images[:n].copy_(torch.from_numpy(np.ascontiguousarray(images, np.uint8)))
+        self.labels[:n].copy_(torch.from_numpy(np.asarray(labels, np.int64)))
+        self.n, self.n_batches = n, n // self.batch_size
+        self._taken = self.n_batches

@@ -23,6 +23,12 @@ that their weights changed without a version counter moving.
 The per-step random stream is :func:`step_generator`, the counterpart of
 ``fold_in(key, step)``: a generator seeded from (seed, step), so a resumed
 run continues the stream without saving generator state.
+
+A model's BatchNorm statistics (the JAX state's ``batch_stats``) are buffers
+of the model: they travel in ``state_dict()`` with its parameters.  The
+classifier keeps no EMA (``ema=False``): the JAX classifier updates one but
+never reads it (evaluation and ``load_best`` use the raw parameters and
+``batch_stats``).
 """
 
 from __future__ import annotations
@@ -56,11 +62,13 @@ def step_generator(seed: int, step: int, device, *salt: int) -> torch.Generator:
 
 
 class TrainState:
-    """Model, EMA model, Adam (optax's formula) and the step counter."""
+    """Model, EMA model (None with ``ema=False``), Adam (optax's formula)
+    and the step counter."""
 
-    def __init__(self, model: nn.Module, lr: float, ema_decay: float = 0.9999):
+    def __init__(self, model: nn.Module, lr: float, ema_decay: float = 0.9999,
+                 ema: bool = True):
         self.model = model
-        self.ema = copy.deepcopy(model).requires_grad_(False).eval()
+        self.ema = copy.deepcopy(model).requires_grad_(False).eval() if ema else None
         self.lr = float(lr)
         self.ema_decay = float(ema_decay)
         device = next(model.parameters()).device
@@ -82,14 +90,15 @@ class TrainState:
         """The device's part of a step: Adam on the parameters' ``.grad``, the
         EMA with the weight of the device step counter, that counter += 1."""
         self.optimizer.step()
-        d = ema_decay_tensor(self.ema_decay, self.step_t)
-        ema = list(self.ema.parameters())
-        torch._foreach_mul_(ema, d)
-        # ema += (1 - d) * p with one rounding, as ``add_(p, alpha=1 - d)`` has
-        # it (which takes no tensor for alpha); a kernel a leaf
-        rest = 1.0 - d
-        for e, p in zip(ema, self.params()):
-            e.addcmul_(p, rest)
+        if self.ema is not None:
+            d = ema_decay_tensor(self.ema_decay, self.step_t)
+            ema = list(self.ema.parameters())
+            torch._foreach_mul_(ema, d)
+            # ema += (1 - d) * p with one rounding, as ``add_(p, alpha=1 - d)``
+            # has it (which takes no tensor for alpha); a kernel a leaf
+            rest = 1.0 - d
+            for e, p in zip(ema, self.params()):
+                e.addcmul_(p, rest)
         self.step_t += 1
 
     def count_step(self) -> None:
@@ -101,7 +110,7 @@ class TrainState:
         word to both models that their weights changed in place."""
         self.step += 1
         for m in (self.model, self.ema):
-            replayed = getattr(m, "weights_replayed", None)
+            replayed = getattr(m, "weights_replayed", None) if m is not None else None
             if replayed is not None:
                 replayed()
 
@@ -110,17 +119,29 @@ class TrainState:
         self.update()
         self.count_step()
 
+    @torch.no_grad()
+    def restart(self) -> None:
+        """Back to step 0 with Adam's moments and step counts zeroed in place
+        (a captured step keeps their addresses); the caller re-initializes
+        the model's weights and buffers."""
+        for st in self.optimizer.state.values():
+            for v in st.values():
+                if torch.is_tensor(v):
+                    v.zero_()
+        self.step = 0
+        self.step_t.zero_()
+
     def state_dict(self) -> dict:
-        return {
-            "step": self.step,
-            "model": self.model.state_dict(),
-            "ema": self.ema.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
-        }
+        sd = {"step": self.step, "model": self.model.state_dict(),
+              "optimizer": self.optimizer.state_dict()}
+        if self.ema is not None:
+            sd["ema"] = self.ema.state_dict()
+        return sd
 
     def load_state_dict(self, sd: dict) -> None:
         self.model.load_state_dict(sd["model"], strict=True)
-        self.ema.load_state_dict(sd["ema"], strict=True)
+        if self.ema is not None:
+            self.ema.load_state_dict(sd["ema"], strict=True)
         # a checkpoint written on another kind of device carries its
         # optimizer's ``capturable``: this device's holds (torch then puts
         # Adam's step counts where a capturable optimizer wants them)

@@ -7,8 +7,9 @@ and takes the tree's leaves as numpy arrays) plus ``torch.from_numpy``, and
 ``load_state_dict(strict=True)`` proves the key sets equal.  The export
 takes care of the layout details: OIHW conv weights, the spatial flip of the
 transposed convs, the zero time MLP of a ``bottleneck_time_emb=False``
-bottleneck, and no time MLP on the final head block.  The autoencoder and
-ResNet-classifier exporters come with their models.
+bottleneck, and no time MLP on the final head block.  The ResNet classifier
+has :func:`resnet_from_flax` (parameters and BatchNorm statistics); the
+autoencoder's exporter comes with its model.
 
 The fused ResNet-block op (``ops/resnet_block.py``) takes the JAX op's
 arguments; :func:`resnet_block_from_flax` makes them from a flax
@@ -158,6 +159,54 @@ def unet_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     sd = unet_state_dict_from_params(params)
     # np.array copies: arrays handed over from other frameworks may be read-only
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+# ------------------------------------------------------------------ classifier
+def resnet_state_dict_from_variables(variables: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """flax ``ResNetBase`` variables (``{"params", "batch_stats"}``) -> the
+    port's ``models.resnet.ResNetBase`` state_dict in the reference layout of
+    ``ldm_tpu/utils/torch_export.py::resnet_state_dict_from_params``, with
+    the running statistics and ``num_batches_tracked`` 0; bottleneck blocks
+    (not in that exporter) as ``conv1..3`` / ``bn1..3``."""
+    p, stats = variables["params"], variables["batch_stats"]
+    out: dict = {}
+
+    def put_bn(pre: str, bp: dict, bs: dict) -> None:
+        _put_norm(out, pre, bp)
+        out[f"{pre}.running_mean"] = _np(bs["mean"])
+        out[f"{pre}.running_var"] = _np(bs["var"])
+        out[f"{pre}.num_batches_tracked"] = np.zeros((), np.int64)
+
+    _put_conv(out, "conv", p["Conv_0"])
+    put_bn("bn", p["BatchNorm_0"], stats["BatchNorm_0"])
+    i = 0
+    while True:
+        name = next((f"{kind}_{i}" for kind in ("ResidualBlock", "BottleneckResidualBlock")
+                     if f"{kind}_{i}" in p), None)
+        if name is None:
+            break
+        bp, bs = p[name], stats[name]
+        n_convs = sum(1 for key in bp if key.startswith("Conv_"))
+        n_main = 3 if name.startswith("Bottleneck") else 2
+        k = n_convs - n_main  # 1 where the block's first conv is its shortcut projection
+        if k:
+            _put_conv(out, f"blocks.{i}.shortcut.conv", bp["Conv_0"])
+            put_bn(f"blocks.{i}.shortcut.bn", bp["BatchNorm_0"], bs["BatchNorm_0"])
+        for j in range(n_main):
+            _put_conv(out, f"blocks.{i}.conv{j + 1}", bp[f"Conv_{k + j}"])
+            put_bn(f"blocks.{i}.bn{j + 1}", bp[f"BatchNorm_{k + j}"], bs[f"BatchNorm_{k + j}"])
+        i += 1
+    _put_linear(out, "final_linear", p["Dense_0"])
+    return out
+
+
+def resnet_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``ResNetBase`` variables -> a state_dict of CPU tensors (fp32,
+    ``num_batches_tracked`` int64) that the port's ``ResNetBase`` loads with
+    ``strict=True``."""
+    sd = resnet_state_dict_from_variables(variables)
+    return {k: torch.from_numpy(np.array(v, dtype=np.int64 if k.endswith("tracked")
+                                         else np.float32)) for k, v in sd.items()}
 
 
 def resnet_block_from_flax(

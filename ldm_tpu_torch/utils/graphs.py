@@ -129,3 +129,122 @@ class StepGraph:
             pairs.append((start, end))
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in pairs) / replays
+
+
+def _batch_of(inputs: tuple, scan) -> tuple:
+    """The step's inputs with its batch (the first two) as given, or
+    ``scan``'s next, gathered on the device."""
+    return inputs if scan is None else (*scan.next_batch(), *inputs[2:])
+
+
+class GraphedStep:
+    """A trainer's optimisation step, eager or as a replayed CUDA graph: the
+    capture policy both trainers share.
+
+    ``device_step(*inputs)`` is the step on device tensors alone (the batch
+    first, as (x, y), then whatever else it reads) and returns a dict of
+    device tensors; it moves ``state`` (a ``TrainState``).  A call gives it
+    ``inputs`` and a ``scan``: None (the inputs are the batch) or the
+    device-resident epoch whose ``next_batch()`` takes the place of the
+    first two inputs inside the step.
+
+    With ``enabled``, the first batch shape met is the graphs' shape: the
+    first ``WARMUP_STEPS`` steps at it run eagerly on a side stream (the
+    capture's warm-up, real steps), then every step at it is a replay of the
+    graph captured for its ``scan`` on first use (one graph a batch source);
+    a batch of another shape runs the eager step.  ``counts`` counts both
+    kinds.  ``before_capture()`` runs just before each capture and again just
+    after it (a model drops cached copies of its weights there)."""
+
+    def __init__(self, device_step: Callable[..., dict], state, device, enabled: bool,
+                 before_capture: Optional[Callable[[], None]] = None):
+        self.device_step = device_step
+        self.state = state
+        self.device = torch.device(device)
+        self.enabled = bool(enabled)  # a caller may switch it between steps
+        self.before_capture = before_capture
+        self.captured: dict = {}  # CapturedStep by batch source (None or an EpochScan)
+        self.shape: Optional[tuple] = None
+        self.warm_steps = 0
+        self.counts = {"graphed": 0, "eager": 0}
+
+    def __call__(self, inputs: tuple, scan=None) -> dict:
+        if self.enabled:
+            if self.shape is None:
+                self.shape = tuple(inputs[0].shape)
+            if tuple(inputs[0].shape) == self.shape:
+                if self.warm_steps >= WARMUP_STEPS:
+                    graph = self.captured.get(scan)
+                    if graph is None:
+                        graph = self.captured[scan] = CapturedStep(self, inputs, scan)
+                    self.counts["graphed"] += 1
+                    return graph.step(inputs)
+                self.warm_steps += 1
+                self.counts["eager"] += 1
+                with side_stream(self.device):  # where warm-up for a capture runs
+                    out = self.device_step(*_batch_of(inputs, scan))
+                self.state.count_step()
+                return out
+        self.counts["eager"] += 1
+        out = self.device_step(*_batch_of(inputs, scan))
+        self.state.count_step()
+        return out
+
+    def clear(self) -> None:
+        """Drop the captured steps (they hold the addresses of the state they
+        were captured on) and warm up again before the next capture."""
+        self.captured.clear()
+        self.warm_steps = 0
+
+
+class CapturedStep:
+    """A :class:`GraphedStep`'s step as one CUDA graph, with fixed input
+    buffers (clones of the first inputs) that each replay reads; with a
+    ``scan`` the graph gathers its batch from the device-resident epoch (the
+    scan's row counter advances at every replay) and the batch buffers go
+    unused.
+
+    Inside the capture the grads are set to None once, so the backward
+    allocates them from the graph's pool and every replay writes them in
+    place; the weights, the optimizer's state and any buffers the step moves
+    are written in place, so re-initializing them in place keeps the graph
+    good."""
+
+    def __init__(self, owner: GraphedStep, inputs: tuple, scan=None):
+        self.owner = owner
+        self.scan = scan
+        # contiguous: a () or broadcast input fills a buffer of the batch's shape
+        self.buffers = [v.clone(memory_format=torch.contiguous_format) for v in inputs]
+        self.graph = StepGraph(lambda: owner.device_step(*_batch_of(tuple(self.buffers), scan)),
+                               owner.device, warmup=0, before_capture=owner.before_capture)
+        if owner.before_capture is not None:
+            owner.before_capture()  # what the capture made belongs to the graph's pool
+        self.grads = [p.grad for p in owner.state.params()]
+
+    def step(self, inputs: tuple) -> dict:
+        """One replay on these inputs (without a scan, this batch too)."""
+        first = 0 if self.scan is None else 2
+        for buf, val in zip(self.buffers[first:], inputs[first:]):
+            buf.copy_(val)
+        out = self.graph.replay()
+        state = self.owner.state
+        state.count_replayed_step()
+        params = state.params()
+        if params[0].grad is not self.grads[0]:
+            # an eager step or another graph put other tensors in .grad:
+            # show this step's gradients again
+            for p, g in zip(params, self.grads):
+                p.grad = g
+        # clones: the next replay overwrites the graph's outputs
+        return {k: v.clone() for k, v in out.items()}
+
+    def device_ms(self, replays: int = 10) -> float:
+        """The device's time for one replay, in ms: ``replays`` real steps
+        on the inputs the buffers hold (a scan's graph on its epoch's first
+        row: the counter is set back before each replay), counted."""
+        ms = self.graph.device_ms(replays, before=None if self.scan is None else
+                                  self.scan.row.zero_)
+        for _ in range(replays):
+            self.owner.state.count_replayed_step()
+        self.owner.counts["graphed"] += replays
+        return ms

@@ -36,7 +36,11 @@ def test_port_modules_are_found():
                  "ldm_tpu_torch.perf.probe13", "ldm_tpu_torch.perf.probe13b",
                  "ldm_tpu_torch.perf.probe7", "ldm_tpu_torch.config",
                  "ldm_tpu_torch.utils.images", "ldm_tpu_torch.perf.compare_parent",
-                 "ldm_tpu_torch.perf.plan_sweep"):
+                 "ldm_tpu_torch.perf.plan_sweep", "ldm_tpu_torch.diffusion.flow",
+                 "ldm_tpu_torch.diffusion.sampling", "ldm_tpu_torch.models.resnet",
+                 "ldm_tpu_torch.ops.metrics", "ldm_tpu_torch.ops.fid",
+                 "ldm_tpu_torch.training.resnet_trainer",
+                 "ldm_tpu_torch.experiments.augmentation", "ldm_tpu_torch.main"):
         assert want in mods
 
 

@@ -62,7 +62,12 @@ def test_port_files_are_found():
     names = {os.path.relpath(p, ROOT) for p in port_files()}
     assert len(names) > 30
     for want in ("chip_smoke.py", "ldm_tpu_torch/config.py", "ldm_tpu_torch/utils/images.py",
-                 "ldm_tpu_torch/data/loader.py", "ldm_tpu_torch/utils/logging.py"):
+                 "ldm_tpu_torch/data/loader.py", "ldm_tpu_torch/utils/logging.py",
+                 "ldm_tpu_torch/diffusion/flow.py", "ldm_tpu_torch/diffusion/sampling.py",
+                 "ldm_tpu_torch/models/resnet.py", "ldm_tpu_torch/ops/metrics.py",
+                 "ldm_tpu_torch/ops/fid.py", "ldm_tpu_torch/training/resnet_trainer.py",
+                 "ldm_tpu_torch/experiments/augmentation.py", "ldm_tpu_torch/utils/seed.py",
+                 "ldm_tpu_torch/utils/cli.py", "ldm_tpu_torch/main.py"):
         assert want in names
 
 
