@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py [--parent DIR]
 
-Runs from the root of a checkout and drives the port's two main paths at the
+Runs from the root of a checkout and drives the port's main paths at the
 flagship width (configs/pixel_diffusion_model_cifar10.yaml, random weights
 from a seed), through their entry points: the class-conditional samplers
 with classifier-free guidance (``ldm_tpu_torch.generate.main``: ancestral
 DDPM, DDIM, DPM-Solver++(2M)) and the diffusion trainer
-(``ldm_tpu_torch.train.run``).  Both run as they do by default on a card: one
+(``ldm_tpu_torch.train.run``); then serving, the protocol, consistency
+distillation and the latent family (phases 7b-7e).  Both run as they do by default on a card: one
 sampler step and one train step captured into CUDA graphs and replayed; the
 eager loops are timed beside them.  Phases, each printing its own lines; any
 failure raises and exits nonzero:
@@ -23,14 +24,15 @@ failure raises and exits nonzero:
 3. forward kernel vs plain: at the 8 attention sites of the 32px UNet at
    2B=20 and 2B=128, at the 64px and 128px sites at 2B=4, and at the two
    narrow sites of configs/smoke_synthetic.yaml ((256, 8) and (64, 16), the
-   first zero-padded to 16 columns by the wrapper) at 2B=20; fp32 (<= 1e-4)
+   first zero-padded to 16 columns by the wrapper) at 2B=20, and the latent
+   UNet's sites (16, 128) and (16, 64) at 2B=128 and 2B=256; fp32 (<= 1e-4)
    and bf16 (<= 3e-2 + one bf16 spacing of the output); each line names
    the path its plan took (cluster: the item kept in shared memory; tiled:
    through global scratch) and the CTAs an item; timed at 2B=128 bf16, the
    kernel and the plain version alike by CUDA-graph replay (device time, no
    host in it); the bound from the shapes.
 4. backward kernels vs plain: the 8 sites at B=64, the 64px sites at
-   B=4 and the two narrow sites at B=8, fp32 and bf16, each of the 8 grads within its stated tolerance, two
+   B=4, the two narrow sites at B=8 and the latent sites at B=64, fp32 and bf16, each of the 8 grads within its stated tolerance, two
    launches bit-identical; timed at B=64 bf16 as the forward.
 5. full-width UNet: 20,350,915 parameters; kernel-path vs plain-path
    forward (fp32 <= 1e-3; the bf16 difference is printed) and loss
@@ -110,6 +112,43 @@ failure raises and exits nonzero:
    kernel path against plain path and graphed against eager (fp32, 1e-3);
    the graphed flow train step against the eager one (phase 7's check with
    the flow's draws).
+7d. consistency distillation at the flagship width: ``distill.main`` for 1
+   epoch of 9 steps at B=64, bf16, from the seeded flagship weights as the
+   teacher (3 eager steps, 6 replayed); counts set to 0 before and read
+   after: the forward kernel 24 and the backward 8 a step (the teacher's
+   2B CFG pass, the EMA target, the student), plus the 2-step sample grid's
+   8 x (2 + 3 warm-up); one replayed step alone 24 / 8; host ms a step
+   graphed and eager (median of 5 epochs) beside the device's ms a replay;
+   ``generate.main --sampler consistency`` at 1, 2 and 4 steps, B=10: 8 x
+   (steps + 3 warm-up) forward launches, the kernel seeing batches of 10
+   only (no CFG pass); the consistency-2 service at B=64: a 10-image
+   request alone, under 16 clients and through HTTP, bit-identical, and
+   equal to ``sample_consistency`` on the same slot generators; saturated
+   img/s; then a graphed and an eager fp32 distillation trainer fed the
+   same batches and n / eps for 8 steps (losses within 1e-3), after which
+   the EMA target on the kernel path equals the plain-path model loaded
+   from the EMA's state_dict (1e-3) and the teacher kept its kernel weight
+   copies and its output.
+7e. the latent family at the configs' full width: ``train_autoencoder.run``
+   (configs/autoencoder_hard.yaml) for 2 epochs of 9 steps at B=64, bf16
+   (no kernel launches: the VAE has none of its own), ``autoencoder.pt``
+   written; ``train_latent.run`` (configs/latent_diffusion_hard.yaml) from
+   it, its ``ae_checkpoint`` naming the ``.msgpack`` of the same stem, for
+   2 epochs: 2 forward and 2 backward launches a step and 2 x 2 a
+   validation batch, ``latent_scaling.json`` written; one replayed step 2 /
+   2; host ms a train step graphed and eager beside the device's; the T=1000
+   ancestral CFG sample at B=10 through the trainer, 2 x (1000 + 3) forward
+   launches graphed and 2 x 1000 eager; an fp32 T=1000 latent trajectory
+   graphed vs eager on injected draws (1e-3); the latent sampler step's
+   host ms graphed and eager at B=64; the VAE decode's device ms at B=64 and
+   the decoder convolutions whose bf16 algorithm made an image depend on
+   its batch slot (computed in fp32); ``type: latent`` served with DDIM-50 at
+   B=64 (bit-identical alone, under load and through HTTP); then
+   ``main.main`` on configs/protocol_hard_latent.yaml with
+   ``--generator-config`` the latent config (its VAE the one trained
+   above) and ``--negative-control`` at 2,560 images: wall seconds and
+   launches by phase (exact), F1s and FIDs, Phase C's first chunk rerun
+   bit for bit.
 8. the fused ResNet-block kernel (``ops/resnet_block.py``) vs plain: at
    the 11 ResNet sites of the 32px flagship UNet at 2B=20 and 2B=128, at
    probe 13's four sites at 2B=256, at the 64px (4096, 64->64) site at
@@ -158,14 +197,27 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ldm_tpu_torch import generate, main as protocol_main, train
+from ldm_tpu_torch import (
+    distill,
+    generate,
+    main as protocol_main,
+    train,
+    train_autoencoder,
+    train_latent,
+)
 from ldm_tpu_torch.data.transforms import reverse_transform, scale_to_minus_one_one
 from ldm_tpu_torch.data.datasets import synthetic_dataset
 from ldm_tpu_torch.data.loader import DataLoader
+from ldm_tpu_torch.diffusion.consistency import (
+    consistency_fn,
+    sample_consistency,
+    sampling_timesteps,
+)
 from ldm_tpu_torch.diffusion.ddpm import GaussianDiffusion
 from ldm_tpu_torch.diffusion.flow import RectifiedFlow
 from ldm_tpu_torch.experiments import augmentation as aug
 from ldm_tpu_torch.factory import build_classifier, build_diffusion, build_model, load_config
+from ldm_tpu_torch.models import unet as unet_module
 from ldm_tpu_torch.ops import build
 from ldm_tpu_torch.ops import linear_attention as la
 from ldm_tpu_torch.ops import resnet_block as rb
@@ -174,7 +226,9 @@ from ldm_tpu_torch.perf.common import card, cuda_graph_ms
 from ldm_tpu_torch.serving import GenerationHTTPServer
 from ldm_tpu_torch.serving.builder import build_generation_service, load_sampler
 from ldm_tpu_torch.serving.service import slot_x_init
+from ldm_tpu_torch.training.consistency_trainer import ConsistencyDistillTrainer
 from ldm_tpu_torch.training.diffusion_trainer import DiffusionTrainer
+from ldm_tpu_torch.training.latent_trainer import build_ldm, load_latent_scaling
 from ldm_tpu_torch.training.resnet_trainer import ResNetTrainer
 from ldm_tpu_torch.training.state import step_generator
 from ldm_tpu_torch.utils.graphs import WARMUP_STEPS
@@ -192,6 +246,9 @@ LARGE_SITES = [("64px-l0", 4096, 64), ("64px-l1", 1024, 128), ("64px-l2", 256, 2
 # the attention sites of configs/smoke_synthetic.yaml: narrower than the
 # kernels' 16-column step (the wrapper zero-pads the first) and at it
 NARROW_SITES = [("smoke-l0", 256, 8), ("smoke-l1", 64, 16)]
+# the latent UNet's sites: configs/latent_diffusion_hard.yaml's 4x4 latents
+# at its 128 channels (both blocks), and the same grid at 64 channels
+LATENT_SITES = [("latent-c128", 16, 128), ("latent-c64", 16, 64)]
 # |kernel - plain| <= atol + rtol * |plain|.  fp32: summation order only.
 # bf16: 3e-2 as tests/test_linear_attention_op.py allows, plus one bf16
 # spacing of the output (2^-7 |y|): y itself is bf16, spaced 2^-5 = 3.1e-2
@@ -236,6 +293,12 @@ FLOW = "configs/protocol_flow_hard.yaml"
 PROTOCOL = {"pixel": FLAGSHIP, "flow": FLOW}
 PROTOCOL_SIZE, PROTOCOL_PER_CLASS, PROTOCOL_CLF_EPOCHS, SAMPLE_B = 2560, 32, 2, 128
 PROTOCOL_EXPS = [name for name, _, _ in aug.EXPERIMENTS] + ["exp2_broken"]
+# the consistency and latent phases: the configs at their full width
+AE_CONFIG = "configs/autoencoder_hard.yaml"
+LATENT_CONFIG = "configs/latent_diffusion_hard.yaml"
+PROTOCOL_LATENT = "configs/protocol_hard_latent.yaml"
+CONSISTENCY_STEPS = (1, 2, 4)
+DISTILL_FWD, DISTILL_BWD = 24, 8  # a distill step: teacher 2B, EMA target, student; backward
 
 
 # every kernel wrapper's count of launches, by the kernel's name in the result
@@ -390,6 +453,7 @@ def check_kernel(tag: str) -> dict:
     paths = {}
     cases = [(b, site) for b in (20, 128, 2 * SAMPLE_B) for site in SITES]
     cases += [(4, site) for site in LARGE_SITES] + [(20, site) for site in NARROW_SITES]
+    cases += [(b, site) for b in (128, 2 * SAMPLE_B) for site in LATENT_SITES]
     for dtype in (torch.float32, torch.bfloat16):
         for b, (site, n, c) in cases:
             x, p = site_inputs(b, n, c, dtype, seed=b + n + c)
@@ -447,7 +511,7 @@ def check_bwd_kernel(tag: str) -> dict:
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     paths = {}
     cases = [(TRAIN_B, site) for site in SITES] + [(4, site) for site in LARGE_SITES[:4]]
-    cases += [(8, site) for site in NARROW_SITES]
+    cases += [(8, site) for site in NARROW_SITES] + [(TRAIN_B, site) for site in LATENT_SITES]
     for dtype in (torch.float32, torch.bfloat16):
         for b, (site, n, c) in cases:
             x, p = site_inputs(b, n, c, dtype, seed=b + n + c)
@@ -970,11 +1034,12 @@ def via_http(svc) -> np.ndarray:
 
 
 def serve(config, ckpt: str, sampler: str, sampler_steps: int, steps: int, tag: str,
-          checks: bool) -> dict:
+          checks: bool, blocks: int = 8) -> dict:
     """One service over ``ckpt`` at B=64; every count set to 0 before it is
     built and read after it stopped.  ``checks``: the reference request alone,
     under load and through HTTP, light load and the drain; always the
-    saturated run."""
+    saturated run.  ``blocks``: the UNet's attention blocks, each one launch
+    of the forward kernel a sampler step."""
     zero_counts()
     svc = build_generation_service(config, ckpt, sampler=sampler, ddim_steps=sampler_steps,
                                    batch_size=SERVE_B)
@@ -1011,9 +1076,10 @@ def serve(config, ckpt: str, sampler: str, sampler_steps: int, steps: int, tag: 
     out["counts"], out["batches"] = read_counts(), svc.stats().batches
     if not all(f.done() and f.result(timeout=1).shape == (5, 32, 32, 3) for f in drained):
         raise AssertionError("stop() left a drained request unresolved")
-    want = 8 * (steps * out["batches"] + WARMUP_STEPS)
+    want = blocks * (steps * out["batches"] + WARMUP_STEPS)
     print(f"serving {sampler}-{steps}: {out['batches']} batches of {SERVE_B} (the warm-up's "
-          f"included); kernel launches {out['counts']} (want {want} of the forward kernel: 8 x "
+          f"included); kernel launches {out['counts']} (want {want} of the forward kernel: "
+          f"{blocks} x "
           f"({steps} x {out['batches']} + {WARMUP_STEPS} warm-up steps), and no other)"
           f"{'; stop() resolved the 6 requests it drained' if drained else ''}")
     if out["counts"] != dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": want}:
@@ -1030,10 +1096,7 @@ def check_serving(config, tag: str) -> dict:
     dt = "bf16" if config.use_amp else "fp32"
     shape = (32, 32, 3)
     with tempfile.TemporaryDirectory() as d:
-        ckpt = os.path.join(d, "diffusion_model_ema.pt")
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(config.seed)
-            torch.save(build_model(config).state_dict(), ckpt)
+        ckpt = seeded_checkpoint(config, os.path.join(d, "diffusion_model_ema.pt"))
         runs = {"ddim": serve(config, ckpt, "ddim", 50, steps["ddim"], tag, checks=True),
                 "dpmpp": serve(config, ckpt, "dpmpp", 15, steps["dpmpp"], tag, checks=False)}
         # the reference: sample_ddim at B=64 on the x_T the service gave the
@@ -1240,15 +1303,17 @@ def check_requests(config, tag: str) -> dict:
     return out
 
 
-def check_sampler_speed(model, b: int, tag: str) -> dict:
+def check_sampler_speed(model, b: int, tag: str, shape=(32, 32, 3), schedule="linear",
+                        name="sampler") -> dict:
     """Host ms/step of 20 ancestral CFG sampler steps at batch ``b`` (bf16),
-    graphed and eager, and the device's time for one replay."""
-    diffusion = GaussianDiffusion(20, device=DEV)
+    graphed and eager, and the device's time for one replay; ``shape`` and
+    ``schedule``: the latent UNet's."""
+    diffusion = GaussianDiffusion(20, schedule=schedule, device=DEV)
     classes = (torch.arange(b) % 10).to(DEV)
     gen = torch.Generator(device=DEV).manual_seed(0)
 
     def run(graph: bool):
-        diffusion.sample(model, classes, (32, 32, 3), cfg_scale=3.0,
+        diffusion.sample(model, classes, shape, cfg_scale=3.0,
                          null_label=model.null_label, generator=gen, graph=graph)
 
     runs = {}
@@ -1259,7 +1324,7 @@ def check_sampler_speed(model, b: int, tag: str) -> dict:
     if captured.graph.replays != 6 * 20:
         raise AssertionError(f"{captured.graph.replays} replays in 6 runs of 20 steps")
     device_ms = captured.device_ms(20)
-    return path_line(f"sampler B={b} (2B={2 * b}) bf16", runs[True], runs[False], device_ms, tag)
+    return path_line(f"{name} B={b} (2B={2 * b}) bf16", runs[True], runs[False], device_ms, tag)
 
 
 def rb_inputs(b: int, site: str, side: int, cin: int, cout: int, dtype, seed: int):
@@ -1417,18 +1482,33 @@ def check_probes() -> dict:
             "probe7": (rows7, launches7)}
 
 
+def write_config(path: str, base: str, **overrides) -> str:
+    """``base`` with ``overrides`` (``data`` merged key by key), written as
+    JSON (which YAML reads); ``configs/`` is not touched."""
+    raw = dataclasses.asdict(load_config(base))
+    raw["data"].update(overrides.pop("data", {}))
+    raw.update(overrides)
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return path
+
+
+def seeded_checkpoint(config, path: str) -> str:
+    """The UNet of ``config`` with weights from its seed, as a state_dict."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(config.seed)
+        torch.save(build_model(config).state_dict(), path)
+    return path
+
+
 def protocol_config(family: str, workdir: str) -> str:
     """The family's config with the phase's overrides (2,560 synthetic
     images, one generator epoch, the run directory under ``workdir``),
     written as JSON (which YAML reads) beside it; ``configs/`` is not
     touched."""
-    raw = dataclasses.asdict(load_config(PROTOCOL[family]))
-    raw.update(workdir=workdir, epochs=1, sample_every=0)
-    raw["data"]["synthetic_size"] = PROTOCOL_SIZE
-    path = os.path.join(workdir, f"protocol_{family}.yaml")
-    with open(path, "w") as f:
-        json.dump(raw, f)
-    return path
+    return write_config(os.path.join(workdir, f"protocol_{family}.yaml"), PROTOCOL[family],
+                        workdir=workdir, epochs=1, sample_every=0,
+                        data={"synthetic_size": PROTOCOL_SIZE})
 
 
 def protocol_launches(family: str, config) -> dict:
@@ -1678,6 +1758,452 @@ def check_protocol(tag: str) -> dict:
     return out
 
 
+class BatchProbe:
+    """Records the batch of every call of the forward kernel's wrapper from
+    the UNet (the sampler's forwards are one call a block): a CFG pass
+    would show 2B."""
+
+    def __enter__(self):
+        self.seen, self.orig = [], unet_module.linear_attention_block
+
+        def record(x, *args, **kw):
+            self.seen.append(x.shape[0])
+            return self.orig(x, *args, **kw)
+
+        unet_module.linear_attention_block = record
+        return self
+
+    def __exit__(self, *exc):
+        unet_module.linear_attention_block = self.orig
+
+
+def distill_trainer(cfg, teacher_path: str, graphs) -> ConsistencyDistillTrainer:
+    teacher = build_model(cfg)
+    teacher.load_state_dict(torch.load(teacher_path, map_location="cpu", weights_only=True))
+    return ConsistencyDistillTrainer(cfg, teacher.to(DEV), build_diffusion(cfg, DEV), None,
+                                     list(range(10)), device=DEV, skip_steps=20, graphs=graphs)
+
+
+def check_distill_graphs(cfg, teacher_path: str) -> dict:
+    """Phase 7d: a graphed and an eager fp32 distillation trainer from one
+    teacher, fed the same batches and injected n / eps for 8 steps (3 eager,
+    5 replayed): the losses within 1e-3; before the replays an eager EMA
+    forward fills the EMA's cache of kernel weight copies, after them the
+    EMA target on the kernel path equals the plain-path model loaded from
+    the EMA's state_dict (1e-3 of its scale), and the teacher kept its
+    copies and its weights."""
+    cfg = dataclasses.replace(cfg, use_amp=False)
+    graphed, eager = distill_trainer(cfg, teacher_path, None), distill_trainer(cfg, teacher_path,
+                                                                             False)
+    diffusion, teacher = graphed.diffusion, graphed.teacher
+    g = torch.Generator().manual_seed(13)
+    x = (torch.rand(TRAIN_B, 32, 32, 3, generator=g) * 2 - 1).to(DEV)
+    y = torch.randint(0, 10, (TRAIN_B,), generator=g).to(DEV)
+    t = graphed.sub_t[torch.randint(0, len(graphed.sub), (TRAIN_B,), generator=g).to(DEV)]
+    with torch.no_grad():  # the teacher's copies, made before any capture
+        teacher_out = consistency_fn(diffusion, teacher, x, t, y)
+    teacher_copies = [b._kernel_w for b in teacher.lin_attn_blocks()]
+    worst = 0.0
+    for step in range(8):
+        if step == WARMUP_STEPS:
+            with torch.no_grad():
+                consistency_fn(diffusion, graphed.state.ema, x, t, y)
+        batch = {"image": torch.rand(TRAIN_B, 32, 32, 3, generator=g) * 2 - 1,
+                 "label": torch.randint(0, 10, (TRAIN_B,), generator=g)}
+        draws = dict(n=torch.randint(0, len(graphed.sub) - 1, (TRAIN_B,), generator=g),
+                     eps=torch.randn(TRAIN_B, 32, 32, 3, generator=g))
+        a, b = graphed.train_step(batch, **draws), eager.train_step(batch, **draws)
+        rel = abs(a["loss"].item() - b["loss"].item()) / b["loss"].item()
+        worst = max(worst, rel)
+        print(f"  fp32 distill step {step}: loss graphed {a['loss'].item():.6f} eager "
+              f"{b['loss'].item():.6f}")
+        if rel > UNET_FP32_TOL:
+            raise AssertionError(f"distill step {step}: graphed loss off the eager one by {rel}")
+    if graphed.step_counts != {"graphed": 8 - WARMUP_STEPS, "eager": WARMUP_STEPS}:
+        raise AssertionError(f"distill step counts {graphed.step_counts}")
+    plain = build_model(cfg, DEV, attention_impl="torch").eval()
+    plain.load_state_dict(graphed.state.ema.state_dict(), strict=True)
+    plain_teacher = build_model(cfg, DEV, attention_impl="torch").eval()
+    plain_teacher.load_state_dict(teacher.state_dict(), strict=True)
+    with torch.no_grad():
+        got = consistency_fn(diffusion, graphed.state.ema, x, t, y)
+        want = consistency_fn(diffusion, plain, x, t, y)
+        teacher_now = consistency_fn(diffusion, teacher, x, t, y)
+        teacher_plain = consistency_fn(diffusion, plain_teacher, x, t, y)
+    ema_err = ((got - want).abs().max() / want.abs().max()).item()
+    teacher_err = ((teacher_now - teacher_plain).abs().max() / teacher_plain.abs().max()).item()
+    moved = (got - teacher_out).abs().max().item()
+    kept = all(b._kernel_w is c for b, c in zip(teacher.lin_attn_blocks(), teacher_copies))
+    print(f"graphed vs eager fp32 distillation, 8 steps ({8 - WARMUP_STEPS} replayed): worst "
+          f"loss difference {worst:.2e} of the loss; after the replays the EMA target on the "
+          f"kernel path vs the plain-path model from the EMA's state_dict: {ema_err:.2e} of its "
+          f"scale (the EMA moved {moved:.3e} from the teacher); the teacher kept its kernel "
+          f"weight copies: {kept}, kernel vs plain {teacher_err:.2e}, its output unchanged: "
+          f"{torch.equal(teacher_now, teacher_out)}")
+    if ema_err > UNET_FP32_TOL or not moved > 0 or not kept or teacher_err > UNET_FP32_TOL \
+            or not torch.equal(teacher_now, teacher_out):
+        raise AssertionError("the distillation's weight copies are stale or the teacher moved")
+    return {"loss_rel_diff": worst, "ema_target_rel_err": ema_err}
+
+
+def check_consistency(tag: str) -> dict:
+    """Phase 7d: consistency distillation at the flagship's width through
+    ``distill.main``, the graphed step against the eager one, the sampler
+    through ``generate.main`` and the service."""
+    out = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        path = write_config(os.path.join(workdir, "distill.json"), FLAGSHIP, workdir=workdir,
+                            data={"synthetic_size": SYNTHETIC_SIZE})
+        cfg = load_config(path)
+        teacher = seeded_checkpoint(cfg, os.path.join(workdir, "teacher.pt"))
+        zero_counts()
+        t0 = time.perf_counter()
+        res = distill.main([path, "--teacher-checkpoint", teacher, "--epochs", "1",
+                            "--device", "cuda"])
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        tr = res.trainer
+        steps, scan = tr.state.step, tr.epoch_scan
+        grid_steps = 2  # the grid's --sample-steps, B=80: a captured sampler step
+        want = dict.fromkeys(COUNTED, 0) | {
+            "linear_attention_fwd": DISTILL_FWD * steps + 8 * (grid_steps + WARMUP_STEPS),
+            "linear_attention_bwd": DISTILL_BWD * steps}
+        print(f"distill.main: {steps} steps at B={TRAIN_B} bf16 in {seconds:.1f} s (builds, "
+              f"warm-up and captures included), losses {res.result['history']}, steps "
+              f"{tr.step_counts}; kernel launches {counts} (want {want}: {DISTILL_FWD} / "
+              f"{DISTILL_BWD} a step, and 8 x ({grid_steps} + {WARMUP_STEPS}) for the 2-step "
+              f"grid) [{tag}]")
+        if (steps != 9 or counts != want or scan is None or tr._steps.captured.get(scan) is None
+                or tr.step_counts != {"graphed": 9 - WARMUP_STEPS, "eager": WARMUP_STEPS}
+                or not np.isfinite(res.result["history"]).all()):
+            raise AssertionError(f"distill.main: {steps} steps, {counts}, {tr.step_counts}")
+        for name in ("consistency_model.pt", "consistency_model_ema.pt"):
+            if not os.path.isfile(os.path.join(cfg.checkpoints, name)):
+                raise AssertionError(f"distill.main wrote no {name}")
+        grid = np.load(res.grid)
+        print(f"sample grid {grid.shape} {grid.dtype}; checkpoints written")
+
+        scan.start_epoch(cfg.seed, 0)
+        zero_counts()
+        tr.scan_step(scan)
+        per_step = read_counts()
+        if per_step != dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": DISTILL_FWD,
+                                                    "linear_attention_bwd": DISTILL_BWD}:
+            raise AssertionError(f"a replayed distill step launched {per_step}")
+        print(f"one replayed distill step launches: {per_step}")
+
+        def epoch():
+            scan.start_epoch(cfg.seed, 0)
+            for _ in range(scan.n_batches):
+                tr.scan_step(scan)
+
+        graphed = host_ms(epoch, scan.n_batches)
+        device_ms = tr._steps.captured[scan].device_ms(10)
+        tr.graphs = False
+        epoch()
+        eager = host_ms(epoch, scan.n_batches)
+        tr.graphs = True
+        out["path"] = path_line(f"distill step B={TRAIN_B} bf16", graphed, eager, device_ms, tag)
+        out["per_step"] = per_step
+        out["run_counts"] = counts
+
+        student = os.path.join(cfg.checkpoints, "consistency_model_ema.pt")
+        requests = {}
+        for k in CONSISTENCY_STEPS:
+            zero_counts()
+            with BatchProbe() as probe, tempfile.TemporaryDirectory() as d:
+                g = generate.main([path, "--sampler", "consistency", "--ddim-steps", str(k),
+                                   "--weights", student, "--device", "cuda",
+                                   "--out", os.path.join(d, "x.npy")])
+            counts_k = read_counts()
+            want_k = dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": 8 * (k + WARMUP_STEPS)}
+            print(f"generate --sampler consistency {k} steps B=10 bf16: {10 / g.seconds:.3f} "
+                  f"img/s ({g.seconds:.3f} s, warm-up and capture {g.capture_seconds:.3f} s); "
+                  f"launches {counts_k} (want {want_k}); the forward kernel saw batches "
+                  f"{sorted(set(probe.seen))} (10: no CFG pass) [{tag}]")
+            if (counts_k != want_k or set(probe.seen) != {10} or g.images.shape != (10, 32, 32, 3)
+                    or not np.isfinite(g.x0).all()):
+                raise AssertionError(f"consistency request of {k} steps: {counts_k}, "
+                                     f"{set(probe.seen)}")
+            requests[k] = {"seconds": g.seconds, "capture_seconds": g.capture_seconds,
+                           "launches": counts_k["linear_attention_fwd"]}
+        # launches a sampler step, from each request's count over its steps
+        per_sample_step = {v["launches"] / (k + WARMUP_STEPS) for k, v in requests.items()}
+        if len(per_sample_step) != 1:
+            raise AssertionError(f"consistency launches a step differ by steps: {requests}")
+        out["requests"], out["sample_per_step"] = requests, int(per_sample_step.pop())
+
+        served = serve(cfg, student, "consistency", 2, 2, tag, checks=True)
+        model, diffusion = load_sampler(cfg, student, device=DEV)
+        pads = SERVE_B - 10
+        seeds = np.array([REF_SEED] * 10 + [0] * pads, np.int32)
+        idxs = np.array(list(range(10)) + [0] * pads, np.int32)
+        x_init, gens = slot_x_init(seeds, idxs, (32, 32, 3))
+        x0 = sample_consistency(diffusion, model, torch.tensor(REF_CLASSES + [0] * pads,
+                                                               device=DEV),
+                                (32, 32, 3), ts=sampling_timesteps(diffusion.n_steps, 2),
+                                x_init=x_init, slot_generators=gens)
+        reference = reverse_transform(x0.cpu().numpy())[:10]
+        alone = served["alone"]
+        checks = {"alone == under load": np.array_equal(alone, served["under_load"]),
+                  f"alone == sample_consistency B={SERVE_B}": np.array_equal(alone, reference),
+                  "alone == POST /generate npy": np.array_equal(alone, served["http"])}
+        sat = served["saturated"]
+        print(f"serving consistency-2 B={SERVE_B} bf16: the 10-image request alone, under "
+              f"{served['load_images']} images of 16 clients, through HTTP and against "
+              f"sample_consistency on the slots' generators: {checks}; saturated "
+              f"{sat['img_s']:.3f} img/s ({sat['images']} images, {sat['batches']} batches), "
+              f"latency p50 {sat['latency_p50_s']:.4f} s p95 {sat['latency_p95_s']:.4f} s, host "
+              f"{sat['host_ms_per_batch']:.3f} ms a batch, device "
+              f"{sat['device_ms_per_batch_served']:.3f} ms a served batch, busy "
+              f"{sat['device_busy_share']:.4f}; light load p50 {served['light_p50_s']:.4f} s "
+              f"[{tag}]")
+        if not all(checks.values()):
+            raise AssertionError(f"consistency serving checks failed: {checks}")
+        out["serving"] = {**sat, "launches": served["counts"]["linear_attention_fwd"],
+                          "light_p50_s": served["light_p50_s"]}
+        out["graphs_check"] = check_distill_graphs(cfg, teacher)
+    return out
+
+
+def check_latent(tag: str) -> dict:
+    """Phase 7e: the VAE, the latent DDPM, their sampler and service at the
+    configs' full width, and the protocol with the latent generator."""
+    out = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        ae_cfg = load_config(write_config(os.path.join(workdir, "ae.json"), AE_CONFIG,
+                                          workdir=workdir, epochs=2,
+                                          data={"synthetic_size": SYNTHETIC_SIZE}))
+        zero_counts()
+        t0 = time.perf_counter()
+        ae_run = train_autoencoder.run(ae_cfg, DEV)
+        ae_s = time.perf_counter() - t0
+        counts = read_counts()
+        at = ae_run.trainer
+        hist = ae_run.history
+        ae_pt = os.path.join(ae_cfg.checkpoints, "autoencoder.pt")
+        n_ae = sum(p.numel() for p in at.model.parameters())
+        print(f"train_autoencoder: {AE_CONFIG} ({n_ae} parameters), {at.state.step} steps in 2 "
+              f"epochs at B={TRAIN_B} bf16 in {ae_s:.1f} s, steps {at.step_counts}; train loss "
+              f"{hist['train_loss']}, val loss {hist['val_loss']}; launches {counts} (the VAE "
+              f"runs no kernel of its own) [{tag}]")
+        if (at.state.step != 18 or not np.isfinite(hist["train_loss"] + hist["val_loss"]).all()
+                or not os.path.isfile(ae_pt) or any(counts.values())
+                or at.step_counts != {"graphed": 18 - WARMUP_STEPS, "eager": WARMUP_STEPS}):
+            raise AssertionError(f"train_autoencoder: {at.step_counts}, {hist}, {counts}")
+        ae_scan = at.epoch_scan
+        out["autoencoder_device_ms"] = at._steps.captured[ae_scan].device_ms(10)
+        print(f"autoencoder step B={TRAIN_B} bf16: device {out['autoencoder_device_ms']:.3f} ms "
+              f"a replay [{tag}]")
+
+        # the latent run reads the .pt of the .msgpack stem the JAX config names
+        ae_ckpt = os.path.join(ae_cfg.checkpoints, "autoencoder.msgpack")
+        ldm_path = write_config(os.path.join(workdir, "ldm.json"), LATENT_CONFIG,
+                                workdir=workdir, epochs=2, ae_checkpoint=ae_ckpt,
+                                data={"synthetic_size": SYNTHETIC_SIZE})
+        ldm_cfg = load_config(ldm_path)
+        zero_counts()
+        run = train_latent.run(ldm_cfg, DEV)
+        counts = read_counts()
+        tr = run.trainer
+        steps = tr.state.step
+        val_batches = len(tr.val_loader)
+        blocks = len(tr.model.lin_attn_blocks())
+        want = dict.fromkeys(COUNTED, 0) | {
+            "linear_attention_fwd": blocks * steps + 2 * blocks * val_batches * 2,
+            "linear_attention_bwd": blocks * steps}
+        factor = load_latent_scaling(ldm_cfg)
+        print(f"train_latent: {LATENT_CONFIG} (latent UNet {sum(p.numel() for p in tr.model.parameters())}"
+              f" parameters, {blocks} attention blocks at (16, 128), latents {tr.image_shape}), "
+              f"{steps} steps in 2 epochs at B={TRAIN_B} bf16, steps {tr.step_counts}; train loss "
+              f"{run.history['train_loss']}; latent_scaling.json {factor:.5f}; launches {counts} "
+              f"(want {want}: {blocks} + {blocks} a step, 2 x {blocks} a validation batch, none in "
+              f"the VAE) [{tag}]")
+        if (steps != 18 or counts != want or blocks != 2 or not np.isfinite(factor)
+                or tr.epoch_scan is None or tr.scan_graph is None
+                or not np.isfinite(run.history["train_loss"]).all()
+                or tr.step_counts != {"graphed": 18 - WARMUP_STEPS, "eager": WARMUP_STEPS}):
+            raise AssertionError(f"train_latent: {steps} steps, {counts}, {tr.step_counts}")
+        scan = tr.epoch_scan
+        scan.start_epoch(ldm_cfg.seed, 0)
+        zero_counts()
+        tr.scan_step(scan)
+        per_step = read_counts()
+        if per_step != dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": 2,
+                                                    "linear_attention_bwd": 2}:
+            raise AssertionError(f"a replayed latent train step launched {per_step}")
+
+        def epoch():
+            scan.start_epoch(ldm_cfg.seed, 0)
+            for _ in range(scan.n_batches):
+                tr.scan_step(scan)
+
+        graphed = host_ms(epoch, scan.n_batches)
+        device_ms = tr.scan_graph.device_ms(10)
+        tr.graphs = False
+        epoch()
+        eager = host_ms(epoch, scan.n_batches)
+        tr.graphs = True
+        out["train_path"] = path_line(f"latent train step B={TRAIN_B} bf16 (the VAE's encode "
+                                      f"inside)", graphed, eager, device_ms, tag)
+        out["train_per_step"], out["train_counts"] = per_step, counts
+
+        # the T=1000 ancestral CFG sample at B=10 through the trainer, graphed
+        # and eager; then an fp32 trajectory graphed vs eager on injected draws
+        classes = list(range(10))
+        sample_counts = {}
+        for graphs in (True, False):
+            tr.graphs = graphs
+            zero_counts()
+            images = tr.sample(classes, cfg_scale=3.0)
+            sample_counts[graphs] = read_counts()["linear_attention_fwd"]
+            if images.shape != (10, 32, 32, 3) or images.dtype != np.uint8:
+                raise AssertionError(f"latent sample {images.shape} {images.dtype}")
+        tr.graphs = True
+        t_steps = tr.diffusion.n_steps
+        print(f"latent T={t_steps} ancestral CFG sample B=10: forward launches graphed "
+              f"{sample_counts[True]} (want {blocks} x ({t_steps} + {WARMUP_STEPS})), eager "
+              f"{sample_counts[False]} (want {blocks} x {t_steps}); decoded images (10, 32, 32, 3)")
+        if sample_counts != {True: blocks * (t_steps + WARMUP_STEPS), False: blocks * t_steps}:
+            raise AssertionError(f"latent sampler launches {sample_counts}")
+        cfg32 = dataclasses.replace(ldm_cfg, use_amp=False)
+        m32 = build_model(cfg32, DEV).eval()
+        m32.load_state_dict(tr.state.ema.state_dict(), strict=True)
+        ldm32 = build_ldm(cfg32, m32, tr.ldm.autoencoder, factor, DEV)
+        g = torch.Generator().manual_seed(17)
+        z_init = torch.randn((10,) + tr.image_shape, generator=g)
+        noise = torch.randn((t_steps, 10) + tr.image_shape, generator=g).to(DEV)
+        kw = dict(cfg_scale=3.0, null_label=10, x_init=z_init, noise=lambda t: noise[t])
+        ys = torch.arange(10, device=DEV)
+        z = {graph: ldm32.diffusion.sample(m32, ys, tr.image_shape, graph=graph, **kw)
+             for graph in (True, False)}
+        err = (z[True] - z[False]).abs().max().item()
+        decoded = ldm32.autoencoder_decode(z[True])
+        print(f"latent fp32 T={t_steps} CFG trajectory B=10, injected x_T and noise: graphed vs "
+              f"eager max_abs_err {err:.3e} (|z0| max {z[False].abs().max().item():.3f}); "
+              f"decoded {tuple(decoded.shape)}")
+        if err > UNET_FP32_TOL or not torch.isfinite(decoded).all():
+            raise AssertionError(f"latent trajectory graphed vs eager {err}")
+        out["sampler_path"] = check_sampler_speed(tr.state.ema.eval(), 64, tag, tr.image_shape,
+                                                  "sqrt_linear", name="latent sampler")
+        ae = tr.ldm.autoencoder
+        z = torch.randn((SERVE_B,) + tr.image_shape, generator=g).to(DEV)
+        with torch.inference_mode():
+            out["decode_ms"] = cuda_graph_ms(lambda: ae.decode(z), iters=5)
+        fp32_convs = sorted({f"{name} {key[0]}" for name, m in ae.named_modules()
+                             for key, ok in getattr(m, "position_independent", {}).items()
+                             if not ok})
+        print(f"VAE decode B={SERVE_B} bf16: device {out['decode_ms']:.3f} ms (CUDA-graph "
+              f"replay); decoder convolutions whose bf16 algorithm made an image depend on its "
+              f"batch position, run in fp32 on their bf16 values: {fp32_convs} [{tag}]")
+        out["sample_counts"] = {"graphed": sample_counts[True], "eager": sample_counts[False]}
+        out["sample_per_step"] = sample_counts[True] // (t_steps + WARMUP_STEPS)  # exact: above
+
+        ckpt = os.path.join(ldm_cfg.checkpoints, "diffusion_model_ema.pt")
+        steps_ddim = len(GaussianDiffusion(t_steps).ddim_timesteps(50)[0])
+        # under the cuDNN flags python -m ldm_tpu_torch.serve runs with (PyTorch's
+        # defaults: TF32 on; the trainers above set deterministic algorithms)
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                                        allow_tf32=True):
+            served = serve(ldm_cfg, ckpt, "ddim", 50, steps_ddim, tag, checks=True,
+                           blocks=blocks)
+        alone = served["alone"]
+        checks = {"alone == under load": np.array_equal(alone, served["under_load"]),
+                  "alone == POST /generate npy": np.array_equal(alone, served["http"])}
+        off = np.abs(alone.astype(np.int32) - served["under_load"].astype(np.int32))
+        sat = served["saturated"]
+        print(f"serving latent ddim-{steps_ddim} B={SERVE_B} CFG 3 bf16 (decoded to 32x32x3), "
+              f"cuDNN flags as python -m ldm_tpu_torch.serve's (TF32 on, not deterministic): "
+              f"the 10-image request alone, under {served['load_images']} images of 16 clients "
+              f"and through HTTP: {checks} ({int((off > 0).sum())} pixels differ alone vs under "
+              f"load, by at most {int(off.max())}); saturated {sat['img_s']:.3f} img/s ({sat['images']} "
+              f"images, {sat['batches']} batches), latency p50 {sat['latency_p50_s']:.4f} s p95 "
+              f"{sat['latency_p95_s']:.4f} s, host {sat['host_ms_per_batch']:.3f} ms a batch, "
+              f"device {sat['device_ms_per_batch_served']:.3f} ms a served batch, busy "
+              f"{sat['device_busy_share']:.4f} [{tag}]")
+        if not all(checks.values()) or len(np.unique(alone)) < 50:
+            raise AssertionError(f"latent serving checks failed: {checks}")
+        out["serving"] = {**sat, "launches": served["counts"]["linear_attention_fwd"]}
+
+        saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+        try:
+            out["protocol"] = run_latent_protocol(workdir, ae_ckpt, tag)
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    return out
+
+
+def run_latent_protocol(workdir: str, ae_ckpt: str, tag: str) -> dict:
+    """Phase 7e: ``main.main`` on configs/protocol_hard_latent.yaml with
+    ``--generator-config configs/latent_diffusion_hard.yaml`` (its first stage
+    the VAE trained above) and ``--negative-control``, at 2,560 images as in
+    phase 7c.  Counts by phase exact: Phase A's train steps and validation
+    batches, Phase C's T=1000 ancestral steps over the chunks plus the
+    warm-up before the capture, C_broken the same captured step again (only
+    the decode's scale differs), none in the classifier's phases."""
+    proto = write_config(os.path.join(workdir, "protocol_latent.json"), PROTOCOL_LATENT,
+                         workdir=workdir, epochs=1, sample_every=0,
+                         data={"synthetic_size": PROTOCOL_SIZE})
+    gen = write_config(os.path.join(workdir, "latent_gen.json"), LATENT_CONFIG,
+                       workdir=workdir, epochs=1, sample_every=0, ae_checkpoint=ae_ckpt,
+                       project_name="protocol_latent_generator")
+    config, gen_cfg = load_config(proto), load_config(gen)
+    zero_counts()
+    t0 = time.perf_counter()
+    result = protocol_main.main([proto, "--generator-config", gen, "--per-class",
+                                 str(PROTOCOL_PER_CLASS), "--classifier-epochs",
+                                 str(PROTOCOL_CLF_EPOCHS), "--negative-control",
+                                 "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    dt = result.diffusion_trainer
+    t_steps = dt.diffusion.n_steps
+    n_train = int(0.9 * (PROTOCOL_SIZE // 2))
+    steps = n_train // config.batch_size
+    val_batches = (PROTOCOL_SIZE // 2 - n_train) // config.batch_size  # the last one dropped
+    chunks = -(-10 * PROTOCOL_PER_CLASS // SAMPLE_B)
+    zero = {"linear_attention_block": 0, "linear_attention_block_bwd": 0, "resnet_block": 0}
+    want = {phase: dict(zero) for phase in ["A", "C", "C_broken"] + PROTOCOL_EXPS}
+    want["A"].update(linear_attention_block=2 * steps + 4 * val_batches,
+                     linear_attention_block_bwd=2 * steps)
+    want["C"]["linear_attention_block"] = 2 * (chunks * t_steps + WARMUP_STEPS)
+    want["C_broken"]["linear_attention_block"] = 2 * chunks * t_steps
+    print(f"latent protocol: {type(dt).__name__} over {dt.image_shape} latents, Phase C "
+          f"ancestral-{t_steps}, {wall:.1f} s in all; kernel launches in the run: {counts}")
+    print("latent wall seconds by phase: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in result.seconds.items()))
+    print("latent attention launches by phase (forward / backward): "
+          + ", ".join(f"{k} {v['linear_attention_block']} / {v['linear_attention_block_bwd']}"
+                      for k, v in result.launches.items()))
+    if result.launches != want:
+        raise AssertionError(f"latent launches by phase {result.launches}, want {want}")
+    (phase_c, *_) = dt.diffusion.sampler_graphs()
+    step_ms = phase_c.device_ms(10)
+    n_images = 10 * PROTOCOL_PER_CLASS
+    img_s = n_images / result.seconds["C"]
+    print(f"latent Phase C: {n_images} images in {result.seconds['C']:.3f} s, {img_s:.3f} img/s "
+          f"(the capture and the decodes included), device {step_ms:.4f} ms a sampler step at "
+          f"2B={2 * SAMPLE_B} [{tag}]")
+    print("latent test F1: " + ", ".join(f"{k} {v:.4f}" for k, v in result.test_f1.items())
+          + f"; FID pixel {result.fid_pixel:.4f} (broken, decoded at 0.18215: "
+          f"{result.fid_pixel_broken:.4f}), classifier {result.fid_classifier:.4f} (broken "
+          f"{result.fid_classifier_broken:.4f})")
+    for v in (result.fid_pixel, result.fid_classifier, result.fid_pixel_broken,
+              result.fid_classifier_broken, *result.test_f1.values()):
+        if not np.isfinite(v):
+            raise AssertionError(f"latent protocol: a result is not finite: {result}")
+    if set(result.test_f1) != set(PROTOCOL_EXPS) or result.synthetic.images.shape != (
+            n_images, 32, 32, 3):
+        raise AssertionError(f"latent protocol: {result.test_f1} {result.synthetic.images.shape}")
+    rerun_chunk(result, gen_cfg, "ddpm", 50)
+    return {"seconds": result.seconds, "wall_seconds": wall, "launches": result.launches,
+            "counts": counts, "phase_c_img_s": img_s, "phase_c_step_device_ms": step_ms,
+            "phase_c_sampler": f"ancestral-{t_steps}", "test_f1": result.test_f1,
+            "fid_pixel": result.fid_pixel, "fid_classifier": result.fid_classifier,
+            "fid_pixel_broken": result.fid_pixel_broken,
+            "fid_classifier_broken": result.fid_classifier_broken}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="another commit's tree, unpacked: its linear-attention "
@@ -1754,6 +2280,30 @@ def main(argv=None) -> None:
     protocol = check_protocol(tag)
     print(f"phase 7c wall time {time.perf_counter() - t_protocol:.1f} s")
 
+    # the entry points below set cuDNN's deterministic algorithms, as the
+    # port's do; the flags are put back after each phase
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    phase("7d consistency distillation at the flagship width: distill.main, generate "
+          "--sampler consistency, the consistency service, bf16")
+    t_phase = time.perf_counter()
+    try:
+        consistency = check_consistency(tag)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    print(f"phase 7d wall time {time.perf_counter() - t_phase:.1f} s")
+    paths["distill_b64"] = consistency["path"]
+
+    phase("7e the latent family at full width: train_autoencoder, train_latent, the latent "
+          "sampler and service, main --generator-config, bf16")
+    t_phase = time.perf_counter()
+    try:
+        latent = check_latent(tag)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    print(f"phase 7e wall time {time.perf_counter() - t_phase:.1f} s")
+    paths["latent_train_b64"] = latent["train_path"]
+    paths["latent_sampler_b64"] = latent["sampler_path"]
+
     phase("8 the ResNet-block kernel vs plain, and ResNetBlockFn")
     t_rb = time.perf_counter()
     resnet = check_resnet_block(tag)
@@ -1805,8 +2355,21 @@ def main(argv=None) -> None:
                              "serve_ddim": serving["ddim"]["launches"],
                              "serve_dpmpp": serving["dpmpp"]["launches"],
                              "protocol_pixel": protocol["pixel"]["counts"]["linear_attention_fwd"],
-                             "protocol_flow": protocol["flow"]["counts"]["linear_attention_fwd"]},
-        "launches_per_step": per_step("linear_attention_fwd"),
+                             "protocol_flow": protocol["flow"]["counts"]["linear_attention_fwd"],
+                             "distill": consistency["run_counts"]["linear_attention_fwd"],
+                             **{f"sample_consistency_{k}": v["launches"]
+                                for k, v in consistency["requests"].items()},
+                             "serve_consistency_2": consistency["serving"]["launches"],
+                             "train_latent": latent["train_counts"]["linear_attention_fwd"],
+                             "sample_latent": latent["sample_counts"]["graphed"],
+                             "serve_latent_ddim": latent["serving"]["launches"],
+                             "protocol_latent":
+                                 latent["protocol"]["counts"]["linear_attention_fwd"]},
+        "launches_per_step": {**per_step("linear_attention_fwd"),
+                              "distill": consistency["per_step"]["linear_attention_fwd"],
+                              "consistency_sample": consistency["sample_per_step"],
+                              "latent_train": latent["train_per_step"]["linear_attention_fwd"],
+                              "latent_sample": latent["sample_per_step"]},
         "max_abs_err": kernel["max_abs_err"],
         "max_abs_err_fp32": kernel["max_abs_err_fp32"],
         **times(kernel),
@@ -1822,8 +2385,14 @@ def main(argv=None) -> None:
         "launches_by_path": {"sample": sample_counts["linear_attention_bwd"],
                              "train": train_counts["linear_attention_bwd"],
                              "protocol_pixel": protocol["pixel"]["counts"]["linear_attention_bwd"],
-                             "protocol_flow": protocol["flow"]["counts"]["linear_attention_bwd"]},
-        "launches_per_step": per_step("linear_attention_bwd"),
+                             "protocol_flow": protocol["flow"]["counts"]["linear_attention_bwd"],
+                             "distill": consistency["run_counts"]["linear_attention_bwd"],
+                             "train_latent": latent["train_counts"]["linear_attention_bwd"],
+                             "protocol_latent":
+                                 latent["protocol"]["counts"]["linear_attention_bwd"]},
+        "launches_per_step": {**per_step("linear_attention_bwd"),
+                              "distill": consistency["per_step"]["linear_attention_bwd"],
+                              "latent_train": latent["train_per_step"]["linear_attention_bwd"]},
         "max_abs_err": bwd["max_rel_err"],
         "max_abs_err_fp32": bwd["max_rel_err_fp32"],
         "err_unit": "max_abs_err / max|plain| of the worst of the 8 grads",
@@ -1891,6 +2460,14 @@ def main(argv=None) -> None:
                             "and the device's ms a replay of each step",
         "serving": serving,
         "protocol": protocol,
+        "consistency": {k: v for k, v in consistency.items() if k != "path"},
+        "latent": {k: v for k, v in latent.items() if k not in ("train_path", "sampler_path")},
+        "consistency_unit": "phase 7d: distill.main at the flagship width, B=64, bf16; requests "
+                            "B=10 through generate.main; serving consistency-2 at B=64 as "
+                            "serving_unit",
+        "latent_unit": "phase 7e: configs/autoencoder_hard.yaml and latent_diffusion_hard.yaml at "
+                       "full width, B=64, bf16; serving latent DDIM-50 at B=64; protocol as "
+                       "protocol_unit with --generator-config",
         "protocol_unit": "ldm_tpu_torch.main at full width, bf16, CFG 3, 2,560 synthetic images, "
                          "1 generator epoch, 2 classifier epochs, 32 images a class, "
                          "--negative-control; seconds: wall by phase; classifier_step: host "

@@ -59,8 +59,9 @@ class Method:
     (descending; what an injected ``noise`` is called with), the per-step
     tables on the device (the first is the model's timestep input), how many
     tensors its carry has, whether a step takes a noise draw, what tells two
-    loops of the method apart (the graph cache's key), DDIM's eta and a
-    flow solver's step dt."""
+    loops of the method apart (the graph cache's key), DDIM's eta, a flow
+    solver's step dt, and the update of a method that brings its own (the
+    signature of :meth:`SamplingProcess._update`; None: the process's)."""
 
     name: str
     ts: np.ndarray
@@ -70,6 +71,7 @@ class Method:
     key: tuple
     eta: float = 0.0
     dt: float = 0.0
+    update: Optional[Callable[..., Tuple[torch.Tensor, ...]]] = None
 
 
 class SamplingProcess:
@@ -125,7 +127,8 @@ class SamplingProcess:
         def predict(x: torch.Tensor, t_vec: torch.Tensor) -> torch.Tensor:
             return self._cfg_eps(model, x, t_vec, y_in, cfg_scale, use_cfg)
 
-        return self._update(method, rows, carry, z, predict)
+        update = method.update or self._update
+        return update(method, rows, carry, z, predict)
 
     def _loop(self, model: ModelFn, method: Method, classes: torch.Tensor,
               image_shape: Tuple[int, int, int], cfg_scale: float,

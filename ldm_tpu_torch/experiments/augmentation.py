@@ -3,8 +3,9 @@ ldm_tpu/experiments/augmentation.py, the protocol of the reference's main.py).
 
 1. The train set is split 50/50, one half for the generator and one for the
    classifier, each half 90/10 into train and validation.
-2. Phase A: the class-conditional generator (pixel DDPM or rectified flow)
-   trains on half 1, or its state is loaded (``diffusion_checkpoint``).
+2. Phase A: the class-conditional generator (pixel DDPM or rectified flow;
+   with ``generator_config`` the latent family, a DDPM over a frozen VAE's
+   latents) trains on half 1, or its state is loaded (``diffusion_checkpoint``).
 3. Phase C: a synthetic set of ``n_per_class`` images a class at CFG scale
    ``cfg_scale``, each family with its default sampler
    (:func:`phase_c_sampler_default`); pixel FID of it against the real half.
@@ -44,10 +45,23 @@ from ldm_tpu_torch.data.datasets import Dataset, get_dataset
 from ldm_tpu_torch.data.loader import DataLoader, split_train_val
 from ldm_tpu_torch.data.transforms import scale_to_minus_one_one
 from ldm_tpu_torch.diffusion.flow import RectifiedFlow
-from ldm_tpu_torch.factory import build_classifier, build_diffusion, build_model, compute_dtype
+from ldm_tpu_torch.factory import (
+    build_classifier,
+    build_diffusion,
+    build_model,
+    compute_dtype,
+    load_config,
+)
 from ldm_tpu_torch.models.resnet import ResNetBase
 from ldm_tpu_torch.ops.fid import fid_from_features, pixel_fid
+from ldm_tpu_torch.models.latent import SD_SCALING
 from ldm_tpu_torch.training.diffusion_trainer import DiffusionTrainer
+from ldm_tpu_torch.training.latent_trainer import (
+    LatentDiffusionTrainer,
+    build_ldm,
+    load_autoencoder,
+    resolve_latent_scaling,
+)
 from ldm_tpu_torch.training.resnet_trainer import ResNetTrainer
 from ldm_tpu_torch.training.state import step_generator
 from ldm_tpu_torch.utils.graphs import COUNTED
@@ -63,8 +77,6 @@ EXPERIMENTS: List[Tuple[str, float, float]] = [
     ("exp5", 0.9, 0.1),
 ]
 GENERATE_SALT = 0x6E0  # Phase C's chunk i: the JAX package's fold_in(key, 0x6E0 + i)
-NOT_PORTED = ("the latent generator (--generator-config) is not ported yet: it waits "
-              "for ROADMAP queue 1, item 11 (VAE and latent diffusion)")
 
 
 @dataclasses.dataclass
@@ -159,13 +171,14 @@ def generate_synthetic_dataset(
     sampler: str = "ddpm",
     ddim_steps: int = 50,
     ode_direction: float = 1.0,
+    decode_scale_override: float = 0.0,
 ) -> Dataset:
     """``n_per_class`` images a class with CFG, in chunks of ``batch_size``
     across classes: the tail chunk is padded to ``batch_size`` (label 0) and
     trimmed, so one captured sampler step serves every chunk."""
     classes = classes if classes is not None else list(range(num_classes))
     labels = np.repeat(np.asarray(classes, np.int32), n_per_class)
-    images = np.empty((len(labels),) + tuple(trainer.image_shape), np.uint8)
+    images = np.empty((len(labels),) + tuple(trainer.output_image_shape), np.uint8)
     for i in range(0, len(labels), batch_size):
         chunk = labels[i: i + batch_size]
         pad = batch_size - len(chunk)
@@ -173,7 +186,8 @@ def generate_synthetic_dataset(
         gen = step_generator(trainer.config.seed, GENERATE_SALT + i, trainer.device,
                              GENERATE_SALT)
         out = trainer.sample(y, cfg_scale=cfg_scale, generator=gen, method=sampler,
-                             ddim_steps=ddim_steps, ode_direction=ode_direction)
+                             ddim_steps=ddim_steps, ode_direction=ode_direction,
+                             decode_scale_override=decode_scale_override)
         images[i: i + len(chunk)] = out[: len(chunk)]
     ds = Dataset(images, labels, classes, "synthetic")
     if save_dir:
@@ -202,9 +216,13 @@ def phase_c_sampler_default(dt, sampler: Optional[str],
 
 def negative_control_break(dt, cfg_scale: float, sampler: str, ddim_steps: int) -> dict:
     """The sampling arguments of the deliberately broken set, each family's
-    own failure: a flow integrates its ODE the wrong way (``ode_direction
-    = -1``, the same sampler, steps and CFG otherwise); the pixel DDPM
-    samples unguided with 5 DDIM steps."""
+    own failure: the latent family decodes at Stable Diffusion's 0.18215
+    instead of its calibrated scale; a flow integrates its ODE the wrong way
+    (``ode_direction = -1``); both with the same sampler, steps and CFG
+    otherwise.  The pixel DDPM samples unguided with 5 DDIM steps."""
+    if isinstance(dt, LatentDiffusionTrainer):
+        return dict(cfg_scale=cfg_scale, sampler=sampler, ddim_steps=ddim_steps,
+                    decode_scale_override=SD_SCALING)
     if isinstance(getattr(dt, "diffusion", None), RectifiedFlow):
         return dict(cfg_scale=cfg_scale, sampler=sampler, ddim_steps=ddim_steps,
                     ode_direction=-1.0)
@@ -229,9 +247,10 @@ def run_augmentation_experiment(
     graphs: Optional[bool] = None,
 ) -> AugmentationResult:
     """The protocol on ``device``; ``graphs`` goes to both trainers (None:
-    replayed CUDA graphs on a card; False: the eager steps)."""
-    if generator_config:
-        raise ValueError(NOT_PORTED)
+    replayed CUDA graphs on a card; False: the eager steps).
+    ``generator_config``: a latent config whose family (its UNet, schedule,
+    frozen VAE and training settings) takes Phases A and C, on the same
+    generator half at this config's batch size."""
     device = torch.device(device)
     logger = logger or MetricsLogger(config.dirpath)
     config.create_dirs()
@@ -246,14 +265,24 @@ def run_augmentation_experiment(
     test_loader = DataLoader(test, config.batch_size, shuffle=False, drop_last=False)
 
     # ---- Phase A: the generator --------------------------------------------
+    diff_train_loader = DataLoader(diff_tr, config.batch_size, seed=config.seed)
+    diff_val_loader = DataLoader(diff_va, config.batch_size, seed=config.seed + 1)
+    gen_cfg = config if not generator_config else load_config(generator_config)
+    if generator_config and gen_cfg.type != "latent":
+        raise ValueError(f"generator_config must be a latent config, got type={gen_cfg.type!r}")
     with torch.random.fork_rng(devices=[]):  # seeded init, the caller's RNG untouched
-        torch.manual_seed(config.seed)
-        model = build_model(config)
-    dt = DiffusionTrainer(
-        config, model.to(device), build_diffusion(config, device),
-        DataLoader(diff_tr, config.batch_size, seed=config.seed),
-        DataLoader(diff_va, config.batch_size, seed=config.seed + 1),
-        classes, device=device, logger=logger, graphs=graphs)
+        torch.manual_seed(gen_cfg.seed)
+        model = build_model(gen_cfg).to(device)
+    if generator_config:
+        ae = load_autoencoder(gen_cfg, device)
+        scaling = resolve_latent_scaling(gen_cfg, ae, diff_train_loader)
+        dt = LatentDiffusionTrainer(
+            gen_cfg, build_ldm(gen_cfg, model, ae, scaling, device), diff_train_loader,
+            diff_val_loader, classes, device=device, logger=logger, graphs=graphs)
+    else:
+        dt = DiffusionTrainer(
+            config, model, build_diffusion(config, device), diff_train_loader,
+            diff_val_loader, classes, device=device, logger=logger, graphs=graphs)
     if diffusion_checkpoint:
         phases.run("A", dt.load_state, diffusion_checkpoint)
     else:

@@ -1,15 +1,21 @@
-"""Sampling entry point of the port (the pixel branch of scripts/generate_images.py).
+"""Sampling entry point of the port (scripts/generate_images.py).
 
 config -> model -> diffusion -> weights -> CFG sampling ->
 ``reverse_transform`` -> images, written as one uint8 NHWC ``.npy``.
 
     python -m ldm_tpu_torch.generate configs/pixel_diffusion_model_cifar10.yaml \\
         [--weights unet.pt] [--per-class 1] [--device cuda] [--out x.npy] \\
-        [--sampler ddpm|ddim|dpmpp] [--ddim-steps 50] [--eta 0.0] [--eager]
+        [--sampler ddpm|ddim|dpmpp|consistency] [--ddim-steps 50] [--eta 0.0] [--eager]
 
 ``--sampler``: the ancestral DDPM loop over all T steps (default), DDIM or
 DPM-Solver++(2M) over ``--ddim-steps`` steps; for a rectified-flow config
-Euler over ``n_steps``, Euler or Heun over ``--ddim-steps`` steps.  On a CUDA device the loop is
+Euler over ``n_steps``, Euler or Heun over ``--ddim-steps`` steps.
+``consistency`` samples a distilled student (``--weights``: the
+``consistency_model_ema.pt`` that ``python -m ldm_tpu_torch.distill``
+writes) in ``--ddim-steps`` steps (1-4 are useful), one B-batch forward a
+step and no guidance pass.  A ``type: latent`` config samples the latent
+UNet over the frozen VAE's latents and decodes them (the first stage and
+the scale as ``python -m ldm_tpu_torch.train_latent`` resolved them).  On a CUDA device the loop is
 one sampler step captured into a CUDA graph and replayed; ``--eager`` asks
 for the Python loop that launches every kernel itself (the only loop on the
 CPU).  The reported seconds are the whole request, warm-up and capture
@@ -34,12 +40,14 @@ import torch
 
 from ldm_tpu_torch.data.transforms import reverse_transform
 from ldm_tpu_torch.factory import build_diffusion, build_model, load_config
-from ldm_tpu_torch.training.diffusion_trainer import SAMPLERS, run_sampler
+from ldm_tpu_torch.models.autoencoder import latent_shape_of
+from ldm_tpu_torch.training.diffusion_trainer import CONSISTENCY, SAMPLERS, run_sampler
+from ldm_tpu_torch.training.latent_trainer import load_ldm
 
 
 class Generated(NamedTuple):
     images: np.ndarray   # (B, H, W, C) uint8
-    x0: np.ndarray       # (B, H, W, C) float32, the sampler's output
+    x0: np.ndarray       # (B, H, W, C) float32, the sampler's output (decoded: latent)
     seconds: float       # sampling wall time, ending in a device sync
     capture_seconds: float = 0.0  # of which: warm-up and capture of the graph (host clock)
 
@@ -53,8 +61,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Generated:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None,
                     help="output .npy (default: <results>/samples_torch.npy)")
-    ap.add_argument("--sampler", choices=SAMPLERS, default="ddpm",
-                    help="ddim / dpmpp: few-step samplers over --ddim-steps steps")
+    ap.add_argument("--sampler", choices=SAMPLERS + (CONSISTENCY,), default="ddpm",
+                    help="ddim / dpmpp: few-step samplers over --ddim-steps steps; "
+                         "consistency: a distilled student's 1-4 steps")
     ap.add_argument("--ddim-steps", type=int, default=50)
     ap.add_argument("--eta", type=float, default=0.0, help="DDIM stochasticity")
     ap.add_argument("--eager", action="store_true",
@@ -80,6 +89,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Generated:
 
     d = config.data
     shape = (d.image_size, d.image_size, d.image_channels)
+    decode = None
+    if config.type == "latent":
+        ldm = load_ldm(config, model, device)
+        diffusion, decode = ldm.diffusion, ldm.autoencoder_decode
+        shape = latent_shape_of(ldm.autoencoder, d.image_size)
     classes = torch.arange(d.num_classes, device=device).repeat_interleave(args.per_class)
     gen = torch.Generator(device=device).manual_seed(config.seed)
 
@@ -90,6 +104,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Generated:
                      ddim_steps=args.ddim_steps, eta=args.eta, cfg_scale=cfg_scale,
                      null_label=model.null_label, generator=gen,
                      graph=False if args.eager else None)
+    if decode is not None:
+        x0 = decode(x0)
     x0 = x0.cpu().numpy()  # waits for the device
     seconds = time.perf_counter() - t0
     capture = diffusion.last_capture_seconds
@@ -99,8 +115,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Generated:
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
     np.save(out, images)
     steps = "" if args.sampler == "ddpm" else f" in {args.ddim_steps} steps"
+    cfg = "no guidance pass" if args.sampler == CONSISTENCY else f"cfg {cfg_scale}"
     print(f"sampled {len(images)} images ({args.sampler}{steps}, T={diffusion.n_steps}, "
-          f"cfg {cfg_scale}) in {seconds:.3f} s on {device}; wrote {out}")
+          f"{cfg}) in {seconds:.3f} s on {device}; wrote {out}")
     if device.type == "cuda":
         how = "the eager loop" if args.eager else "one step as a CUDA graph, replayed"
         print(f"of which warm-up and capture of the graph: {capture:.3f} s ({how})")

@@ -9,17 +9,19 @@ pixel- and classifier-feature FIDs, as the JSON the root main.py prints
     python -m ldm_tpu_torch.main configs/pixel_diffusion_model_cifar10.yaml \\
         [--per-class N] [--classifier-epochs N] [--sampler ddpm|ddim|dpmpp] \\
         [--ddim-steps N] [--negative-control] [--diffusion-checkpoint PATH] \\
-        [--save-png] [--device cuda|cpu] [--eager] [--strict-data]
+        [--generator-config LATENT.yaml] [--save-png] [--device cuda|cpu] \\
+        [--eager] [--strict-data]
 
-Two generator families: the pixel DDPM (``GaussianDiffusion``) and the
-rectified flow (``RectifiedFlow``, e.g. ``configs/protocol_flow_hard.yaml``);
+Three generator families: the pixel DDPM (``GaussianDiffusion``), the
+rectified flow (``RectifiedFlow``, e.g. ``configs/protocol_flow_hard.yaml``)
+and, with ``--generator-config`` (a latent config such as
+``configs/latent_diffusion_hard.yaml``), the latent DDPM over a frozen VAE;
 Phase C defaults to each family's sampler (ancestral DDPM; Heun-25 for the
 flow).  ``--diffusion-checkpoint`` takes the port's full-state checkpoint
 (``<checkpoints>/best_state.pt`` of an earlier run) and skips Phase A.  On a
 CUDA device (the default) both trainers' steps and the sampler step run as
 CUDA graphs captured once and replayed; ``--eager`` asks for the eager
-steps.  ``--generator-config`` (the latent generator) raises until ROADMAP
-queue 1, item 11 is ported; ``--mesh`` / ``--distributed`` raise until item 12.
+steps.  ``--mesh`` / ``--distributed`` raise until ROADMAP queue 1, item 12.
 """
 
 from __future__ import annotations
@@ -67,7 +69,7 @@ def main(argv: Optional[Sequence[str]] = None) -> AugmentationResult:
     ap.add_argument("--diffusion-checkpoint", default=None,
                     help="skip Phase A: restore the generator's full state from this .pt")
     ap.add_argument("--generator-config", default=None,
-                    help="the latent generator's config (not ported yet: raises)")
+                    help="a latent config: its family generates (Phases A and C)")
     ap.add_argument("--eager", action="store_true",
                     help="launch every kernel from Python instead of replaying CUDA graphs")
     args = ap.parse_args(argv)

@@ -1,9 +1,10 @@
 """Generation server of the port (the twin of scripts/serve.py): an
 always-on HTTP service that coalesces concurrent requests into one
-fixed-batch sampler (``ldm_tpu_torch/serving``), pixel configs.
+fixed-batch sampler (``ldm_tpu_torch/serving``); pixel, flow and latent
+configs, and a distilled consistency student (``--sampler consistency``).
 
     python -m ldm_tpu_torch.serve configs/pixel_diffusion_model_cifar10.yaml \\
-        [--checkpoint unet.pt] [--no-ema] [--sampler ddim|ddpm|dpmpp] \\
+        [--checkpoint unet.pt] [--no-ema] [--sampler ddim|ddpm|dpmpp|consistency] \\
         [--ddim-steps 50] [--eta 0] [--cfg-scale S] [--batch-size 64] \\
         [--max-delay-ms 20] [--host 127.0.0.1] [--port 8080] [--device cuda]
     curl -X POST localhost:8080/generate -d '{"class_id": 3, "n": 4, "seed": 1}'
@@ -27,7 +28,7 @@ from typing import Optional, Sequence
 from ldm_tpu_torch.factory import load_config
 from ldm_tpu_torch.serving import GenerationHTTPServer
 from ldm_tpu_torch.serving.builder import build_generation_service
-from ldm_tpu_torch.training.diffusion_trainer import SAMPLERS
+from ldm_tpu_torch.training.diffusion_trainer import CONSISTENCY, SAMPLERS
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -36,8 +37,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--checkpoint", default=None,
                     help="UNet state_dict (.pt); default: the run directory's best")
     ap.add_argument("--ema", action=argparse.BooleanOptionalAction, default=True)
-    ap.add_argument("--sampler", choices=SAMPLERS, default="ddim")
-    ap.add_argument("--ddim-steps", type=int, default=50, help="ddim / dpmpp steps")
+    ap.add_argument("--sampler", choices=SAMPLERS + (CONSISTENCY,), default="ddim")
+    ap.add_argument("--ddim-steps", type=int, default=50,
+                    help="ddim / dpmpp / consistency steps")
     ap.add_argument("--eta", type=float, default=0.0)
     ap.add_argument("--cfg-scale", type=float, default=None)
     ap.add_argument("--batch-size", type=int, default=64,

@@ -51,6 +51,8 @@ import torch
 
 from ldm_tpu_torch.config import Config
 from ldm_tpu_torch.data.transforms import reverse_transform
+from ldm_tpu_torch.diffusion.consistency import sample_consistency, sampling_timesteps
+from ldm_tpu_torch.diffusion.ddpm import GaussianDiffusion
 from ldm_tpu_torch.diffusion.sampling import SamplingProcess
 from ldm_tpu_torch.training import checkpoint as ckpt
 from ldm_tpu_torch.training.early_stopping import EarlyStopping
@@ -63,6 +65,7 @@ from ldm_tpu_torch.utils.seed import check_finite
 EVAL_SALT = 0x5EED     # the JAX trainer's salts: eval batches and sample grids
 SAMPLE_SALT = 0x5A7712
 SAMPLERS = ("ddpm", "ddim", "dpmpp")
+CONSISTENCY = "consistency"  # a distilled student's sampler (run_sampler; not a trainer's)
 
 
 class DiffusionTrainer:
@@ -78,10 +81,13 @@ class DiffusionTrainer:
         logger: Optional[MetricsLogger] = None,
         cfg_scale: Optional[float] = None,
         graphs: Optional[bool] = None,
+        input_shape: Optional[Tuple[int, int, int]] = None,
     ):
         """``graphs``: None runs the train step and the samplers as replayed
         CUDA graphs on a CUDA device and eagerly elsewhere; False asks for
-        the eager paths; True on another device raises."""
+        the eager paths; True on another device raises.  ``input_shape``:
+        (H, W, C) of the diffusion space where it is not the images' (the
+        latent trainer's latents)."""
         if config.loss_fn != "mse":
             raise ValueError("diffusion training uses MSE")
         self.config = config
@@ -95,7 +101,7 @@ class DiffusionTrainer:
         self.logger = logger or MetricsLogger(config.dirpath)
         config.create_dirs()
         d = config.data
-        self.image_shape = (d.image_size, d.image_size, d.image_channels)
+        self.image_shape = tuple(input_shape or (d.image_size, d.image_size, d.image_channels))
         self.state = TrainState(model, config.lr, config.ema_decay)
         self.early_stopping = EarlyStopping(
             patience=config.early_stopping_patience, verbose=True,
@@ -174,9 +180,31 @@ class DiffusionTrainer:
         label = torch.as_tensor(batch["label"]).to(self.device, torch.int64)
         return image, label
 
+    # hooks of the latent trainer (training/latent_trainer.py); the identity here
+    def _encode(self, image: torch.Tensor, *enc: torch.Tensor) -> torch.Tensor:
+        """A batch of images in the diffusion space, inside the step."""
+        return image
+
+    def _encode_draws(self, image: torch.Tensor, enc: Optional[torch.Tensor],
+                      generator: Optional[torch.Generator]) -> tuple:
+        """The draws :meth:`_encode` takes (``enc`` if given), after the
+        step's own: none here."""
+        return ()
+
+    def _postprocess(self, x0: torch.Tensor, decode_scale_override: float = 0.0) -> torch.Tensor:
+        """Sampled x0 in image space; ``decode_scale_override`` (the latent
+        family's negative control) is ignored here."""
+        return x0
+
+    @property
+    def output_image_shape(self) -> Tuple[int, int, int]:
+        """(H, W, C) of what :meth:`sample` returns."""
+        return self.image_shape
+
     def train_step(self, batch: dict, t: Optional[torch.Tensor] = None,
                    eps: Optional[torch.Tensor] = None,
-                   drop: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                   drop: Optional[torch.Tensor] = None,
+                   enc: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """One optimisation step on ``{"image": NHWC [-1, 1], "label": int}``.
 
         Returns ``{"loss", "grad_norm"}`` as device scalars (no host sync).
@@ -187,37 +215,48 @@ class DiffusionTrainer:
         ``graphs`` as one replayed CUDA graph: for the first batch shape met,
         after ``WARMUP_STEPS`` eager steps at that shape; a batch of another
         shape runs the eager step.  ``step_counts`` counts both kinds.
+        ``enc``: the latent trainer's encode noise (drawn last).
         """
-        x0, y = self._batch(batch)  # encode is the identity for pixel DDPM
-        return self._step(x0, y, t, eps, drop)
+        x0, y = self._batch(batch)
+        return self._step(x0, y, t, eps, drop, enc=enc)
 
     def scan_step(self, scan: EpochScan, t: Optional[torch.Tensor] = None,
                   eps: Optional[torch.Tensor] = None,
-                  drop: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                  drop: Optional[torch.Tensor] = None,
+                  enc: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """:meth:`train_step` on the next row of ``scan``'s epoch: the batch
         is gathered on the device, inside the replayed step where there is
         one; the draws are the same as for the same batch handed over."""
         scan.take()
-        return self._step(scan.x_like, scan.y_like, t, eps, drop, scan)
+        return self._step(scan.x_like, scan.y_like, t, eps, drop, scan, enc)
 
-    def _step(self, x0, y, t, eps, drop, scan: Optional[EpochScan] = None):
+    def _space_like(self, image: torch.Tensor) -> torch.Tensor:
+        """A tensor of the diffusion space's batch shape: what t and eps are
+        drawn for (the images themselves in the pixel families)."""
+        if tuple(image.shape[1:]) == self.image_shape:
+            return image
+        return image.new_empty((image.shape[0],) + self.image_shape)
+
+    def _step(self, x0, y, t, eps, drop, scan: Optional[EpochScan] = None, enc=None):
         """The draws from (x0, y)'s shapes, then the step on (x0, y) or on
         ``scan``'s next batch."""
         state = self.state
         gen = None
-        if t is None or eps is None or drop is None:
+        if t is None or eps is None or drop is None or enc is None:
             gen = step_generator(self.config.seed, state.step, self.device)
-        t, eps = self.diffusion.draw_t_eps(x0, t, eps, gen)
+        t, eps = self.diffusion.draw_t_eps(self._space_like(x0), t, eps, gen)
         # a () drop mask broadcasts over the batch
         drop = self.draw_drop(y, drop, gen).expand(y.shape)
-        return self._steps((x0, y, t, eps, drop), scan)
+        return self._steps((x0, y, t, eps, drop, *self._encode_draws(x0, enc, gen)), scan)
 
-    def _device_step(self, x0, y, t, eps, drop) -> Dict[str, torch.Tensor]:
+    def _device_step(self, x0, y, t, eps, drop, *enc) -> Dict[str, torch.Tensor]:
         """Everything of a step after the draws, as a function of device
-        tensors alone: the noising, the label drop, forward, the MSE against
-        the process's target (eps; a flow's velocity), backward, the
-        gradient norm, Adam and the EMA."""
+        tensors alone: the encode (the identity in the pixel families), the
+        noising, the label drop, forward, the MSE against the process's
+        target (eps; a flow's velocity), backward, the gradient norm, Adam
+        and the EMA."""
         state = self.state
+        x0 = self._encode(x0, *enc)
         target, xt, t_in = self.diffusion.noised(x0, t, eps)
         y = torch.where(drop, state.model.null_label, y)
         state.model.train()
@@ -231,14 +270,17 @@ class DiffusionTrainer:
 
     @torch.no_grad()
     def eval_step(self, batch: dict, index: int, t: Optional[torch.Tensor] = None,
-                  eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  eps: Optional[torch.Tensor] = None,
+                  enc: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Validation loss of one batch (the current weights), with the CFG
         lerp ``uncond + cfg * (cond - uncond)`` when cfg > 0."""
         x0, y = self._batch(batch)
         gen = None
-        if t is None or eps is None:
+        if t is None or eps is None or enc is None:
             gen = step_generator(self.config.seed, index, self.device, EVAL_SALT)
-        target, xt, t_in = self.diffusion.noise_batch(x0, t=t, eps=eps, generator=gen)
+        t, eps = self.diffusion.draw_t_eps(self._space_like(x0), t, eps, gen)
+        x0 = self._encode(x0, *self._encode_draws(x0, enc, gen))
+        target, xt, t_in = self.diffusion.noised(x0, t, eps)
         model = self.model.eval()
         out = model(xt, t_in, y)
         if self.cfg_scale > 0:
@@ -367,14 +409,16 @@ class DiffusionTrainer:
     def sample(self, classes, cfg_scale: float = 0.0, use_ema: bool = True,
                generator: Optional[torch.Generator] = None, method: str = "ddpm",
                ddim_steps: int = 50, eta: float = 0.0,
-               ode_direction: float = 1.0) -> np.ndarray:
+               ode_direction: float = 1.0, decode_scale_override: float = 0.0) -> np.ndarray:
         """One image per entry of ``classes``, from the EMA weights by
-        default; uint8 NHWC.  ``method``: "ddpm" (the ancestral CFG sampler;
+        default; uint8 NHWC, of :attr:`output_image_shape`.  ``method``: "ddpm" (the ancestral CFG sampler;
         a flow's Euler over ``n_steps``), "ddim" (``ddim_steps`` steps,
         ``eta``; a flow's Euler) or "dpmpp" (DPM-Solver++(2M), ``ddim_steps``
         steps; a flow's Heun).  ``ode_direction`` != 1 is the flow family's
         negative control (passed on only then, as the JAX trainer does: a
-        DDPM process has no such argument and raises)."""
+        DDPM process has no such argument and raises).
+        ``decode_scale_override`` != 0 is the latent family's (see
+        :meth:`_postprocess`)."""
         model = (self.state.ema if use_ema else self.model).eval()
         if generator is None:
             generator = step_generator(self.config.seed, 0, self.device, SAMPLE_SALT)
@@ -384,6 +428,7 @@ class DiffusionTrainer:
                          ddim_steps=ddim_steps, eta=eta, cfg_scale=cfg_scale,
                          null_label=model.null_label, generator=generator,
                          graph=None if self.graphs else False, **brk)
+        x0 = self._postprocess(x0, decode_scale_override)
         return reverse_transform(x0.cpu().numpy())
 
 
@@ -391,7 +436,17 @@ def run_sampler(diffusion: SamplingProcess, method: str, model, classes, image_s
                 ddim_steps: int = 50, eta: float = 0.0, **kw) -> torch.Tensor:
     """``diffusion``'s sampler ``method`` ("ddpm", "ddim", "dpmpp"; the
     ``--sampler`` of the entry points; a ``RectifiedFlow`` maps them to
-    Euler over ``n_steps``, Euler and Heun); ``kw`` go to it."""
+    Euler over ``n_steps``, Euler and Heun); ``kw`` go to it.  "consistency"
+    samples a distilled student in ``ddim_steps`` steps
+    (``sampling_timesteps``) without guidance: ``cfg_scale`` and
+    ``null_label`` are dropped, the others go to ``sample_consistency``."""
+    if method == "consistency":
+        if not isinstance(diffusion, GaussianDiffusion):
+            raise ValueError("the consistency sampler needs a GaussianDiffusion, got "
+                             f"{type(diffusion).__name__}")
+        kw = {k: v for k, v in kw.items() if k not in ("cfg_scale", "null_label")}
+        return sample_consistency(diffusion, model, classes, image_shape,
+                                  ts=sampling_timesteps(diffusion.n_steps, ddim_steps), **kw)
     if method == "ddpm":
         return diffusion.sample(model, classes, image_shape, **kw)
     if method == "ddim":

@@ -8,8 +8,8 @@ and takes the tree's leaves as numpy arrays) plus ``torch.from_numpy``, and
 takes care of the layout details: OIHW conv weights, the spatial flip of the
 transposed convs, the zero time MLP of a ``bottleneck_time_emb=False``
 bottleneck, and no time MLP on the final head block.  The ResNet classifier
-has :func:`resnet_from_flax` (parameters and BatchNorm statistics); the
-autoencoder's exporter comes with its model.
+has :func:`resnet_from_flax` (parameters and BatchNorm statistics) and the
+VAE :func:`autoencoder_from_flax`.
 
 The fused ResNet-block op (``ops/resnet_block.py``) takes the JAX op's
 arguments; :func:`resnet_block_from_flax` makes them from a flax
@@ -207,6 +207,85 @@ def resnet_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     sd = resnet_state_dict_from_variables(variables)
     return {k: torch.from_numpy(np.array(v, dtype=np.int64 if k.endswith("tracked")
                                          else np.float32)) for k, v in sd.items()}
+
+
+# ------------------------------------------------------------------------- VAE
+def _put_vae_resblock(out: dict, pre: str, p: dict) -> None:
+    _put_norm(out, f"{pre}.norm1", p["GroupNorm_0"])
+    _put_conv(out, f"{pre}.conv1", p["Conv_0"])
+    _put_norm(out, f"{pre}.norm2", p["GroupNorm_1"])
+    _put_conv(out, f"{pre}.conv2", p["Conv_1"])
+    if "Conv_2" in p:
+        _put_conv(out, f"{pre}.nin_shortcut", p["Conv_2"])
+
+
+def _put_vae_attn(out: dict, pre: str, p: dict) -> None:
+    _put_norm(out, f"{pre}.norm", p["GroupNorm_0"])
+    for name, dk in (("q", "Dense_0"), ("k", "Dense_1"),
+                     ("v", "Dense_2"), ("proj_out", "Dense_3")):
+        out[f"{pre}.{name}.weight"] = conv1x1_from_dense(p[dk]["kernel"])
+        out[f"{pre}.{name}.bias"] = _np(p[dk]["bias"])
+
+
+def autoencoder_state_dict_from_params(params: Dict[str, Any],
+                                       n_resnet_blocks: int) -> Dict[str, np.ndarray]:
+    """A flax ``Autoencoder`` tree -> the state_dict of numpy arrays that the
+    port's ``models.autoencoder.Autoencoder`` loads strictly: the VAE part of
+    ``ldm_tpu/utils/torch_export.py``.  ``n_resnet_blocks`` is the config's
+    blocks a level (the flat ``ResnetBlock_i`` numbering cannot tell the
+    levels apart)."""
+    p = params.get("params", params)
+    ep, dp = p["encoder"], p["decoder"]
+    n_levels = sum(1 for k in ep if k.startswith("DownSample_")) + 1
+    n_enc_rb = sum(1 for k in ep if k.startswith("ResnetBlock_"))
+    if n_enc_rb != n_levels * n_resnet_blocks + 2:
+        raise ValueError(f"encoder has {n_enc_rb} res blocks, expected "
+                         f"{n_levels}*{n_resnet_blocks}+2: wrong n_resnet_blocks?")
+
+    out: dict = {}
+    _put_conv(out, "encoder.conv_in", ep["Conv_0"])
+    rb = ds = 0
+    for level in range(n_levels):
+        for b in range(n_resnet_blocks):
+            _put_vae_resblock(out, f"encoder.down.{level}.block.{b}", ep[f"ResnetBlock_{rb}"])
+            rb += 1
+        if level < n_levels - 1:
+            _put_conv(out, f"encoder.down.{level}.downsample.conv",
+                      ep[f"DownSample_{ds}"]["Conv_0"])
+            ds += 1
+    _put_vae_resblock(out, "encoder.mid.block_1", ep[f"ResnetBlock_{rb}"])
+    _put_vae_attn(out, "encoder.mid.attn_1", ep["AttnBlock_0"])
+    _put_vae_resblock(out, "encoder.mid.block_2", ep[f"ResnetBlock_{rb + 1}"])
+    _put_norm(out, "encoder.norm_out", ep["GroupNorm_0"])
+    _put_conv(out, "encoder.conv_out", ep["Conv_1"])
+
+    _put_conv(out, "decoder.conv_in", dp["Conv_0"])
+    _put_vae_resblock(out, "decoder.mid.block_1", dp["ResnetBlock_0"])
+    _put_vae_attn(out, "decoder.mid.attn_1", dp["AttnBlock_0"])
+    _put_vae_resblock(out, "decoder.mid.block_2", dp["ResnetBlock_1"])
+    rb, us = 2, 0
+    # the flax decoder numbers its blocks in execution order: the deepest level first
+    for level in reversed(range(n_levels)):
+        for b in range(n_resnet_blocks + 1):  # decoder levels have n + 1 blocks
+            _put_vae_resblock(out, f"decoder.up.{level}.block.{b}", dp[f"ResnetBlock_{rb}"])
+            rb += 1
+        if level > 0:
+            _put_conv(out, f"decoder.up.{level}.upsample.conv", dp[f"UpSample_{us}"]["Conv_0"])
+            us += 1
+    _put_norm(out, "decoder.norm_out", dp["GroupNorm_0"])
+    _put_conv(out, "decoder.conv_out", dp["Conv_1"])
+
+    _put_conv(out, "quant_conv", p["quant_conv"])
+    _put_conv(out, "post_quant_conv", p["post_quant_conv"])
+    return out
+
+
+def autoencoder_from_flax(params: Dict[str, Any], n_resnet_blocks: int
+                          ) -> Dict[str, torch.Tensor]:
+    """A flax ``Autoencoder`` tree -> a state_dict of float32 CPU tensors
+    that the port's ``Autoencoder`` loads with ``strict=True``."""
+    sd = autoencoder_state_dict_from_params(params, n_resnet_blocks)
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
 
 
 def resnet_block_from_flax(

@@ -142,12 +142,13 @@ def test_one_seed_gives_the_same_results(family, tmp_path):
 
 
 def test_generator_config_and_parallel_flags_raise(tmp_path):
+    """A generator config must be a latent one (the latent generator itself:
+    tests/test_torch_port_latent.py); the parallel flags wait for item 12."""
     cfg = config_from_dict(raw_config("pixel", tmp_path))
-    with pytest.raises(ValueError, match="item 11"):
-        aug.run_augmentation_experiment(cfg, generator_config="configs/latent.yaml",
-                                        device="cpu")
     path = tmp_path / "c.yaml"
     path.write_text(yaml.safe_dump(raw_config("pixel", tmp_path)))
+    with pytest.raises(ValueError, match="must be a latent config"):
+        aug.run_augmentation_experiment(cfg, generator_config=str(path), device="cpu")
     for flag in ("--mesh", "--distributed"):
         with pytest.raises(ValueError, match="item 12"):
             port_main.main([str(path), "--device", "cpu", flag])

@@ -463,7 +463,10 @@ def test_service_matches_the_jax_service(tmp_path):
 
 def test_builder_real_model_smoke(tmp_path):
     """A tiny UNet through the builder: a .pt in the run directory ->
-    service -> images; the deterministic samplers are seed-reproducible."""
+    service -> images; the deterministic samplers (DDIM, DPM-Solver++, the
+    distilled consistency sampler, and DDIM over a latent config's latents,
+    decoded) are seed-reproducible."""
+    from ldm_tpu_torch.config import ModelConfig
     from ldm_tpu_torch.factory import build_model
     from ldm_tpu_torch.serving.builder import build_generation_service, checkpoint_path
 
@@ -476,14 +479,29 @@ def test_builder_real_model_smoke(tmp_path):
         build_generation_service(cfg, checkpoint=str(tmp_path / "nope.pt"), device="cpu")
     with pytest.raises(ValueError, match="sampler must be"):
         build_generation_service(cfg, sampler="euler", device="cpu")
-    with pytest.raises(ValueError, match="items 10-11"):
+    with pytest.raises(FileNotFoundError, match="consistency_model_ema.pt"):
         build_generation_service(cfg, sampler="consistency", device="cpu")
-    with pytest.raises(ValueError, match="items 10-11"):
-        build_generation_service(dataclasses.replace(cfg, type="latent"), device="cpu")
+    # the distilled student's weights where the distiller leaves them (here
+    # the same UNet), and a latent config over a seeded random first stage
+    torch.save(build_model(cfg).state_dict(), checkpoint_path(cfg, True, "consistency_model"))
+    latent = dataclasses.replace(
+        cfg, type="latent", project_name="serve_latent",
+        model=ModelConfig(params=dict(in_channels=4, out_channels=4, channels=16,
+                                      channel_multipliers=[1], num_classes=NUM_CLASSES)),
+        autoencoder=ModelConfig(target="ldm_tpu.models.autoencoder.Autoencoder",
+                                params=dict(in_channels=3, out_channels=3, channels=8,
+                                            channel_multipliers=[1, 2], n_resnet_blocks=1,
+                                            z_channels=4)),
+        diffusion=dataclasses.replace(cfg.diffusion, schedule="sqrt_linear",
+                                      latent_scaling_factor=0.8))
+    latent.create_dirs()
+    torch.save(build_model(latent).state_dict(), checkpoint_path(latent))
 
-    for sampler in ("ddim", "dpmpp"):
-        svc = build_generation_service(cfg, sampler=sampler, ddim_steps=2, batch_size=4,
+    for c, sampler in ((cfg, "ddim"), (cfg, "dpmpp"), (cfg, "consistency"), (latent, "ddim")):
+        svc = build_generation_service(c, sampler=sampler, ddim_steps=2, batch_size=4,
                                        max_delay_s=0.01, device="cpu")
+        assert svc.per_slot_keys == (sampler == "consistency")
+        assert svc.image_shape == ((8, 8, 4) if c is latent else (16, 16, 3))
         with svc:
             a = svc.submit(1, n=2, seed=5).result(timeout=120)
             b = svc.submit(1, n=2, seed=5).result(timeout=120)

@@ -67,7 +67,13 @@ def test_port_files_are_found():
                  "ldm_tpu_torch/models/resnet.py", "ldm_tpu_torch/ops/metrics.py",
                  "ldm_tpu_torch/ops/fid.py", "ldm_tpu_torch/training/resnet_trainer.py",
                  "ldm_tpu_torch/experiments/augmentation.py", "ldm_tpu_torch/utils/seed.py",
-                 "ldm_tpu_torch/utils/cli.py", "ldm_tpu_torch/main.py"):
+                 "ldm_tpu_torch/utils/cli.py", "ldm_tpu_torch/main.py",
+                 "ldm_tpu_torch/diffusion/consistency.py",
+                 "ldm_tpu_torch/training/consistency_trainer.py", "ldm_tpu_torch/distill.py",
+                 "ldm_tpu_torch/models/autoencoder.py",
+                 "ldm_tpu_torch/training/autoencoder_trainer.py",
+                 "ldm_tpu_torch/train_autoencoder.py", "ldm_tpu_torch/models/latent.py",
+                 "ldm_tpu_torch/training/latent_trainer.py", "ldm_tpu_torch/train_latent.py"):
         assert want in names
 
 
@@ -252,3 +258,32 @@ def test_unet_export_equals_the_original(multipliers, bottleneck_time_emb):
     model = UNet(channel_multipliers=multipliers, **kw)
     model.load_state_dict(tensors, strict=True)
     assert all(torch.equal(v, tensors[k]) for k, v in model.state_dict().items())
+
+
+@pytest.mark.parametrize("multipliers,n_blocks", [((1, 2), 1), ((1, 2, 4), 2)])
+def test_autoencoder_export_equals_the_original(multipliers, n_blocks):
+    """The bridge's VAE exporter against the JAX package's: the same keys and
+    values from numpy leaves, and the port's Autoencoder loads the result
+    strictly."""
+    from ldm_tpu.models.autoencoder import Autoencoder as FlaxAE
+    from ldm_tpu.utils.torch_export import autoencoder_state_dict_from_params as jax_ae_export
+    from ldm_tpu_torch.models.autoencoder import Autoencoder
+    from ldm_tpu_torch.utils.flax_import import (
+        autoencoder_from_flax,
+        autoencoder_state_dict_from_params,
+    )
+
+    from _flax_params import random_params
+
+    kw = dict(in_channels=3, out_channels=3, channels=8, channel_multipliers=multipliers,
+              n_resnet_blocks=n_blocks, z_channels=4)
+    params = random_params(FlaxAE(**kw), jnp.zeros((1, 16, 16, 3)), jax.random.key(2))
+    want = jax_ae_export(params, n_blocks)
+    got = autoencoder_state_dict_from_params(params, n_blocks)
+    assert list(got) == list(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+    model = Autoencoder(**kw)
+    model.load_state_dict(autoencoder_from_flax(params, n_blocks), strict=True)
+    with pytest.raises(ValueError, match="n_resnet_blocks"):
+        autoencoder_state_dict_from_params(params, n_blocks + 1)
