@@ -9,7 +9,7 @@ from a seed), through their entry points: the class-conditional samplers
 with classifier-free guidance (``ldm_tpu_torch.generate.main``: ancestral
 DDPM, DDIM, DPM-Solver++(2M)) and the diffusion trainer
 (``ldm_tpu_torch.train.run``); then serving, the protocol, consistency
-distillation and the latent family (phases 7b-7e).  Both run as they do by default on a card: one
+distillation, the latent family and data parallelism (phases 7b-7f).  Both run as they do by default on a card: one
 sampler step and one train step captured into CUDA graphs and replayed; the
 eager loops are timed beside them.  Phases, each printing its own lines; any
 failure raises and exits nonzero:
@@ -149,6 +149,25 @@ failure raises and exits nonzero:
    above) and ``--negative-control`` at 2,560 images: wall seconds and
    launches by phase (exact), F1s and FIDs, Phase C's first chunk rerun
    bit for bit.
+7f. data parallelism and FSDP (``ldm_tpu_torch/parallel/``): (a) over a NCCL
+   group of this process alone, ``DiffusionTrainer(mesh=create_mesh())`` at
+   the flagship width, graphed, with ``param_sharding`` replicated, fsdp
+   (JAX's rule shards nothing at N = 1) and fsdp under the placements N = 2
+   would give (FSDP2's DTensors, all-gathers and reduce-scatter on the
+   card), against the one-process trainer from the same weights, batches
+   and draws: 8 fp32 steps (5 replayed, cuDNN's deterministic algorithms),
+   losses and attention weights within 1e-6, 8 + 8 launches a replayed step;
+   host ms a step graphed and eager and the device's ms a replay at B=64
+   bf16 beside the one-process step's; ``train.main([cfg, "--mesh"])`` for
+   2 epochs of 9 steps (one metrics record an epoch, the checkpoints);
+   (b) two processes on the one card over gloo (``--mesh-worker``; eager by
+   design), DP at global B=64 for 6 fp32 steps against one process on the
+   same global batches and draws (losses rtol 1e-5, parameters atol 5e-3),
+   and ResNet-18's BatchNorm statistics after 4 steps at lr 0 (1e-6); the
+   gloo step's host ms; (c) the DDIM-50 service at B=64 over two replicas on
+   cuda:0 against a one-device service at the replicas' batch, bit for bit
+   alone and under load, the launches exact, and how far it lands from the
+   one-device service at B=64 (ROADMAP fault 8, printed).
 8. the fused ResNet-block kernel (``ops/resnet_block.py``) vs plain: at
    the 11 ResNet sites of the 32px flagship UNet at 2B=20 and 2B=128, at
    probe 13's four sites at 2B=256, at the 64px (4096, 64->64) site at
@@ -182,6 +201,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
 import dataclasses
 import io
 import json
@@ -2204,11 +2224,395 @@ def run_latent_protocol(workdir: str, ae_ckpt: str, tag: str) -> dict:
             "fid_classifier_broken": result.fid_classifier_broken}
 
 
+# ---------------------------------------------------------------- phase 7f
+MESH_STEPS, GLOO_STEPS, BN_STEPS = 8, 6, 4
+MESH_TOL = 1e-6  # fp32, world size 1: the mesh step is the one-process step
+ATTN_WEIGHTS = ("to_qkv.weight", "to_out.0.weight")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_trainer(cfg, mesh, graphs=None, seed: int = 11) -> DiffusionTrainer:
+    """The flagship UNet from ``seed`` in a trainer over ``mesh`` (None:
+    one process), no loaders: the caller hands over the batches."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = build_model(cfg, DEV)
+    return DiffusionTrainer(cfg, model, build_diffusion(cfg, DEV), None, None, list(range(10)),
+                            device=DEV, graphs=graphs, mesh=mesh)
+
+
+def global_steps(n: int, seed: int, b: int = TRAIN_B) -> list:
+    """``n`` global batches of ``b`` with their draws (t, eps, drop)."""
+    g = torch.Generator().manual_seed(seed)
+    return [({"image": torch.rand(b, 32, 32, 3, generator=g) * 2 - 1,
+              "label": torch.randint(0, 10, (b,), generator=g)},
+             dict(t=torch.randint(0, T_STEPS, (b,), generator=g),
+                  eps=torch.randn(b, 32, 32, 3, generator=g),
+                  drop=torch.tensor(i % 3 == 0))) for i in range(n)]
+
+
+def attn_weights(state_dict: dict) -> dict:
+    return {k: v.detach().float().cpu() for k, v in state_dict.items()
+            if k.endswith(ATTN_WEIGHTS)}
+
+
+def worst_rel(a: dict, b: dict) -> float:
+    """The largest |a - b| of a tensor over its largest |b|."""
+    return max(float((a[k] - v).abs().max() / v.abs().max()) for k, v in b.items())
+
+
+def check_mesh_world1(config, tag: str) -> dict:
+    """Phase 7f (a): DiffusionTrainer(mesh=create_mesh()) over a NCCL group
+    of one process, graphed, replicated and fsdp, against the one-process
+    trainer from the same weights, batches and draws (fp32: losses and the
+    attention weights within 1e-6); one replayed step's launches; host ms a
+    step and the device's ms a replay at B=64 bf16 beside the one-process
+    step's."""
+    from ldm_tpu_torch.parallel import create_mesh
+    from ldm_tpu_torch.parallel import fsdp
+
+    mesh = create_mesh(device=DEV)
+    print(f"mesh: {mesh}")
+    out = {"launches": {}}
+    # cuDNN's deterministic algorithms: its atomic weight-gradient sums move
+    # a weight by Adam's sign noise from run to run, which is not the mesh's
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        return _check_mesh_world1(config, tag, mesh, out)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+
+@contextlib.contextmanager
+def fsdp_rule_as_if(n: int):
+    """The FSDP leaf rule applied as over ``n`` processes: at world size 1
+    JAX's rule shards nothing (N = 1 replicates every leaf), so FSDP2's
+    sharded parameters, all-gathers and reduce-scatters run on one card
+    only under the placements N = 2 would give (each shard the whole leaf)."""
+    from ldm_tpu_torch.parallel import fsdp
+
+    rule = fsdp.fsdp_shard_dim
+    fsdp.fsdp_shard_dim = lambda shape, _n, min_size=fsdp.MIN_SHARD_SIZE: rule(shape, n,
+                                                                                min_size)
+    try:
+        yield
+    finally:
+        fsdp.fsdp_shard_dim = rule
+
+
+def _check_mesh_world1(config, tag: str, mesh, out: dict) -> dict:
+    from ldm_tpu_torch.parallel import fsdp
+
+    variants = (("one", "replicated", None, 1), ("dp", "replicated", mesh, 1),
+                ("fsdp", "fsdp", mesh, 1), ("fsdp2", "fsdp", mesh, 2))
+    with tempfile.TemporaryDirectory() as workdir:
+        cfg = dataclasses.replace(config, use_amp=False, workdir=workdir)
+        steps = global_steps(MESH_STEPS, 21)
+        runs = {}
+        for name, sharding, m, rule_n in variants:
+            with fsdp_rule_as_if(rule_n):
+                tr = mesh_trainer(dataclasses.replace(cfg, param_sharding=sharding), m)
+            losses = []
+            for i, (batch, draws) in enumerate(steps):
+                if i == MESH_STEPS - 1:
+                    zero_counts()
+                losses.append(tr.train_step(batch, **draws)["loss"].item())
+            counts = read_counts()
+            runs[name] = (losses, attn_weights(tr.state.state_dict()["model"]),
+                          tr.step_counts, [n for n, p in tr.model.named_parameters()
+                                           if fsdp.is_sharded(p)])
+            print(f"  fp32 {name}: losses {' '.join(f'{v:.7f}' for v in losses)}; steps "
+                  f"{tr.step_counts}; one replayed step's launches {counts}; sharded leaves "
+                  f"{len(runs[name][3])}")
+            if counts != dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": 8,
+                                                      "linear_attention_bwd": 8}:
+                raise AssertionError(f"{name}: a replayed step launched {counts}")
+            if tr.step_counts != {"graphed": MESH_STEPS - WARMUP_STEPS, "eager": WARMUP_STEPS}:
+                raise AssertionError(f"{name}: step counts {tr.step_counts}")
+            out["launches"][name] = counts
+            del tr
+            torch.cuda.empty_cache()
+        ref_losses, ref_w = runs["one"][0], runs["one"][1]
+        for name in ("dp", "fsdp", "fsdp2"):
+            losses, w = runs[name][0], runs[name][1]
+            loss_rel = max(abs(a - b) / b for a, b in zip(losses, ref_losses))
+            w_rel = worst_rel(w, ref_w)
+            out[f"{name}_fp32_loss_rel"], out[f"{name}_fp32_weight_rel"] = loss_rel, w_rel
+            print(f"world size 1 {name} vs one process, fp32, {MESH_STEPS} steps "
+                  f"({MESH_STEPS - WARMUP_STEPS} replayed): losses within {loss_rel:.2e}, the "
+                  f"{len(w)} attention weights within {w_rel:.2e} of their largest entry "
+                  f"(bar {MESH_TOL})")
+            if loss_rel > MESH_TOL or w_rel > MESH_TOL:
+                raise AssertionError(f"{name} left the one-process step")
+        if runs["dp"][3] or runs["fsdp"][3] or not runs["fsdp2"][3]:
+            raise AssertionError("the rule sharded a leaf at N = 1, or none as at N = 2")
+
+        # the step's time, bf16, B=64: the one-process step, DP and FSDP
+        batch, _ = global_steps(1, 22)[0]
+        for name, sharding, m, rule_n in variants:
+            with fsdp_rule_as_if(rule_n):
+                tr = mesh_trainer(dataclasses.replace(config, workdir=workdir,
+                                                      param_sharding=sharding), m)
+
+            def ten_steps():
+                for _ in range(10):
+                    tr.train_step(batch)
+
+            ten_steps()
+            graphed = host_ms(ten_steps, 10)
+            device_ms = tr.train_graph.device_ms(10)
+            tr.graphs = False
+            ten_steps()
+            eager = host_ms(ten_steps, 10)
+            out[name] = path_line(f"train step B={TRAIN_B} bf16, {name} world size 1",
+                                  graphed, eager, device_ms, tag)
+            del tr
+            torch.cuda.empty_cache()
+        for name in ("dp", "fsdp", "fsdp2"):
+            r = out[name]["graphed_ms"] / out["one"]["graphed_ms"]
+            d = out[name]["device_ms"] / out["one"]["device_ms"]
+            print(f"{name} / one process at world size 1: host {r:.4f}, device {d:.4f} "
+                  f"[{tag}]")
+    return out
+
+
+def mesh_worker(rank: int, port: int, outdir: str) -> None:
+    """One of phase 7f (b)'s two processes on the one card: a gloo group
+    (eager steps by design), fp32, DP at global B=64 (32 a process) on the
+    given global batches and draws, then the classifier's 4 steps at lr 0."""
+    import torch.distributed as dist
+
+    from ldm_tpu_torch.parallel import create_mesh
+    from ldm_tpu_torch.parallel.mesh import shard_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=2)
+    try:
+        mesh = create_mesh(device=DEV)
+        with tempfile.TemporaryDirectory() as workdir:
+            cfg = dataclasses.replace(load_config(FLAGSHIP), use_amp=False, workdir=workdir)
+            tr = mesh_trainer(cfg, mesh)
+            if tr.graphs:
+                raise AssertionError("a gloo step must run eagerly")
+            losses, ms = [], []
+            zero_counts()
+            for batch, draws in global_steps(GLOO_STEPS, 23):
+                t0 = time.perf_counter()
+                losses.append(tr.train_step(shard_batch(mesh, batch), **draws)["loss"].item())
+                ms.append((time.perf_counter() - t0) * 1e3)
+            counts = read_counts()
+            state = attn_weights(tr.state.state_dict()["model"])
+            state_all = {k: v.float().cpu() for k, v in tr.state.state_dict()["model"].items()}
+            del tr
+            clf = mesh_classifier(workdir, mesh)
+            for b in classifier_batches(BN_STEPS, 24):
+                clf.train_step(shard_batch(mesh, b))
+            stats = {k: v.float().cpu() for k, v in clf.model.state_dict().items()
+                     if k.endswith(("running_mean", "running_var"))}
+        torch.save({"losses": losses, "ms": ms, "counts": counts, "attn": state,
+                    "model": state_all, "stats": stats},
+                   os.path.join(outdir, f"rank{rank}.pt"))
+        mesh.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_classifier(workdir: str, mesh) -> ResNetTrainer:
+    """ResNet-18 fp32 at lr 0 (its statistics read the data alone), over
+    ``mesh`` or one process."""
+    cfg = dataclasses.replace(load_config(FLAGSHIP), use_amp=False, workdir=workdir, lr=0.0,
+                              loss_fn="cross-entropy", project_name="clf_mesh")
+    return ResNetTrainer(cfg, build_classifier(cfg, 3, 10, device=DEV), DataLoader(
+        synthetic_dataset(SYNTHETIC_SIZE, 32, 3, train=True), TRAIN_B, seed=0), None,
+        list(range(10)), device=DEV, graphs=False, mesh=mesh)
+
+
+def check_mesh_gloo(tag: str) -> dict:
+    """Phase 7f (b): two processes on the one card over gloo (eager by
+    design: gloo's collectives stage CUDA tensors through the host), DP at
+    global B=64, against one process at B=64 on the same global batches and
+    draws: losses rtol 1e-5, parameters atol 5e-3 (the JAX DP bar); the
+    classifier's running statistics after 4 steps at lr 0 within 1e-6.
+    FSDP over two processes cannot run on one card: gloo has no all-gather
+    or reduce-scatter for CUDA tensors and NCCL refuses two ranks on one
+    GPU; the CPU tests run it."""
+    port = free_port()
+    with tempfile.TemporaryDirectory() as outdir:
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-worker",
+                                   str(r), str(port), outdir], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                raise AssertionError(f"gloo worker {r} failed:\n{logs[r][-4000:]}")
+        outs = [torch.load(os.path.join(outdir, f"rank{r}.pt"), weights_only=False)
+                for r in range(2)]
+        cfg = dataclasses.replace(load_config(FLAGSHIP), use_amp=False, workdir=outdir)
+        ref = mesh_trainer(cfg, None, graphs=False)
+        want = [ref.train_step(b, **d)["loss"].item() for b, d in global_steps(GLOO_STEPS, 23)]
+        ref_model = {k: v.float().cpu() for k, v in ref.state.state_dict()["model"].items()}
+        del ref
+        clf = mesh_classifier(outdir, None)
+        for b in classifier_batches(BN_STEPS, 24):
+            clf.train_step(b)
+        ref_stats = {k: v.float().cpu() for k, v in clf.model.state_dict().items()
+                     if k.endswith(("running_mean", "running_var"))}
+    out = {}
+    for r, o in enumerate(outs):
+        loss_rel = max(abs(a - b) / b for a, b in zip(o["losses"], want))
+        param_abs = max(float((o["model"][k] - v).abs().max()) for k, v in ref_model.items())
+        stat_abs = max(float((o["stats"][k] - v).abs().max()) for k, v in ref_stats.items())
+        print(f"gloo rank {r}: losses {' '.join(f'{v:.6f}' for v in o['losses'])} (one process "
+              f"{' '.join(f'{v:.6f}' for v in want)}): within {loss_rel:.2e} (rtol 1e-5); "
+              f"parameters within {param_abs:.2e} (atol 5e-3); classifier running statistics "
+              f"within {stat_abs:.2e} (1e-6); launches {o['counts']}")
+        if loss_rel > 1e-5 or param_abs > 5e-3 or stat_abs > 1e-6:
+            raise AssertionError(f"gloo rank {r} left the one-process run")
+        if o["counts"] != dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": 8 * GLOO_STEPS,
+                                                       "linear_attention_bwd": 8 * GLOO_STEPS}:
+            raise AssertionError(f"gloo rank {r} launched {o['counts']}")
+        out[f"rank{r}"] = {"loss_rel": loss_rel, "param_abs": param_abs, "stat_abs": stat_abs,
+                           "step_ms": o["ms"], "launches": o["counts"]}
+    steady = float(np.median([m for o in outs for m in o["ms"][1:]]))
+    out["step_ms_median"] = steady
+    print(f"gloo DP step, 2 processes on one card, fp32, global B={TRAIN_B} (32 a process), "
+          f"eager by design: host {steady:.3f} ms a step (median of steps 2-{GLOO_STEPS} of both "
+          f"processes; runs {' '.join(f'{m:.1f}' for m in outs[0]['ms'])}) [{tag}]")
+    return out
+
+
+def check_mesh_serving(config, tag: str) -> dict:
+    """Phase 7f (c): the DDIM-50 service at B=64 with two replicas on the one
+    card (``mesh=["cuda:0", "cuda:0"]``, 32 slots each, a graph each): the
+    reference request alone and under load, bit for bit against the
+    one-device service at the replicas' batch (B=32) and against itself;
+    the forward kernel's launches; and how far it lands from the one-device
+    service at B=64, which is not bit for bit on this card (ROADMAP queue 3,
+    fault 8: cuDNN takes another bf16 algorithm for a 3x3 conv at 2B=64
+    than at 2B=128, so a slot's image depends on the device's batch size)."""
+    host = GaussianDiffusion(T_STEPS)
+    steps = len(host.ddim_timesteps(50)[0])
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = seeded_checkpoint(config, os.path.join(d, "diffusion_model_ema.pt"))
+        images = {}
+        for name, mesh, b in (("one", None, SERVE_B), ("one_b32", None, SERVE_B // 2),
+                              ("mesh", ["cuda:0", "cuda:0"], SERVE_B)):
+            zero_counts()
+            svc = build_generation_service(config, ckpt, sampler="ddim", ddim_steps=50,
+                                           batch_size=b, mesh=mesh)
+            svc.start(warmup=True)
+            try:
+                alone = svc.submit(REF_CLASSES, n=10, seed=REF_SEED).result(timeout=600)
+                loaded, _ = under_load(svc)
+                t0 = time.perf_counter()
+                futs = [svc.submit(i % 10, n=32, seed=9000 + i) for i in range(16)]
+                for f in futs:
+                    f.result(timeout=600)
+                img_s = 512 / (time.perf_counter() - t0)
+            finally:
+                svc.stop()
+            counts, batches = read_counts(), svc.stats().batches
+            replicas = len(svc.devices)
+            want = 8 * replicas * (steps * batches + WARMUP_STEPS)
+            images[name] = (alone, loaded)
+            print(f"  {name}: {replicas} replica(s), {batches} batches of {b}; forward "
+                  f"launches {counts['linear_attention_fwd']} (want {want}); 512 images from 16 "
+                  f"requests of 32 at once: {img_s:.2f} img/s [{tag}]")
+            if counts != dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": want}:
+                raise AssertionError(f"{name} service launched {counts}")
+            out[name] = {"launches": counts["linear_attention_fwd"], "batches": batches,
+                         "img_s_512": img_s}
+    same = {f"{name} {how} == {ref} alone": np.array_equal(images[name][i], images[ref][0])
+            for name, ref in (("mesh", "one_b32"), ("one_b32", "one_b32"), ("one", "one"))
+            for i, how in ((0, "alone"), (1, "under load")) if (name, i) != (ref, 0)}
+    off = np.abs(images["mesh"][0].astype(np.int32) - images["one"][0].astype(np.int32))
+    out["vs_one_b64"] = {"pixels_differ": int((off > 0).sum()), "max_diff": int(off.max()),
+                         "pixels": int(off.size)}
+    print(f"mesh serving ddim-{steps} B={SERVE_B} over ['cuda:0', 'cuda:0']: {same}; against "
+          f"the one-device service at B={SERVE_B} (fault 8, not asserted): "
+          f"{out['vs_one_b64']['pixels_differ']} of {off.size} values differ, by at most "
+          f"{out['vs_one_b64']['max_diff']}")
+    if not all(same.values()):
+        raise AssertionError(f"mesh serving is not bit-identical: {same}")
+    return out
+
+
+def check_mesh_cli(config, tag: str) -> dict:
+    """Phase 7f (d): ``python -m ldm_tpu_torch.train <flagship> --mesh`` (its
+    ``main``, in this process: the group of one process it joins) for 2
+    epochs of 9 steps: the counts, one record an epoch in metrics.jsonl and
+    the checkpoints, written by rank 0 alone."""
+    with tempfile.TemporaryDirectory() as workdir:
+        path = write_config(os.path.join(workdir, "mesh.json"), FLAGSHIP, workdir=workdir,
+                            epochs=2, sample_every=0,
+                            data={"synthetic_size": SYNTHETIC_SIZE})
+        zero_counts()
+        res = train.main([path, "--mesh"])
+        counts = read_counts()
+        steps = res.trainer.state.step
+        run = load_config(path).dirpath
+        records = [json.loads(ln) for ln in open(os.path.join(run, "metrics.jsonl"))]
+        per_epoch = [sum(1 for r in records if r.get("epoch") == e) for e in range(2)]
+        files = [f for f in ("checkpoints/state.pt", "checkpoints/diffusion_model_ema.pt")
+                 if os.path.isfile(os.path.join(run, f))]
+        print(f"train --mesh: {res.trainer.mesh}, {steps} steps {res.trainer.step_counts}, "
+              f"losses {res.history['train_loss']}; launches {counts}; metrics records an epoch "
+              f"{per_epoch}; files {files}")
+        if (steps != 18 or per_epoch != [1, 1] or len(files) != 2
+                or counts["linear_attention_bwd"] != 8 * steps
+                or not res.trainer.mesh.is_primary):
+            raise AssertionError("train --mesh did not run as asked")
+    return {"steps": steps, "launches": counts, "step_counts": res.trainer.step_counts}
+
+
+def check_mesh(config, tag: str) -> dict:
+    """Phase 7f: (a) world size 1 over NCCL, (b) two gloo processes, (c)
+    mesh serving, (d) train --mesh."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        out = {"world1": check_mesh_world1(config, tag)}
+        out["cli"] = check_mesh_cli(config, tag)
+    finally:
+        dist.destroy_process_group()
+    out["gloo"] = check_mesh_gloo(tag)
+    out["serving"] = check_mesh_serving(config, tag)
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="another commit's tree, unpacked: its linear-attention "
                     "and ResNet-block kernels are timed in turns with this tree's")
+    ap.add_argument("--mesh-worker", nargs=3, metavar=("RANK", "PORT", "OUTDIR"),
+                    help=argparse.SUPPRESS)  # one of phase 7f's gloo processes
     a = ap.parse_args(argv)
+    if a.mesh_worker:
+        rank, port, outdir = a.mesh_worker
+        return mesh_worker(int(rank), int(port), outdir)
     phase("1 device")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -2304,6 +2708,14 @@ def main(argv=None) -> None:
     paths["latent_train_b64"] = latent["train_path"]
     paths["latent_sampler_b64"] = latent["sampler_path"]
 
+    phase("7f data parallelism and FSDP: world size 1 over NCCL, two gloo processes, mesh "
+          "serving, train --mesh")
+    t_phase = time.perf_counter()
+    mesh = check_mesh(config, tag)
+    print(f"phase 7f wall time {time.perf_counter() - t_phase:.1f} s")
+    paths["train_b64_dp"] = mesh["world1"]["dp"]
+    paths["train_b64_fsdp"] = mesh["world1"]["fsdp"]
+
     phase("8 the ResNet-block kernel vs plain, and ResNetBlockFn")
     t_rb = time.perf_counter()
     resnet = check_resnet_block(tag)
@@ -2364,8 +2776,16 @@ def main(argv=None) -> None:
                              "sample_latent": latent["sample_counts"]["graphed"],
                              "serve_latent_ddim": latent["serving"]["launches"],
                              "protocol_latent":
-                                 latent["protocol"]["counts"]["linear_attention_fwd"]},
+                                 latent["protocol"]["counts"]["linear_attention_fwd"],
+                             "train_mesh_cli": mesh["cli"]["launches"]["linear_attention_fwd"],
+                             "serve_mesh_ddim": mesh["serving"]["mesh"]["launches"],
+                             "train_gloo_rank0":
+                                 mesh["gloo"]["rank0"]["launches"]["linear_attention_fwd"]},
         "launches_per_step": {**per_step("linear_attention_fwd"),
+                              "train_dp_per_rank":
+                                  mesh["world1"]["launches"]["dp"]["linear_attention_fwd"],
+                              "train_fsdp_per_rank":
+                                  mesh["world1"]["launches"]["fsdp"]["linear_attention_fwd"],
                               "distill": consistency["per_step"]["linear_attention_fwd"],
                               "consistency_sample": consistency["sample_per_step"],
                               "latent_train": latent["train_per_step"]["linear_attention_fwd"],
@@ -2389,8 +2809,15 @@ def main(argv=None) -> None:
                              "distill": consistency["run_counts"]["linear_attention_bwd"],
                              "train_latent": latent["train_counts"]["linear_attention_bwd"],
                              "protocol_latent":
-                                 latent["protocol"]["counts"]["linear_attention_bwd"]},
+                                 latent["protocol"]["counts"]["linear_attention_bwd"],
+                             "train_mesh_cli": mesh["cli"]["launches"]["linear_attention_bwd"],
+                             "train_gloo_rank0":
+                                 mesh["gloo"]["rank0"]["launches"]["linear_attention_bwd"]},
         "launches_per_step": {**per_step("linear_attention_bwd"),
+                              "train_dp_per_rank":
+                                  mesh["world1"]["launches"]["dp"]["linear_attention_bwd"],
+                              "train_fsdp_per_rank":
+                                  mesh["world1"]["launches"]["fsdp"]["linear_attention_bwd"],
                               "distill": consistency["per_step"]["linear_attention_bwd"],
                               "latent_train": latent["train_per_step"]["linear_attention_bwd"]},
         "max_abs_err": bwd["max_rel_err"],
@@ -2459,6 +2886,14 @@ def main(argv=None) -> None:
                             "loop (loop), graphed, median of 5 epochs of 9 steps at B=64 bf16, "
                             "and the device's ms a replay of each step",
         "serving": serving,
+        "mesh": {"world1": {k: v for k, v in mesh["world1"].items() if k != "launches"},
+                 "gloo": mesh["gloo"], "serving": mesh["serving"],
+                 "cli_steps": mesh["cli"]["step_counts"]},
+        "mesh_unit": "phase 7f: world1 fp32 losses / attention weights vs one process (rel), "
+                     "and host ms a step graphed / eager with the device's ms a replay, B=64 "
+                     "bf16, for one / dp / fsdp at world size 1 over NCCL; gloo: 2 processes on "
+                     "one card, fp32, global B=64, eager by design; serving: DDIM-50 B=64 one "
+                     "device vs 2 replicas on cuda:0",
         "protocol": protocol,
         "consistency": {k: v for k, v in consistency.items() if k != "path"},
         "latent": {k: v for k, v in latent.items() if k not in ("train_path", "sampler_path")},

@@ -67,7 +67,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Distilled:
     add_runtime_args(ap)
     args = ap.parse_args(argv)
 
-    device = runtime_setup(args)
+    device, mesh = runtime_setup(args)
     config = load_config(args.config)
     set_seed(config.seed)
     apply_runtime_flags(config)
@@ -88,7 +88,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Distilled:
         config, teacher.to(device), build_diffusion(config, device), train_loader, classes,
         device=device, skip_steps=args.skip, cfg_scale=args.cfg_scale,
         ema_decay=args.ema_decay, huber_c=args.huber_c, lr=args.lr or None,
-        graphs=False if args.eager else None)
+        graphs=False if args.eager else None, mesh=mesh)
     result = trainer.train(args.epochs or None)
     print(f"final distill loss: {result['loss']:.5f}", flush=True)
 

@@ -245,12 +245,16 @@ def run_augmentation_experiment(
     generator_config: Optional[str] = None,
     device="cuda",
     graphs: Optional[bool] = None,
+    mesh=None,
 ) -> AugmentationResult:
     """The protocol on ``device``; ``graphs`` goes to both trainers (None:
     replayed CUDA graphs on a card; False: the eager steps).
     ``generator_config``: a latent config whose family (its UNet, schedule,
     frozen VAE and training settings) takes Phases A and C, on the same
-    generator half at this config's batch size."""
+    generator half at this config's batch size.  ``mesh``: both trainers
+    data-parallel over it (``batch_size`` the global batch); Phase C and the
+    FIDs run whole on every process from the same draws, and the primary
+    process alone writes."""
     device = torch.device(device)
     logger = logger or MetricsLogger(config.dirpath)
     config.create_dirs()
@@ -278,11 +282,11 @@ def run_augmentation_experiment(
         scaling = resolve_latent_scaling(gen_cfg, ae, diff_train_loader)
         dt = LatentDiffusionTrainer(
             gen_cfg, build_ldm(gen_cfg, model, ae, scaling, device), diff_train_loader,
-            diff_val_loader, classes, device=device, logger=logger, graphs=graphs)
+            diff_val_loader, classes, device=device, logger=logger, graphs=graphs, mesh=mesh)
     else:
         dt = DiffusionTrainer(
             config, model, build_diffusion(config, device), diff_train_loader,
-            diff_val_loader, classes, device=device, logger=logger, graphs=graphs)
+            diff_val_loader, classes, device=device, logger=logger, graphs=graphs, mesh=mesh)
     if diffusion_checkpoint:
         phases.run("A", dt.load_state, diffusion_checkpoint)
     else:
@@ -296,7 +300,8 @@ def run_augmentation_experiment(
     synth = phases.run(
         "C", generate_synthetic_dataset, dt, num_classes, n_per_class,
         batch_size=sample_batch, cfg_scale=cfg_scale,
-        save_dir=os.path.join(config.results, "synthetic") if save_png else None,
+        save_dir=(os.path.join(config.results, "synthetic")
+                  if save_png and (mesh is None or mesh.is_primary) else None),
         classes=classes, sampler=sampler, ddim_steps=ddim_steps)
 
     # ---- sample quality: pixel FID, synthetic vs the real half -------------
@@ -339,7 +344,7 @@ def run_augmentation_experiment(
         clf_cfg, clf, DataLoader(mixes["exp1"], config.batch_size, seed=config.seed),
         DataLoader(clf_va, config.batch_size, seed=config.seed + 1), classes,
         test_loader=test_loader, logger=logger, name="resnet_exp1",
-        pad_train_to=pad_train_to, device=device, graphs=graphs)
+        pad_train_to=pad_train_to, device=device, graphs=graphs, mesh=mesh)
 
     def experiment(name: str, train_ds: Dataset, seed: int) -> Dict[str, float]:
         rt.reset(seed=seed, name=f"resnet_{name}")

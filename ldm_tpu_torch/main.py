@@ -21,7 +21,9 @@ flow).  ``--diffusion-checkpoint`` takes the port's full-state checkpoint
 (``<checkpoints>/best_state.pt`` of an earlier run) and skips Phase A.  On a
 CUDA device (the default) both trainers' steps and the sampler step run as
 CUDA graphs captured once and replayed; ``--eager`` asks for the eager
-steps.  ``--mesh`` / ``--distributed`` raise until ROADMAP queue 1, item 12.
+steps.  ``--mesh`` / ``--distributed`` train both the generator and the
+classifier data-parallel over the process group the environment describes
+(``utils/cli.py``; the README shows torchrun).
 """
 
 from __future__ import annotations
@@ -74,7 +76,7 @@ def main(argv: Optional[Sequence[str]] = None) -> AugmentationResult:
                     help="launch every kernel from Python instead of replaying CUDA graphs")
     args = ap.parse_args(argv)
 
-    device = runtime_setup(args)
+    device, mesh = runtime_setup(args)
     config = load_config(args.config)
     set_seed(config.seed)
     apply_runtime_flags(config)
@@ -91,6 +93,7 @@ def main(argv: Optional[Sequence[str]] = None) -> AugmentationResult:
         generator_config=args.generator_config,
         device=device,
         graphs=False if args.eager else None,
+        mesh=mesh,
     )
     print(json.dumps(result_json(result), indent=2))
     return result

@@ -56,19 +56,50 @@ class BatchNorm(nn.BatchNorm2d):
     tensor: in training, normalize by the batch's mean and biased variance
     and move the running statistics toward them by ``1 - MOMENTUM``; in
     eval, normalize by the running statistics.  fp32 statistics, output in
-    the input's dtype.  ``num_batches_tracked`` counts the training calls."""
+    the input's dtype.  ``num_batches_tracked`` counts the training calls.
+
+    Under data parallelism (``mesh``, set by :func:`sync_batch_norm`) the
+    batch is the global one, as GSPMD's batch axis is in the JAX classifier:
+    each process sums its rows' values and squares (fp64) and the processes
+    all-reduce the sums and the count through a collective that autograd
+    differentiates (its backward all-reduces the sums' gradients), then
+    normalize and move the running statistics by the global mean and biased
+    variance, with flax's momentum.  Torch's ``SyncBatchNorm`` is not used:
+    it keeps torch's running-variance convention (unbiased), not flax's."""
 
     def __init__(self, num_features: int, device=None):
         super().__init__(num_features, eps=EPS, momentum=1.0 - MOMENTUM, device=device)
+        self.mesh = None
+
+    def _global(self, xf: torch.Tensor):
+        """(normalized output, global mean, global biased variance)."""
+        from torch.distributed.nn.functional import all_reduce
+
+        c = xf.shape[1]
+        sums = torch.cat([xf.sum((0, 2, 3), dtype=torch.float64),
+                          (xf * xf).sum((0, 2, 3), dtype=torch.float64),
+                          xf.new_full((1,), xf.numel() // c, dtype=torch.float64)])
+        sums = all_reduce(sums, group=self.mesh.group)
+        n = sums[2 * c]
+        mean = sums[:c] / n
+        var = (sums[c: 2 * c] / n - mean * mean).clamp_min(0.0)
+        mean32, var32 = mean.float(), var.float()
+        shape = (1, c, 1, 1)
+        y = ((xf - mean32.view(shape)) * torch.rsqrt(var32 + self.eps).view(shape)
+             * self.weight.view(shape) + self.bias.view(shape))
+        return y, mean32.detach(), var32.detach()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         if self.training:
-            # one pass gives the output and the batch's mean and 1/sqrt(var + eps)
-            y, mean, invstd = torch.native_batch_norm(xf, self.weight, self.bias, None, None,
-                                                      True, 0.0, self.eps)
+            if self.mesh is not None:
+                y, mean, var = self._global(xf)
+            else:
+                # one pass gives the output and the batch's mean and 1/sqrt(var + eps)
+                y, mean, invstd = torch.native_batch_norm(xf, self.weight, self.bias, None,
+                                                          None, True, 0.0, self.eps)
+                var = invstd.detach().pow(-2).sub_(self.eps)  # the biased batch variance
             with torch.no_grad():
-                var = invstd.pow(-2).sub_(self.eps)  # the biased batch variance
                 for run, batch in ((self.running_mean, mean), (self.running_var, var)):
                     run.mul_(MOMENTUM).add_(batch * (1.0 - MOMENTUM))
                 self.num_batches_tracked.add_(1)
@@ -76,6 +107,15 @@ class BatchNorm(nn.BatchNorm2d):
             y = F.batch_norm(xf, self.running_mean, self.running_var, self.weight, self.bias,
                              False, 0.0, self.eps)
         return y.to(x.dtype, memory_format=_CL)
+
+
+def sync_batch_norm(model: nn.Module, mesh) -> nn.Module:
+    """Every :class:`BatchNorm` of ``model`` normalizes in training by the
+    statistics of the global batch over ``mesh`` (None: its own rows)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.mesh = mesh
+    return model
 
 
 class Shortcut(nn.Module):

@@ -6,7 +6,8 @@ configs, and a distilled consistency student (``--sampler consistency``).
     python -m ldm_tpu_torch.serve configs/pixel_diffusion_model_cifar10.yaml \\
         [--checkpoint unet.pt] [--no-ema] [--sampler ddim|ddpm|dpmpp|consistency] \\
         [--ddim-steps 50] [--eta 0] [--cfg-scale S] [--batch-size 64] \\
-        [--max-delay-ms 20] [--host 127.0.0.1] [--port 8080] [--device cuda]
+        [--max-delay-ms 20] [--host 127.0.0.1] [--port 8080] [--device cuda] \\
+        [--mesh]
     curl -X POST localhost:8080/generate -d '{"class_id": 3, "n": 4, "seed": 1}'
     curl -s -X POST localhost:8080/generate \\
         -d '{"class_id": 3, "n": 2, "seed": 7, "format": "npy"}'
@@ -17,7 +18,9 @@ The weights default to the config's run directory's
 ``checkpoints/diffusion_model_ema.pt`` (``--no-ema``: ``diffusion_model.pt``),
 as ``python -m ldm_tpu_torch.train`` writes them.  On a CUDA device (the
 default) the sampler's step is captured as a CUDA graph before the server
-listens; ``--device cpu`` runs the eager loop on the CPU.
+listens; ``--device cpu`` runs the eager loop on the CPU.  ``--mesh`` serves
+with one replica on every local card, each batch's slots split over them
+(the JAX server's ``--mesh``).
 """
 
 from __future__ import annotations
@@ -49,17 +52,31 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", action="store_true",
+                    help="one replica on every local card, each batch's slots split over them")
     return ap.parse_args(argv)
+
+
+def replica_devices(args) -> Optional[list]:
+    """With ``--mesh`` every local card (the one ``--device`` where there is
+    none), else None."""
+    if not args.mesh:
+        return None
+    import torch
+
+    return [f"cuda:{i}" for i in range(torch.cuda.device_count())] or [args.device]
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
+    mesh = replica_devices(args)
     service = build_generation_service(
         load_config(args.config), args.checkpoint, use_ema=args.ema, sampler=args.sampler,
         ddim_steps=args.ddim_steps, eta=args.eta, cfg_scale=args.cfg_scale,
-        batch_size=args.batch_size, max_delay_s=args.max_delay_ms / 1e3, device=args.device)
+        batch_size=args.batch_size, max_delay_s=args.max_delay_ms / 1e3, device=args.device,
+        mesh=mesh)
     print(f"warming up the {args.sampler} sampler at batch {args.batch_size} on "
-          f"{args.device}...", flush=True)
+          f"{mesh or args.device}...", flush=True)
     service.start(warmup=True)
     server = GenerationHTTPServer(service, host=args.host, port=args.port)
     print(f"serving on {server.address} (POST /generate, GET /stats, GET /healthz)", flush=True)

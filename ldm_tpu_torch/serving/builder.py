@@ -21,12 +21,16 @@ independent of the batching too.  A ``type: latent`` config samples the
 latent UNet over the VAE's latents and decodes each batch with the frozen
 first stage at the scale the trainer resolved (``latent_scaling.json`` for
 ``auto``; ``training/latent_trainer.py::load_ldm``).
+
+``mesh``, a list of local devices (the JAX builder's mesh over local chips),
+builds one replica a device, each with its own copy of the weights and its
+own captured sampler, and the service splits every batch's slots over them.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -76,6 +80,7 @@ def build_generation_service(
     use_native: bool = True,
     device="cuda",
     x_init_fn: Optional[XInitFn] = None,
+    mesh: Optional[Sequence] = None,
 ) -> GenerationService:
     """Build (not start) a GenerationService for a pixel config on ``device``.
 
@@ -87,6 +92,8 @@ def build_generation_service(
         (``ddim_steps`` steps) or ``consistency`` (``ddim_steps`` steps).
       cfg_scale: the guidance scale; by default the config's.
       x_init_fn: see :class:`GenerationService`.
+      mesh: local devices, one replica each (``device`` is then unused);
+        ``batch_size`` must divide by their count.
     """
     if sampler not in SAMPLERS + (CONSISTENCY,):
         raise ValueError(f"sampler must be one of {SAMPLERS + (CONSISTENCY,)}, got {sampler!r}")
@@ -96,22 +103,33 @@ def build_generation_service(
     pixel_shape = (d.image_size, d.image_size, d.image_channels)
     checkpoint = checkpoint or checkpoint_path(
         config, use_ema, "consistency_model" if consistency else "diffusion_model")
-    model, diffusion = load_sampler(config, checkpoint, use_ema, device)
-    shape, decode = pixel_shape, None
-    if config.type == "latent":
-        ldm = load_ldm(config, model, device)
-        diffusion, decode = ldm.diffusion, ldm.autoencoder_decode
-        shape = latent_shape_of(ldm.autoencoder, d.image_size)
+    devices = [torch.device(dv) for dv in (mesh if mesh is not None else [device])]
+    if mesh is not None and (not devices or batch_size % len(devices)):
+        raise ValueError(f"batch_size={batch_size} must divide by the mesh's "
+                         f"{len(devices)} devices")
 
-    def sample_fn(classes, x_init, generator, slot_generators=None):
-        kw = {"slot_generators": slot_generators} if consistency else {}
-        x0 = run_sampler(diffusion, sampler, model, classes, shape, ddim_steps=ddim_steps,
-                         eta=eta, cfg_scale=cfg, null_label=model.null_label,
-                         x_init=x_init, generator=generator, **kw)
-        return x0 if decode is None else decode(x0)
+    def replica(dev):
+        model, diffusion = load_sampler(config, checkpoint, use_ema, dev)
+        shape, decode = pixel_shape, None
+        if config.type == "latent":
+            ldm = load_ldm(config, model, dev)
+            diffusion, decode = ldm.diffusion, ldm.autoencoder_decode
+            shape = latent_shape_of(ldm.autoencoder, d.image_size)
 
+        def sample_fn(classes, x_init, generator, slot_generators=None):
+            kw = {"slot_generators": slot_generators} if consistency else {}
+            x0 = run_sampler(diffusion, sampler, model, classes, shape, ddim_steps=ddim_steps,
+                             eta=eta, cfg_scale=cfg, null_label=model.null_label,
+                             x_init=x_init, generator=generator, **kw)
+            return x0 if decode is None else decode(x0)
+        return sample_fn, shape
+
+    replicas = [replica(dv) for dv in devices]
+    shape = replicas[0][1]
+    fns = [fn for fn, _ in replicas]
     return GenerationService(
-        sample_fn, image_shape=shape, out_shape=pixel_shape, num_classes=d.num_classes,
-        batch_size=batch_size, max_delay_s=max_delay_s,
+        fns[0] if mesh is None else fns, image_shape=shape, out_shape=pixel_shape,
+        num_classes=d.num_classes, batch_size=batch_size, max_delay_s=max_delay_s,
         base_seed=config.seed if base_seed is None else base_seed, per_slot_keys=consistency,
-        use_native=use_native, device=device, x_init_fn=x_init_fn)
+        use_native=use_native, device=devices[0], x_init_fn=x_init_fn,
+        devices=None if mesh is None else devices)

@@ -21,6 +21,17 @@
   images into the requests (a wait on the stream would queue behind the
   next batch's steps).  The hand-off queue holds at most 3 batches, so at
   most 4 buffers are in use; a buffer goes back to the pool once scattered.
+* **Replicas over local devices.**  With ``devices`` (a list of local
+  devices, the JAX service's ``mesh``) a batch's slots are split into one
+  contiguous block a device, each sampled by its own replica (its own model
+  and graph, at ``batch_size / len(devices)``) from its own slots' x_T: a
+  slot's images are those of a one-device service at the replicas' batch
+  size.  They equal the one-device service's at ``batch_size`` where the
+  model's kernels compute a row the same at either size (the CPU); on an
+  H100 cuDNN takes another bf16 algorithm for one of the UNet's 3x3 convs
+  at half the batch, and a few values differ (ROADMAP queue 3, fault 8).
+  The ancestral sampler's per-step noise is drawn per replica (salted by
+  its index).
 * **Graph capture and threads.**  ``start(warmup=True)`` captures the
   sampler on the calling thread before the workers start: a CUDA call from
   another thread during a capture would break it.  With ``warmup=False``
@@ -140,14 +151,15 @@ class _Request:
 
 class _Landing:
     """A batch's uint8 images on their way to the host: a pinned buffer and
-    the event after the copy into it (CUDA), or the images themselves."""
+    the events after the copies into it (CUDA, one a replica), or the images
+    themselves."""
 
-    def __init__(self, images: np.ndarray, event=None, release=None):
-        self._images, self._event, self._release = images, event, release
+    def __init__(self, images: np.ndarray, events=(), release=None):
+        self._images, self._events, self._release = images, list(events), release
 
     def wait(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
+        for event in self._events:
+            event.synchronize()
         return self._images
 
     def release(self) -> None:
@@ -178,6 +190,9 @@ class GenerationService:
       use_native: the host C++ slot queue (``ldm_tpu_torch/native``) where
         it builds; the pure-Python batcher otherwise, behaviour-identical.
       device: where the sampler runs; ``sample_fn`` returns tensors there.
+      devices: replicas over these local devices (``sample_fn`` then a list
+        of as many, the i-th sampling on ``devices[i]``); ``batch_size`` must
+        divide by their count.
       x_init_fn: ``(seeds, slot indices) -> x_T``; by default each slot's
         x_T is drawn from :func:`slot_generator`.  Randomness is an input:
         a test hands in another package's draws here.
@@ -198,8 +213,19 @@ class GenerationService:
         use_native: bool = True,
         device="cpu",
         x_init_fn: Optional[XInitFn] = None,
+        devices: Optional[Sequence] = None,
     ):
-        self.sample_fn = sample_fn
+        if devices is None:
+            self.sample_fns, self.devices = [sample_fn], [torch.device(device)]
+        else:
+            self.sample_fns, self.devices = list(sample_fn), [torch.device(d) for d in devices]
+            if len(self.sample_fns) != len(self.devices) or not self.devices:
+                raise ValueError(f"{len(self.sample_fns)} samplers for "
+                                 f"{len(self.devices)} devices")
+            if int(batch_size) % len(self.devices):
+                raise ValueError(f"batch_size={batch_size} must divide by the number of "
+                                 f"devices ({len(self.devices)})")
+            device = self.devices[0]
         self.image_shape = tuple(image_shape)
         self.out_shape = tuple(out_shape) if out_shape is not None else self.image_shape
         self.num_classes = int(num_classes)
@@ -207,7 +233,7 @@ class GenerationService:
         self.max_delay_s = float(max_delay_s)
         self.base_seed = int(base_seed)
         self.per_slot_keys = per_slot_keys
-        self.device = torch.device(device)
+        self.device = self.devices[0]
         self.x_init_fn = x_init_fn
         if self.batch_size <= 0:
             raise ValueError(f"batch_size must be positive, got {batch_size}")
@@ -255,6 +281,15 @@ class GenerationService:
         self._fulfiller: Optional[threading.Thread] = None
 
     # ------------------------------------------------------------- lifecycle
+    @property
+    def sample_fn(self) -> SampleFn:
+        """The sampler of the one device (the first replica's)."""
+        return self.sample_fns[0]
+
+    @sample_fn.setter
+    def sample_fn(self, fn: SampleFn) -> None:
+        self.sample_fns[0] = fn
+
     def start(self, warmup: bool = True) -> "GenerationService":
         """Start the batching and fulfil workers; ``warmup``: sample one
         padded batch first, on this thread (on a card: the capture)."""
@@ -429,21 +464,32 @@ class GenerationService:
             gens = ([slot_generator(s, i) for s, i in zip(seeds.tolist(), idxs.tolist())]
                     if self.per_slot_keys else None)
         labels = torch.from_numpy(classes.astype(np.int64))
-        if k is not None:  # from pinned memory: a pageable upload would wait for the stream
-            x = x.pin_memory().to(self.device, non_blocking=True)
-            labels = labels.pin_memory().to(self.device, non_blocking=True)
-        # the ancestral sampler's per-step noise: one stream a batch
-        gen = step_generator(self.base_seed, counter, self.device)
+        n = len(self.devices)
+        m = self.batch_size // n  # each replica's block of slots
+        outs, events = [], []
         with torch.inference_mode():  # thread-local: this thread's own
-            args = (labels, x, gen) + ((gens,) if self.per_slot_keys else ())
-            images = pack_uint8(self.sample_fn(*args))
-            if k is None:
-                return _Landing(np.ascontiguousarray(images.numpy()))
-            buf = self._pinned[k]
-            buf.copy_(images, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-        return _Landing(buf.numpy(), event, lambda: self._free.put(k))
+            for i, (fn, dev) in enumerate(zip(self.sample_fns, self.devices)):
+                rows = slice(i * m, (i + 1) * m)
+                xi, li = x[rows], labels[rows]
+                if k is not None:  # from pinned memory: a pageable upload would wait
+                    xi = xi.pin_memory().to(dev, non_blocking=True)
+                    li = li.pin_memory().to(dev, non_blocking=True)
+                # the ancestral sampler's per-step noise: one stream a batch
+                # (a replica)
+                gen = step_generator(self.base_seed, counter, dev, *((i,) if n > 1 else ()))
+                args = (li, xi, gen) + ((gens[rows],) if self.per_slot_keys else ())
+                images = pack_uint8(fn(*args))
+                if k is None:
+                    outs.append(images.numpy())
+                    continue
+                with torch.cuda.device(dev):
+                    self._pinned[k][rows].copy_(images, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record()
+                events.append(event)
+        if k is None:
+            return _Landing(np.ascontiguousarray(np.concatenate(outs)))
+        return _Landing(self._pinned[k].numpy(), events, lambda: self._free.put(k))
 
     # ---------------------------------------------------------------- worker
     def _next_counter(self, pads: int) -> int:

@@ -3,7 +3,19 @@
 config -> data loaders -> UNet + diffusion -> DiffusionTrainer -> train().
 
     python -m ldm_tpu_torch.train configs/pixel_diffusion_model_cifar10.yaml \\
-        [--epochs N] [--resume] [--device cuda] [--strict-data] [--eager]
+        [--epochs N] [--resume] [--device cuda] [--strict-data] [--eager] \\
+        [--mesh | --distributed]
+
+Data parallel on a machine with several cards (one process a card, over
+NCCL; ``param_sharding: fsdp`` in the config for ZeRO-3):
+
+    torchrun --nproc-per-node 4 -m ldm_tpu_torch.train <config> --distributed
+    # (torchrun sets RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT, LOCAL_RANK;
+    #  LDM_TPU_DISTRIBUTED=1 tells the port to read them)
+
+or with ``LDM_TPU_COORDINATOR=host:port LDM_TPU_NUM_PROCESSES=P
+LDM_TPU_PROCESS_ID=r`` set for each process.  ``--mesh`` without any of these
+is a group of one process.  The config's ``batch_size`` is the global batch.
 
 On a CUDA device the train step (everything after the step's random draws)
 and the sample grid's sampler steps run as CUDA graphs captured once and
@@ -31,6 +43,7 @@ from ldm_tpu_torch.config import Config
 from ldm_tpu_torch.data.loader import create_dataloaders
 from ldm_tpu_torch.factory import build_diffusion, build_model, load_config
 from ldm_tpu_torch.training.diffusion_trainer import DiffusionTrainer
+from ldm_tpu_torch.utils.cli import add_runtime_args, runtime_setup
 
 
 class Run(NamedTuple):
@@ -40,7 +53,7 @@ class Run(NamedTuple):
 
 
 def build_trainer(config: Config, device, strict_data: bool = False,
-                  eager: bool = False) -> DiffusionTrainer:
+                  eager: bool = False, mesh=None) -> DiffusionTrainer:
     train_loader, val_loader, _test_loader, classes = create_dataloaders(
         config, allow_synthetic_fallback=not strict_data
     )
@@ -50,16 +63,16 @@ def build_trainer(config: Config, device, strict_data: bool = False,
     model.to(device)
     return DiffusionTrainer(config, model, build_diffusion(config, device),
                             train_loader, val_loader, classes, device=device,
-                            graphs=False if eager else None)
+                            graphs=False if eager else None, mesh=mesh)
 
 
 def run(config: Config, device="cuda", resume: bool = False,
-        strict_data: bool = False, eager: bool = False) -> Run:
+        strict_data: bool = False, eager: bool = False, mesh=None) -> Run:
     """Build the trainer for ``config`` on ``device``, resume from the latest
     checkpoint if asked and one exists, and train ``config.epochs`` epochs;
-    ``eager``: without CUDA graphs."""
+    ``eager``: without CUDA graphs; ``mesh``: data parallel over it."""
     device = torch.device(device)
-    trainer = build_trainer(config, device, strict_data, eager)
+    trainer = build_trainer(config, device, strict_data, eager, mesh)
     resumed = None
     if resume and trainer.resume_latest():
         resumed = trainer.state.step
@@ -74,17 +87,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Run:
                     help="override the config's epoch count")
     ap.add_argument("--resume", action="store_true",
                     help="resume from the latest full-state checkpoint")
-    ap.add_argument("--device", default="cuda")
-    ap.add_argument("--strict-data", action="store_true",
-                    help="fail instead of falling back to synthetic data")
+    add_runtime_args(ap)
     ap.add_argument("--eager", action="store_true",
                     help="launch every kernel from Python instead of replaying CUDA graphs")
     args = ap.parse_args(argv)
     config = load_config(args.config)
     if args.epochs is not None:
         config = dataclasses.replace(config, epochs=args.epochs)
-    return run(config, args.device, resume=args.resume, strict_data=args.strict_data,
-               eager=args.eager)
+    device, mesh = runtime_setup(args)
+    return run(config, device, resume=args.resume, strict_data=args.strict_data,
+               eager=args.eager, mesh=mesh)
 
 
 if __name__ == "__main__":

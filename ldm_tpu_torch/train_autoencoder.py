@@ -35,8 +35,10 @@ class Run(NamedTuple):
     history: dict
 
 
-def run(config: Config, device="cuda", strict_data: bool = False, eager: bool = False) -> Run:
-    """Build the trainer for ``config`` on ``device`` and train ``config.epochs`` epochs."""
+def run(config: Config, device="cuda", strict_data: bool = False, eager: bool = False,
+        mesh=None) -> Run:
+    """Build the trainer for ``config`` on ``device`` and train ``config.epochs``
+    epochs (``mesh``: data parallel over it)."""
     device = torch.device(device)
     set_seed(config.seed)
     apply_runtime_flags(config)
@@ -46,7 +48,7 @@ def run(config: Config, device="cuda", strict_data: bool = False, eager: bool = 
         torch.manual_seed(config.seed)
         model = build_model(config)
     trainer = AutoencoderTrainer(config, model.to(device), train_loader, val_loader,
-                                 device=device, graphs=False if eager else None)
+                                 device=device, graphs=False if eager else None, mesh=mesh)
     return Run(trainer, trainer.train())
 
 
@@ -58,11 +60,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Run:
                     help="launch every kernel from Python instead of replaying CUDA graphs")
     add_runtime_args(ap)
     args = ap.parse_args(argv)
-    device = runtime_setup(args)
+    device, mesh = runtime_setup(args)
     config = load_config(args.config)
     if args.epochs is not None:
         config = dataclasses.replace(config, epochs=args.epochs)
-    return run(config, device, strict_data=args.strict_data, eager=args.eager)
+    return run(config, device, strict_data=args.strict_data, eager=args.eager, mesh=mesh)
 
 
 if __name__ == "__main__":

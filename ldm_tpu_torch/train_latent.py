@@ -44,7 +44,7 @@ class Run(NamedTuple):
 
 
 def build_trainer(config: Config, device, strict_data: bool = False,
-                  eager: bool = False) -> LatentDiffusionTrainer:
+                  eager: bool = False, mesh=None) -> LatentDiffusionTrainer:
     device = torch.device(device)
     ae = load_autoencoder(config, device)
     train_loader, val_loader, _test, classes = create_dataloaders(
@@ -57,14 +57,16 @@ def build_trainer(config: Config, device, strict_data: bool = False,
         unet = build_model(config)
     ldm = build_ldm(config, unet.to(device), ae, scaling, device)
     return LatentDiffusionTrainer(config, ldm, train_loader, val_loader, classes,
-                                  device=device, graphs=False if eager else None)
+                                  device=device, graphs=False if eager else None, mesh=mesh)
 
 
-def run(config: Config, device="cuda", strict_data: bool = False, eager: bool = False) -> Run:
-    """Build the trainer for ``config`` on ``device`` and train ``config.epochs`` epochs."""
+def run(config: Config, device="cuda", strict_data: bool = False, eager: bool = False,
+        mesh=None) -> Run:
+    """Build the trainer for ``config`` on ``device`` and train ``config.epochs``
+    epochs (``mesh``: data parallel over it)."""
     set_seed(config.seed)
     apply_runtime_flags(config)
-    trainer = build_trainer(config, device, strict_data, eager)
+    trainer = build_trainer(config, device, strict_data, eager, mesh)
     return Run(trainer, trainer.train())
 
 
@@ -76,11 +78,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Run:
                     help="launch every kernel from Python instead of replaying CUDA graphs")
     add_runtime_args(ap)
     args = ap.parse_args(argv)
-    device = runtime_setup(args)
+    device, mesh = runtime_setup(args)
     config = load_config(args.config)
     if args.epochs is not None:
         config = dataclasses.replace(config, epochs=args.epochs)
-    return run(config, device, strict_data=args.strict_data, eager=args.eager)
+    return run(config, device, strict_data=args.strict_data, eager=args.eager, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -32,6 +32,8 @@ import torch.nn.functional as F
 
 from ldm_tpu_torch.config import Config
 from ldm_tpu_torch.models.autoencoder import latent_shape_of
+from ldm_tpu_torch.parallel import distributed
+from ldm_tpu_torch.parallel.mesh import shard_batch
 from ldm_tpu_torch.training import checkpoint as ckpt
 from ldm_tpu_torch.training.early_stopping import EarlyStopping
 from ldm_tpu_torch.training.scan_epochs import EpochScan, build_epoch_scan
@@ -67,13 +69,21 @@ def elbo_mse(recon: torch.Tensor, target: torch.Tensor, mu: torch.Tensor,
 
 class AutoencoderTrainer:
     def __init__(self, config: Config, model, train_loader, val_loader, device=None,
-                 logger: Optional[MetricsLogger] = None, graphs: Optional[bool] = None):
+                 logger: Optional[MetricsLogger] = None, graphs: Optional[bool] = None,
+                 mesh=None):
         """``model``: a ``models.autoencoder.Autoencoder`` on ``device``;
-        ``graphs`` as for the diffusion trainer."""
+        ``graphs`` as for the diffusion trainer.  ``mesh``: data parallelism
+        with replicated parameters (the JAX trainer's mesh): each process
+        its rows of every global batch, the latent noise the global batch's
+        draw, the summed ELBO's gradients summed over the processes."""
         if config.loss_fn not in ("elbo", "elbo_mse"):
             raise ValueError(f"the autoencoder trains with elbo or elbo_mse, got "
                              f"{config.loss_fn!r}")
+        if mesh is not None and config.param_sharding != "replicated":
+            raise ValueError("the autoencoder trains data-parallel with replicated "
+                             f"parameters, got param_sharding {config.param_sharding!r}")
         self.config = config
+        self.mesh = mesh
         self.device = torch.device(device) if device is not None else next(
             model.parameters()).device
         self.train_loader = train_loader
@@ -81,10 +91,12 @@ class AutoencoderTrainer:
         self.logger = logger or MetricsLogger(config.dirpath)
         config.create_dirs()
         self.latent_shape = latent_shape_of(model, config.data.image_size)
-        self.state = TrainState(model, config.lr, ema=False)
+        self.state = TrainState(model, config.lr, ema=False, mesh=mesh)
         self._steps = GraphedStep(self._device_step, self.state, self.device,
-                                  use_graphs(self.device, graphs))
-        self.epoch_scan = build_epoch_scan(train_loader, self.device, enabled=config.scan_epochs)
+                                  use_graphs(self.device, graphs, mesh))
+        self.epoch_scan = build_epoch_scan(train_loader, self.device, enabled=config.scan_epochs,
+                                           mesh=mesh)
+        self._local_loader = None
         self.early_stopping = EarlyStopping(
             patience=config.early_stopping_patience, verbose=True, save_fn=self._save_best,
             min_delta_rel=config.early_stopping_min_delta_rel)
@@ -94,6 +106,15 @@ class AutoencoderTrainer:
     @property
     def model(self):
         return self.state.model
+
+    def _train_batches(self):
+        """The per-batch path's loader: under a mesh a loader over this
+        process's ``per_host_subset`` of the train loader's dataset."""
+        if self.mesh is None:
+            return self.train_loader
+        if self._local_loader is None:
+            self._local_loader = distributed.per_host_loader(self.train_loader, self.mesh)
+        return self._local_loader
 
     @property
     def step_counts(self) -> Dict[str, int]:
@@ -126,7 +147,20 @@ class AutoencoderTrainer:
         return image, label
 
     def _eps(self, b: int, generator: torch.Generator) -> torch.Tensor:
-        return torch.randn((b,) + self.latent_shape, generator=generator, device=self.device)
+        """The latent noise of this process's ``b`` rows: under a mesh its
+        rows of the global batch's draw."""
+        if self.mesh is None:
+            return torch.randn((b,) + self.latent_shape, generator=generator,
+                               device=self.device)
+        return self.mesh.local_rows(torch.randn((b * self.mesh.size,) + self.latent_shape,
+                                                generator=generator, device=self.device))
+
+    def _mean(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Per-sample metrics of the global batch (a mean over the processes)."""
+        if self.mesh is None:
+            return metrics
+        both = self.mesh.all_reduce_mean_(torch.stack([metrics["loss"], metrics["kld"]]))
+        return {"loss": both[0], "kld": both[1]}
 
     def train_step(self, batch: dict, eps: Optional[torch.Tensor] = None
                    ) -> Dict[str, torch.Tensor]:
@@ -154,8 +188,9 @@ class AutoencoderTrainer:
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = self.loss(x, eps)
         loss.backward()
+        state.reduce_grads(loss, mean=False)
         state.update()
-        return metrics
+        return self._mean(metrics)
 
     @torch.no_grad()
     def eval_step(self, batch: dict, index: int, eps: Optional[torch.Tensor] = None
@@ -167,7 +202,7 @@ class AutoencoderTrainer:
             eps = self._eps(x.shape[0], step_generator(self.config.seed, index, self.device,
                                                        EVAL_SALT))
         self.model.eval()
-        return self.loss(x, eps.to(self.device, torch.float32))[1]
+        return self._mean(self.loss(x, eps.to(self.device, torch.float32))[1])
 
     # ----------------------------------------------------------- persistence
     def _save_best(self, _state) -> None:
@@ -178,6 +213,8 @@ class AutoencoderTrainer:
 
     def _flush_best(self, full_state: bool = False) -> None:
         d = self.config.checkpoints
+        if self.mesh is not None and not self.mesh.is_primary:
+            return
         if self._best_dirty:
             ckpt.atomic_save(self._best, f"{d}/autoencoder.pt")
             self._best_dirty = False
@@ -192,9 +229,10 @@ class AutoencoderTrainer:
             scan.start_epoch(self.config.seed, self.state.step // scan.n_batches)
             losses = [self.scan_step(scan)["loss"] for _ in range(scan.n_batches)]
         elif train:
-            losses = [self.train_step(b)["loss"] for b in self.train_loader]
+            losses = [self.train_step(b)["loss"] for b in self._train_batches()]
         else:
-            losses = [self.eval_step(b, i)["loss"] for i, b in enumerate(self.val_loader)]
+            losses = [self.eval_step(shard_batch(self.mesh, b), i)["loss"]
+                      for i, b in enumerate(self.val_loader)]
         if not losses:
             raise ValueError("loader yielded no batches")
         return torch.stack(losses).mean().item()  # the epoch's one host sync
@@ -204,7 +242,8 @@ class AutoencoderTrainer:
         """Reconstructions of [-1, 1] NHWC images, uint8 NHWC."""
         x = torch.as_tensor(np.asarray(images)).to(self.device, torch.float32)
         gen = step_generator(self.config.seed, 0, self.device, RECON_SALT)
-        recon, _, _ = self.model.eval()(x, self._eps(x.shape[0], gen))
+        eps = torch.randn((x.shape[0],) + self.latent_shape, generator=gen, device=self.device)
+        recon, _, _ = self.model.eval()(x, eps)
         if self.config.loss_fn == "elbo":
             out01 = torch.sigmoid(recon)
         else:

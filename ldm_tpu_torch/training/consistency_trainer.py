@@ -66,13 +66,18 @@ class ConsistencyDistillTrainer:
       lr: the distillation learning rate (default: the config's).
       graphs: None: the replayed step on a CUDA device, eager elsewhere;
         False: the eager step.
+      mesh: must be None: distillation is single-replica, as the JAX
+        trainer's is (it refuses a mesh too).
     """
 
     def __init__(self, config: Config, teacher, diffusion: GaussianDiffusion, train_loader,
                  classes, device=None, logger: Optional[MetricsLogger] = None, *,
                  skip_steps: int = 20, cfg_scale: Optional[float] = None,
                  ema_decay: float = 0.95, huber_c: float = 0.03, lr: Optional[float] = None,
-                 graphs: Optional[bool] = None):
+                 graphs: Optional[bool] = None, mesh=None):
+        if mesh is not None:
+            raise ValueError("consistency distillation is single-replica, as the JAX "
+                             "trainer's is: run it without --mesh / --distributed")
         self.config = config
         self.device = torch.device(device) if device is not None else next(
             teacher.parameters()).device

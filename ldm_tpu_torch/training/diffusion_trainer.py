@@ -40,10 +40,30 @@ validation loss applies the CFG lerp; every ``sample_every`` epochs a sample
 grid is drawn from the EMA weights through the ancestral CFG sampler;
 early stopping keeps the best state, and full-state checkpoints are written
 at the ``checkpoint_every`` cadence and at the end.
+
+Data parallelism (``mesh=``, a ``parallel.Mesh``; the JAX trainer's ``mesh``):
+one process a device, each with its rows of every global batch.  A step is
+the JAX step on the global batch: every process draws the global batch's
+t, eps and drop mask from the same (seed, step) generator and keeps its own
+rows (given draws are the global batch's too), so a run of P processes fed
+the global batches equals one process fed the same batches; the gradients
+and the loss are averaged over the processes before Adam
+(``TrainState.reduce_grads``), and ``config.param_sharding`` picks plain DP
+or FSDP.  ``train_step`` and ``eval_step`` take this process's rows.  The
+device-resident epoch holds the whole set on every process and gathers its
+rows of each global batch; the per-batch path reads this process's
+``per_host_subset``; validation batches are the global loader's, each
+process taking its rows, and the loss is the global batch's.  Checkpoints,
+metrics and sample grids are written by the primary process alone; under
+FSDP a checkpoint is the whole state, gathered, and the sample grid comes
+from the EMA weights gathered into an unsharded copy of the model.  Over a
+gloo group the step runs eagerly (``utils/graphs.py::use_graphs``); over
+NCCL it is one graph, the all-reduce inside.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -54,12 +74,14 @@ from ldm_tpu_torch.data.transforms import reverse_transform
 from ldm_tpu_torch.diffusion.consistency import sample_consistency, sampling_timesteps
 from ldm_tpu_torch.diffusion.ddpm import GaussianDiffusion
 from ldm_tpu_torch.diffusion.sampling import SamplingProcess
+from ldm_tpu_torch.parallel import distributed, fsdp
+from ldm_tpu_torch.parallel.mesh import Mesh, shard_batch
 from ldm_tpu_torch.training import checkpoint as ckpt
 from ldm_tpu_torch.training.early_stopping import EarlyStopping
 from ldm_tpu_torch.training.scan_epochs import EpochScan, build_epoch_scan
 from ldm_tpu_torch.training.state import TrainState, step_generator
 from ldm_tpu_torch.utils.graphs import CapturedStep, GraphedStep, use_graphs
-from ldm_tpu_torch.utils.logging import MetricsLogger, Throughput, global_norm
+from ldm_tpu_torch.utils.logging import MetricsLogger, Throughput
 from ldm_tpu_torch.utils.seed import check_finite
 
 EVAL_SALT = 0x5EED     # the JAX trainer's salts: eval batches and sample grids
@@ -82,14 +104,20 @@ class DiffusionTrainer:
         cfg_scale: Optional[float] = None,
         graphs: Optional[bool] = None,
         input_shape: Optional[Tuple[int, int, int]] = None,
+        mesh: Optional[Mesh] = None,
     ):
         """``graphs``: None runs the train step and the samplers as replayed
         CUDA graphs on a CUDA device and eagerly elsewhere; False asks for
         the eager paths; True on another device raises.  ``input_shape``:
         (H, W, C) of the diffusion space where it is not the images' (the
-        latent trainer's latents)."""
+        latent trainer's latents).  ``mesh``: data parallelism over its
+        processes (the loaders are the global batches')."""
         if config.loss_fn != "mse":
             raise ValueError("diffusion training uses MSE")
+        self.mesh = mesh
+        if mesh is not None:
+            fsdp.check_modes(config.param_sharding, config.activation_sharding)
+            distributed.build_kernels_once(mesh.device, mesh.group)
         self.config = config
         self.device = torch.device(device) if device is not None else next(
             model.parameters()).device
@@ -102,7 +130,12 @@ class DiffusionTrainer:
         config.create_dirs()
         d = config.data
         self.image_shape = tuple(input_shape or (d.image_size, d.image_size, d.image_channels))
-        self.state = TrainState(model, config.lr, config.ema_decay)
+        # under FSDP: an unsharded twin of the model, the gathered weights'
+        # home for sampling
+        self._unsharded = (copy.deepcopy(model).requires_grad_(False).eval()
+                           if mesh is not None and config.param_sharding == "fsdp" else None)
+        self.state = TrainState(model, config.lr, config.ema_decay, mesh=mesh,
+                                param_sharding=config.param_sharding)
         self.early_stopping = EarlyStopping(
             patience=config.early_stopping_patience, verbose=True,
             save_fn=self._save_best, min_delta_rel=config.early_stopping_min_delta_rel,
@@ -120,13 +153,29 @@ class DiffusionTrainer:
         # source (None: the caller's batches; or the EpochScan whose batches
         # the step gathers itself)
         self._steps = GraphedStep(self._device_step, self.state, self.device,
-                                  use_graphs(self.device, graphs),
+                                  use_graphs(self.device, graphs, mesh),
                                   before_capture=drop_copies)
         self._warmed_up = False
         self._last_rates: Dict[str, float] = {}
         self._last_grad_norm = 0.0
         self.epoch_scan = build_epoch_scan(train_loader, self.device,
-                                           enabled=config.scan_epochs)
+                                           enabled=config.scan_epochs, mesh=mesh)
+        # the per-batch path's batches: under a mesh this process's subset
+        self._local_loader = None
+
+    def _train_batches(self):
+        """The per-batch path's loader: under a mesh a loader over this
+        process's ``per_host_subset`` of the train loader's dataset."""
+        if self.mesh is None:
+            return self.train_loader
+        if self._local_loader is None:
+            self._local_loader = distributed.per_host_loader(self.train_loader, self.mesh)
+        return self._local_loader
+
+    @property
+    def primary(self) -> bool:
+        """Whether this process writes checkpoints, metrics and grids."""
+        return self.mesh is None or self.mesh.is_primary
 
     @property
     def model(self):
@@ -237,17 +286,33 @@ class DiffusionTrainer:
             return image
         return image.new_empty((image.shape[0],) + self.image_shape)
 
+    def _global_like(self, x: torch.Tensor) -> torch.Tensor:
+        """A tensor of the global batch's shape for this process's rows
+        ``x`` (``x`` itself without a mesh): what the draws are made for."""
+        if self.mesh is None:
+            return x
+        return x.new_empty(self.mesh.global_shape(x.shape))
+
+    def _local(self, *draws):
+        """This process's rows of the global batch's draws."""
+        if self.mesh is None:
+            return draws
+        return tuple(self.mesh.local_rows(d) for d in draws)
+
     def _step(self, x0, y, t, eps, drop, scan: Optional[EpochScan] = None, enc=None):
-        """The draws from (x0, y)'s shapes, then the step on (x0, y) or on
-        ``scan``'s next batch."""
+        """The draws from (x0, y)'s shapes (the global batch's under a
+        mesh, then this process's rows of them), then the step on (x0, y) or
+        on ``scan``'s next batch."""
         state = self.state
         gen = None
         if t is None or eps is None or drop is None or enc is None:
             gen = step_generator(self.config.seed, state.step, self.device)
-        t, eps = self.diffusion.draw_t_eps(self._space_like(x0), t, eps, gen)
+        gx0, gy = self._global_like(x0), self._global_like(y)
+        t, eps = self.diffusion.draw_t_eps(self._space_like(gx0), t, eps, gen)
         # a () drop mask broadcasts over the batch
-        drop = self.draw_drop(y, drop, gen).expand(y.shape)
-        return self._steps((x0, y, t, eps, drop, *self._encode_draws(x0, enc, gen)), scan)
+        drop = self.draw_drop(gy, drop, gen).expand(gy.shape)
+        draws = self._local(t, eps, drop, *self._encode_draws(gx0, enc, gen))
+        return self._steps((x0, y, *draws), scan)
 
     def _device_step(self, x0, y, t, eps, drop, *enc) -> Dict[str, torch.Tensor]:
         """Everything of a step after the draws, as a function of device
@@ -264,50 +329,68 @@ class DiffusionTrainer:
         out = state.model(xt, t_in, y)
         loss = torch.mean((target.to(torch.float32) - out) ** 2)
         loss.backward()
-        gnorm = global_norm([p.grad for p in state.params()])
+        loss = state.reduce_grads(loss)
+        gnorm = state.norm(p.grad for p in state.params())
         state.update()
-        return {"loss": loss.detach(), "grad_norm": gnorm}
+        return {"loss": loss, "grad_norm": gnorm}
 
     @torch.no_grad()
     def eval_step(self, batch: dict, index: int, t: Optional[torch.Tensor] = None,
                   eps: Optional[torch.Tensor] = None,
                   enc: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Validation loss of one batch (the current weights), with the CFG
-        lerp ``uncond + cfg * (cond - uncond)`` when cfg > 0."""
+        lerp ``uncond + cfg * (cond - uncond)`` when cfg > 0.  Under a mesh
+        ``batch`` is this process's rows, the draws are the global batch's
+        and the loss is the global batch's (a mean over the processes)."""
         x0, y = self._batch(batch)
         gen = None
         if t is None or eps is None or enc is None:
             gen = step_generator(self.config.seed, index, self.device, EVAL_SALT)
-        t, eps = self.diffusion.draw_t_eps(self._space_like(x0), t, eps, gen)
-        x0 = self._encode(x0, *self._encode_draws(x0, enc, gen))
+        gx0 = self._global_like(x0)
+        t, eps = self.diffusion.draw_t_eps(self._space_like(gx0), t, eps, gen)
+        t, eps, *enc = self._local(t, eps, *self._encode_draws(gx0, enc, gen))
+        x0 = self._encode(x0, *enc)
         target, xt, t_in = self.diffusion.noised(x0, t, eps)
         model = self.model.eval()
         out = model(xt, t_in, y)
         if self.cfg_scale > 0:
             uncond = model(xt, t_in, torch.full_like(y, model.null_label))
             out = uncond + self.cfg_scale * (out - uncond)
-        return torch.mean((target.to(torch.float32) - out) ** 2)
+        loss = torch.mean((target.to(torch.float32) - out) ** 2)
+        return loss if self.mesh is None else self.mesh.all_reduce_mean_(loss)
 
     # ------------------------------------------------------------ persistence
     def _save_best(self, _state) -> None:
         """Improvement hook: keep the best state as a copy on the device;
-        it is written at the checkpoint cadence and at the end of train()."""
+        it is written at the checkpoint cadence and at the end of train().
+        (Under FSDP every process gathers the whole state.)"""
         self._best = _clone(self.state.state_dict())
 
     def _flush_best(self) -> None:
         if self._best is None:
             return
         d = self.config.checkpoints
-        ckpt.atomic_save(self._best["model"], f"{d}/diffusion_model.pt")
-        ckpt.atomic_save(self._best["ema"], f"{d}/diffusion_model_ema.pt")
-        ckpt.save_state(f"{d}/best_state.pt", self._best, self.early_stopping.val_loss_min)
+        if self.primary:
+            ckpt.atomic_save(self._best["model"], f"{d}/diffusion_model.pt")
+            ckpt.atomic_save(self._best["ema"], f"{d}/diffusion_model_ema.pt")
+            ckpt.save_state(f"{d}/best_state.pt", self._best, self.early_stopping.val_loss_min)
         self._best = None
 
     def save_latest(self) -> str:
-        return ckpt.save_state(f"{self.config.checkpoints}/state.pt",
-                               self.state.state_dict(), self.early_stopping.val_loss_min)
+        """The whole state to ``<checkpoints>/state.pt``, written by the
+        primary process (every process calls it: under FSDP the state is
+        gathered first)."""
+        path = f"{self.config.checkpoints}/state.pt"
+        sd = self.state.state_dict()
+        if self.primary:
+            ckpt.save_state(path, sd, self.early_stopping.val_loss_min)
+        return path
 
     def load_state(self, path: str) -> None:
+        """Restore a whole state; under a mesh every process reads the file
+        the primary one wrote (after a barrier) and keeps its part."""
+        if self.mesh is not None:
+            self.mesh.barrier()
         sd = ckpt.load_state(path, map_location=self.device)
         self.state.load_state_dict(sd)
         # a captured step holds the addresses of the optimizer's old state
@@ -315,6 +398,8 @@ class DiffusionTrainer:
         self.early_stopping.restore(sd.get("best_val_loss", float("inf")))
 
     def resume_latest(self) -> bool:
+        if self.mesh is not None:
+            self.mesh.barrier()  # the primary's last write is whole
         path = ckpt.latest_checkpoint(self.config.checkpoints)
         if path is None:
             return False
@@ -337,9 +422,9 @@ class DiffusionTrainer:
             # a resumed run continues the shuffle stream
             scan.start_epoch(self.config.seed, self.state.step // scan.n_batches)
             for _ in range(scan.n_batches):
-                record(self.scan_step(scan), scan.batch_size)
+                record(self.scan_step(scan), scan.local_batch)
         else:
-            for batch in self.train_loader:
+            for batch in self._train_batches():
                 record(self.train_step(batch), len(batch["label"]))
         if not losses:
             raise ValueError("train loader yielded no batches")
@@ -353,7 +438,8 @@ class DiffusionTrainer:
         return loss
 
     def _val_epoch(self) -> float:
-        losses = [self.eval_step(batch, i) for i, batch in enumerate(self.val_loader)]
+        losses = [self.eval_step(shard_batch(self.mesh, batch), i)
+                  for i, batch in enumerate(self.val_loader)]
         if not losses:
             raise ValueError("validation loader yielded no batches")
         return torch.stack(losses).mean().item()
@@ -379,10 +465,12 @@ class DiffusionTrainer:
                 "epoch": epoch,
                 **{k: round(v, 3) for k, v in self._last_rates.items()},
             }, step=epoch)
-            self.logger.log_norms("params", self.state.params(), step=epoch)
+            self.logger.log({"params_global_norm": float(self.state.norm(self.state.params()))},
+                            step=epoch)
             we = cfg.watch_histograms_every
             if we > 0 and (epoch + 1) % we == 0:
-                self.logger.log_histograms("params", self.model.named_parameters(), step=epoch)
+                self.logger.log_histograms("params", [(n, fsdp.full(p)) for n, p in
+                                                      self.model.named_parameters()], step=epoch)
             se = cfg.sample_every
             # 0 = never; epoch 0 is skipped: its grid would show untrained noise
             if se > 0 and epoch > 0 and epoch % se == 0:
@@ -418,8 +506,13 @@ class DiffusionTrainer:
         negative control (passed on only then, as the JAX trainer does: a
         DDPM process has no such argument and raises).
         ``decode_scale_override`` != 0 is the latent family's (see
-        :meth:`_postprocess`)."""
+        :meth:`_postprocess`).  Under a mesh every process samples the whole
+        grid from the same draws (under FSDP from the weights gathered into
+        an unsharded copy: a collective)."""
         model = (self.state.ema if use_ema else self.model).eval()
+        if self._unsharded is not None:
+            self._unsharded.load_state_dict(fsdp.full_tree(model.state_dict()))
+            model = self._unsharded
         if generator is None:
             generator = step_generator(self.config.seed, 0, self.device, SAMPLE_SALT)
         classes = torch.as_tensor(np.asarray(classes), dtype=torch.int64, device=self.device)

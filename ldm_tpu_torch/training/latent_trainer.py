@@ -133,13 +133,16 @@ class LatentDiffusionTrainer(DiffusionTrainer):
 
     def __init__(self, config: Config, ldm: LatentDiffusionModel, train_loader, val_loader,
                  classes, device=None, logger: Optional[MetricsLogger] = None,
-                 graphs: Optional[bool] = None):
+                 graphs: Optional[bool] = None, mesh=None):
+        """``mesh``: data parallelism, as the diffusion trainer's (the
+        frozen first stage stays whole on every process)."""
         self.ldm = ldm
-        _persist_latent_scaling(config, ldm.latent_scaling_factor)
+        if mesh is None or mesh.is_primary:
+            _persist_latent_scaling(config, ldm.latent_scaling_factor)
         z_shape = latent_shape_of(ldm.autoencoder, config.data.image_size)
         super().__init__(config, ldm.eps_model, ldm.diffusion, train_loader, val_loader,
                          classes, device=device, logger=logger, graphs=graphs,
-                         input_shape=z_shape)
+                         input_shape=z_shape, mesh=mesh)
 
     @property
     def output_image_shape(self) -> Tuple[int, int, int]:

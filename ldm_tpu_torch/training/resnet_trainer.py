@@ -31,6 +31,13 @@ and written to ``<checkpoints>/<name>.pt`` at the checkpoint cadence and at
 the end; :meth:`load_best` takes the device copy back (the disk file when
 there is none).  The classifier has no EMA: the JAX one's is updated but
 never read.
+
+Under data parallelism (``mesh=``; plain DP with replicated parameters, as
+the JAX classifier's mesh takes it) each process trains on its rows of every
+global batch, BatchNorm normalizes by the global batch's statistics
+(``models/resnet.py::sync_batch_norm``), the gradients and the loss are
+averaged and the confusion matrices summed over the processes; evaluation
+batches are the global loader's, each process taking its rows.
 """
 
 from __future__ import annotations
@@ -42,7 +49,10 @@ import torch
 import torch.nn.functional as F
 
 from ldm_tpu_torch.config import Config
+from ldm_tpu_torch.models.resnet import sync_batch_norm
 from ldm_tpu_torch.ops.metrics import confusion_matrix, f1_from_confusion
+from ldm_tpu_torch.parallel import distributed
+from ldm_tpu_torch.parallel.mesh import global_batch_multiple, shard_batch
 from ldm_tpu_torch.training import checkpoint as ckpt
 from ldm_tpu_torch.training.early_stopping import EarlyStopping
 from ldm_tpu_torch.training.scan_epochs import EpochScan, PaddedEpochScan, build_epoch_scan
@@ -68,11 +78,17 @@ class ResNetTrainer:
         pad_train_to: Optional[int] = None,
         device=None,
         graphs: Optional[bool] = None,
+        mesh=None,
     ):
         """``graphs``: None replays the train step as a CUDA graph on a CUDA
         device and runs it eagerly elsewhere; False asks for the eager step;
-        True on another device raises."""
+        True on another device raises.  ``mesh``: data parallelism over its
+        processes (the loaders are the global batches')."""
+        if mesh is not None and config.param_sharding != "replicated":
+            raise ValueError("the classifier trains data-parallel with replicated "
+                             f"parameters, got param_sharding {config.param_sharding!r}")
         self.config = config
+        self.mesh = mesh
         self.device = torch.device(device) if device is not None else next(
             model.parameters()).device
         self.train_loader = train_loader
@@ -82,21 +98,22 @@ class ResNetTrainer:
         self.name = name
         self.logger = logger or MetricsLogger(config.dirpath)
         config.create_dirs()
-        self.state = TrainState(model, config.lr, config.ema_decay, ema=False)
+        sync_batch_norm(model, mesh)
+        self.state = TrainState(model, config.lr, config.ema_decay, ema=False, mesh=mesh)
         # the step, eager or replayed: one graph a batch source (None: the
         # caller's batches; or the epoch whose batches the step gathers)
         self._steps = GraphedStep(self._device_step, self.state, self.device,
-                                  use_graphs(self.device, graphs))
+                                  use_graphs(self.device, graphs, mesh))
         if pad_train_to is not None and config.scan_epochs:
             d = config.data
             self.epoch_scan: Optional[EpochScan] = PaddedEpochScan(
                 train_loader.batch_size, pad_train_to,
                 (d.image_size, d.image_size, d.image_channels), self.device,
-                shuffle=bool(train_loader.shuffle))
+                shuffle=bool(train_loader.shuffle), mesh=mesh)
             self.epoch_scan.set_data(train_loader.dataset.images, train_loader.dataset.labels)
         else:
             self.epoch_scan = build_epoch_scan(train_loader, self.device,
-                                               enabled=config.scan_epochs)
+                                               enabled=config.scan_epochs, mesh=mesh)
         self.reset(config.seed)
 
     @property
@@ -169,9 +186,14 @@ class ResNetTrainer:
         logits = state.model(x)
         loss = F.cross_entropy(logits, y)
         loss.backward()
+        loss = state.reduce_grads(loss)
         state.update()
-        cm = confusion_matrix(logits.detach().argmax(-1), y, self.num_classes)
-        return {"loss": loss.detach(), "cm": cm}
+        return {"loss": loss, "cm": self._sum(confusion_matrix(logits.detach().argmax(-1), y,
+                                                               self.num_classes))}
+
+    def _sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the processes (``t`` without a mesh)."""
+        return t if self.mesh is None else self.mesh.all_reduce_(t)
 
     def train_step(self, batch: dict) -> Dict[str, torch.Tensor]:
         """One optimisation step on ``{"image": NHWC [-1, 1], "label": int}``;
@@ -186,11 +208,16 @@ class ResNetTrainer:
 
     @torch.no_grad()
     def eval_step(self, batch: dict) -> Dict[str, torch.Tensor]:
-        """Loss and confusion matrix of one batch with the running statistics."""
+        """Loss and confusion matrix of one batch with the running statistics
+        (under a mesh: this process's rows; the global batch's loss and
+        matrix)."""
         x, y = self._batch(batch)
         logits = self.model.eval()(x)
-        return {"loss": F.cross_entropy(logits, y),
-                "cm": confusion_matrix(logits.argmax(-1), y, self.num_classes)}
+        loss = F.cross_entropy(logits, y)
+        if self.mesh is not None:
+            self.mesh.all_reduce_mean_(loss)
+        return {"loss": loss, "cm": self._sum(confusion_matrix(logits.argmax(-1), y,
+                                                               self.num_classes))}
 
     # ------------------------------------------------------------ persistence
     def _save_best(self, _state) -> None:
@@ -200,7 +227,7 @@ class ResNetTrainer:
         self._best_dirty = True
 
     def _flush_best(self) -> None:
-        if self._best_dirty:
+        if self._best_dirty and (self.mesh is None or self.mesh.is_primary):
             ckpt.atomic_save(self._best, f"{self.config.checkpoints}/{self.name}.pt")
             self._best_dirty = False
 
@@ -241,9 +268,15 @@ class ResNetTrainer:
                 raise ValueError("the training set has no full batch")
             scan.start_epoch(self.seed, self.state.step // scan.n_batches)
             outs = [self.scan_step(scan) for _ in range(scan.n_batches)]
+        elif kind == "train":
+            if self.mesh is not None:
+                dataloader = distributed.per_host_loader(dataloader, self.mesh)
+            outs = [self.train_step(batch) for batch in dataloader]
         else:
-            step = self.train_step if kind == "train" else self.eval_step
-            outs = [step(batch) for batch in dataloader]
+            # under a mesh a batch must split over it (the JAX trainer skips
+            # the ones that do not: a last, short batch)
+            outs = [self.eval_step(shard_batch(self.mesh, batch)) for batch in dataloader
+                    if len(batch["label"]) % global_batch_multiple(self.mesh) == 0]
         if not outs:
             raise ValueError(f"{mode} loader yielded no batches")
         cm = torch.stack([o["cm"] for o in outs]).sum(dim=0)

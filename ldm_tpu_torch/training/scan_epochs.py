@@ -25,6 +25,11 @@ the per-batch loop, so the two loops given the same order run the same steps.
 * A captured step holds the addresses of the dataset, the index matrix, the
   table and the counter: they are made once and written in place.
 
+Under data parallelism (a ``parallel.Mesh``) every process holds the whole
+uint8 set and draws the same global permutation from (seed, epoch); its
+index matrix holds only its columns of each global batch (the block
+``mesh.local_rows`` takes), so each step gathers this process's rows.
+
 :class:`PaddedEpochScan` is one set of buffers for datasets of several sizes
 up to a capacity: the classifier's five mixes, each trained through the one
 captured train step.  The JAX package compiles one scan of ``capacity // B``
@@ -60,23 +65,30 @@ class EpochScan:
     and refuses one past the epoch's end."""
 
     def __init__(self, images: np.ndarray, labels: np.ndarray, batch_size: int,
-                 device, shuffle: bool = True):
+                 device, shuffle: bool = True, mesh=None):
+        """``batch_size``: the global batch's; with a ``mesh`` each step
+        gathers this process's rows of it."""
         device = torch.device(device)
         self.n = len(images)
         self.batch_size = int(batch_size)
         self.n_batches = self.n // self.batch_size
         self.shuffle = shuffle
+        self.mesh = mesh
+        self.local_batch = self.batch_size if mesh is None else self.batch_size // mesh.size
+        if self.local_batch * (1 if mesh is None else mesh.size) != self.batch_size:
+            raise ValueError(f"a global batch of {self.batch_size} does not split over "
+                             f"the mesh's data axis ({mesh.size})")
         self.image_shape = tuple(images.shape[1:])
         self.images = torch.from_numpy(np.ascontiguousarray(images, np.uint8)).to(device)
         self.labels = torch.from_numpy(np.asarray(labels, np.int64)).to(device)
         self.table = torch.from_numpy(scale_table()).to(device)
-        self.idx = torch.zeros((self.n_batches, self.batch_size), dtype=torch.int64,
+        self.idx = torch.zeros((self.n_batches, self.local_batch), dtype=torch.int64,
                                device=device)
         self.row = torch.zeros((), dtype=torch.int64, device=device)
         self._taken = self.n_batches  # no epoch started
-        # the batch's shape, dtype and device for the step's draws
-        self.x_like = torch.empty((self.batch_size,) + self.image_shape, device=device)
-        self.y_like = torch.empty((self.batch_size,), dtype=torch.int64, device=device)
+        # this process's batch: its shape, dtype and device for the step's draws
+        self.x_like = torch.empty((self.local_batch,) + self.image_shape, device=device)
+        self.y_like = torch.empty((self.local_batch,), dtype=torch.int64, device=device)
 
     def permutation(self, seed: int, epoch: int) -> np.ndarray:
         """The epoch's order as an (n_batches, B) int64 matrix, on the host."""
@@ -98,6 +110,8 @@ class EpochScan:
                 order.size and not 0 <= order.min() <= order.max() < self.n):
             raise ValueError(f"an epoch's order is ({self.n_batches}, {self.batch_size}) rows "
                              f"of the {self.n} samples, got {order.shape}")
+        if self.mesh is not None:  # this process's block of every global batch
+            order = np.ascontiguousarray(self.mesh.local_rows(order.T).T)
         self.idx[: self.n_batches].copy_(torch.from_numpy(order))
         self.row.zero_()
         self._taken = 0
@@ -120,7 +134,7 @@ class EpochScan:
         return x, y
 
 
-def build_epoch_scan(loader, device, enabled: bool = True) -> Optional[EpochScan]:
+def build_epoch_scan(loader, device, enabled: bool = True, mesh=None) -> Optional[EpochScan]:
     """``loader``'s dataset on ``device`` as an :class:`EpochScan`, or None
     where the JAX package's ``build_epoch_scan`` falls back to per-batch
     stepping: not enabled, no in-memory dataset, a transform other than
@@ -136,7 +150,7 @@ def build_epoch_scan(loader, device, enabled: bool = True) -> Optional[EpochScan
     if len(ds) // loader.batch_size == 0:
         return None
     return EpochScan(ds.images, ds.labels, loader.batch_size, device,
-                     shuffle=bool(getattr(loader, "shuffle", True)))
+                     shuffle=bool(getattr(loader, "shuffle", True)), mesh=mesh)
 
 
 class PaddedEpochScan(EpochScan):
@@ -146,11 +160,11 @@ class PaddedEpochScan(EpochScan):
     again), and an epoch runs its ``n // B`` full batches."""
 
     def __init__(self, batch_size: int, capacity: int, image_shape, device,
-                 shuffle: bool = True):
+                 shuffle: bool = True, mesh=None):
         if capacity < batch_size:
             raise ValueError(f"capacity {capacity} < batch_size {batch_size}")
         super().__init__(np.zeros((capacity,) + tuple(image_shape), np.uint8),
-                         np.zeros((capacity,), np.int64), batch_size, device, shuffle)
+                         np.zeros((capacity,), np.int64), batch_size, device, shuffle, mesh)
         self.capacity = int(capacity)
         self.n = self.n_batches = self._taken = 0  # no data yet
 

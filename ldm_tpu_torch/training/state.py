@@ -29,6 +29,19 @@ of the model: they travel in ``state_dict()`` with its parameters.  The
 classifier keeps no EMA (``ema=False``): the JAX classifier updates one but
 never reads it (evaluation and ``load_best`` use the raw parameters and
 ``batch_stats``).
+
+Under a mesh (``parallel/mesh.py``) each process holds its rows of the
+global batch, and :meth:`TrainState.reduce_grads` makes the gradients the
+global batch's before Adam: with ``param_sharding`` ``"replicated"`` (plain
+DP) one all-reduce of one flat bucket of every gradient and the loss; with
+``"fsdp"`` the model and the EMA are sharded by the leaf rule
+(``parallel/fsdp.py``), FSDP2 reduce-scatters the sharded leaves' gradients
+in the backward, and the bucket holds the replicated leaves' and the loss.
+:meth:`TrainState.norm` is the global norm (under FSDP a cross-process sum
+of the shards' squares).  Adam and the EMA run on each process's shards.
+:meth:`TrainState.state_dict` is then the whole state, gathered (every
+process calls it); :meth:`TrainState.load_state_dict` takes a whole state
+and keeps each process's chunk.
 """
 
 from __future__ import annotations
@@ -38,6 +51,9 @@ import copy
 import numpy as np
 import torch
 from torch import nn
+
+from ldm_tpu_torch.parallel import fsdp
+from ldm_tpu_torch.utils.logging import global_norm
 
 
 def ema_decay_at(decay: float, step: int) -> float:
@@ -66,9 +82,20 @@ class TrainState:
     and the step counter."""
 
     def __init__(self, model: nn.Module, lr: float, ema_decay: float = 0.9999,
-                 ema: bool = True):
+                 ema: bool = True, mesh=None, param_sharding: str = "replicated"):
+        """``mesh``: a ``parallel.Mesh`` (None: one process);
+        ``param_sharding``: ``"replicated"`` or ``"fsdp"`` under a mesh."""
         self.model = model
         self.ema = copy.deepcopy(model).requires_grad_(False).eval() if ema else None
+        self.mesh = mesh
+        self.sharding = "replicated"
+        if mesh is not None:
+            fsdp.check_modes(param_sharding)
+            self.sharding = param_sharding
+        if self.sharding == "fsdp":
+            for m in (model, self.ema):
+                if m is not None:
+                    fsdp.shard_module(m, mesh)
         self.lr = float(lr)
         self.ema_decay = float(ema_decay)
         device = next(model.parameters()).device
@@ -76,8 +103,8 @@ class TrainState:
         # can replay it; on CPU parameters some PyTorch versions refuse it
         self.capturable = device.type == "cuda"
         self.optimizer = torch.optim.Adam(
-            model.parameters(), lr=self.lr, betas=(0.9, 0.999), eps=1e-8, foreach=True,
-            capturable=self.capturable,
+            fsdp.param_groups(list(model.parameters())), lr=self.lr, betas=(0.9, 0.999),
+            eps=1e-8, foreach=True, capturable=self.capturable,
         )
         self.step = 0
         self.step_t = torch.zeros((), dtype=torch.int64, device=device)  # step, on the device
@@ -86,29 +113,81 @@ class TrainState:
         return list(self.model.parameters())
 
     @torch.no_grad()
+    def reduce_grads(self, loss: torch.Tensor, mean: bool = True) -> torch.Tensor:
+        """After the backward of this process's ``loss``: the gradients of
+        the global batch in ``.grad``, and the global batch's loss (a device
+        scalar).  ``mean``: the loss is a mean over the batch, so the
+        processes' gradients and losses are averaged; else (a sum over the
+        batch) summed.  Without a mesh: the loss alone."""
+        loss = loss.detach()
+        if self.mesh is None:
+            return loss
+        grads = [p.grad for p in self.params()]
+        # one bucket, one all-reduce: every gradient FSDP2 does not reduce
+        # (all of them under plain DP) and the loss
+        plain = [g for g in grads if not fsdp.is_sharded(g)]
+        flat = torch.cat([g.reshape(-1) for g in plain] + [loss.reshape(1).to(plain[0].dtype)]
+                         if plain else [loss.reshape(1)])
+        if mean:
+            self.mesh.all_reduce_mean_(flat)
+        else:
+            self.mesh.all_reduce_(flat)
+        if plain:
+            torch._foreach_copy_(plain, [v.view_as(g) for v, g in zip(
+                flat[:-1].split([g.numel() for g in plain]), plain)])
+        return flat[-1].to(loss.dtype)
+
+    @torch.no_grad()
+    def norm(self, tensors) -> torch.Tensor:
+        """The global L2 norm of tensors placed as the state's leaves are
+        (its parameters, their gradients): under FSDP the shards' squares
+        summed over the processes (a collective), plus the replicated
+        leaves'."""
+        tensors = list(tensors)
+        if self.sharding != "fsdp":
+            return global_norm(tensors)
+        shards = [fsdp.local(t) for t in tensors if fsdp.is_sharded(t)]
+        plain = [t for t in tensors if not fsdp.is_sharded(t)]
+        sq = (torch.stack(torch._foreach_norm(shards)).square().sum() if shards
+              else torch.zeros((), device=self.step_t.device))
+        self.mesh.all_reduce_(sq)
+        if plain:
+            sq = sq + global_norm(plain).square()
+        return sq.sqrt()
+
+    @torch.no_grad()
     def update(self) -> None:
         """The device's part of a step: Adam on the parameters' ``.grad``, the
-        EMA with the weight of the device step counter, that counter += 1."""
+        EMA with the weight of the device step counter, that counter += 1.
+        Under FSDP each process moves its own shards."""
         self.optimizer.step()
         if self.ema is not None:
             d = ema_decay_tensor(self.ema_decay, self.step_t)
-            ema = list(self.ema.parameters())
+            ema = [fsdp.local(e) for e in self.ema.parameters()]
             torch._foreach_mul_(ema, d)
             # ema += (1 - d) * p with one rounding, as ``add_(p, alpha=1 - d)``
             # has it (which takes no tensor for alpha); a kernel a leaf
             rest = 1.0 - d
             for e, p in zip(ema, self.params()):
-                e.addcmul_(p, rest)
+                e.addcmul_(fsdp.local(p), rest)
         self.step_t += 1
 
     def count_step(self) -> None:
-        """The host's part of a step."""
+        """The host's part of a step.  Under FSDP, also word to both models
+        that their weights moved: FSDP2 all-gathers them into storage it
+        keeps, possibly at the same address, and leaves its version counter
+        as it was, while Adam moved only the shards."""
         self.step += 1
+        if self.sharding == "fsdp":
+            self._weights_moved()
 
     def count_replayed_step(self) -> None:
         """After a replay of a captured :meth:`update`: the host's count, and
         word to both models that their weights changed in place."""
         self.step += 1
+        self._weights_moved()
+
+    def _weights_moved(self) -> None:
         for m in (self.model, self.ema):
             replayed = getattr(m, "weights_replayed", None) if m is not None else None
             if replayed is not None:
@@ -132,22 +211,37 @@ class TrainState:
         self.step_t.zero_()
 
     def state_dict(self) -> dict:
+        """The whole state; under FSDP gathered from the shards (a
+        collective: every process calls it)."""
         sd = {"step": self.step, "model": self.model.state_dict(),
               "optimizer": self.optimizer.state_dict()}
         if self.ema is not None:
             sd["ema"] = self.ema.state_dict()
-        return sd
+        return fsdp.full_tree(sd) if self.sharding == "fsdp" else sd
 
     def load_state_dict(self, sd: dict) -> None:
-        self.model.load_state_dict(sd["model"], strict=True)
-        if self.ema is not None:
-            self.ema.load_state_dict(sd["ema"], strict=True)
+        """A whole state (:meth:`state_dict`'s); under FSDP each process
+        keeps its chunk of every sharded leaf."""
+        if self.sharding == "fsdp":
+            fsdp.load_full_state_dict(self.model, sd["model"])
+            if self.ema is not None:
+                fsdp.load_full_state_dict(self.ema, sd["ema"])
+        else:
+            self.model.load_state_dict(sd["model"], strict=True)
+            if self.ema is not None:
+                self.ema.load_state_dict(sd["ema"], strict=True)
         # a checkpoint written on another kind of device carries its
         # optimizer's ``capturable``: this device's holds (torch then puts
         # Adam's step counts where a capturable optimizer wants them)
         opt = dict(sd["optimizer"])
         opt["param_groups"] = [dict(g, capturable=self.capturable)
                                for g in opt["param_groups"]]
+        if self.sharding == "fsdp":
+            params = [p for g in self.optimizer.param_groups for p in g["params"]]
+            opt["state"] = {i: {k: fsdp.shard_like(v, params[int(i)])
+                                if torch.is_tensor(v) and v.dim() > 0 else v
+                                for k, v in st.items()}
+                            for i, st in opt["state"].items()}
         self.optimizer.load_state_dict(opt)
         self.step = int(sd["step"])
         self.step_t.fill_(self.step)

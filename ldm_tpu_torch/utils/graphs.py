@@ -36,15 +36,21 @@ COUNTED = (la.linear_attention_block, la.linear_attention_block_bwd, rb.resnet_b
 WARMUP_STEPS = 3
 
 
-def use_graphs(device, graph: Optional[bool]) -> bool:
+def use_graphs(device, graph: Optional[bool], mesh=None) -> bool:
     """Whether a loop on ``device`` runs as a replayed graph: by default on a
     CUDA device and nowhere else; ``graph=True`` on another device raises (a
-    caller who asks for the graph by name gets it or an error)."""
+    caller who asks for the graph by name gets it or an error).  A step over
+    a ``mesh`` whose collectives a graph cannot hold (gloo's stage CUDA
+    tensors through the host) runs eagerly by design: by default, and
+    ``graph=True`` raises."""
     device = torch.device(device)
+    capturable = device.type == "cuda" and (mesh is None or mesh.captures_collectives)
     if graph is None:
-        return device.type == "cuda"
-    if graph and device.type != "cuda":
-        raise ValueError(f"a CUDA graph needs a CUDA device, got {device}")
+        return capturable
+    if graph and not capturable:
+        why = (f"a CUDA device, got {device}" if device.type != "cuda"
+               else f"collectives it can capture, got the {mesh.backend} backend")
+        raise ValueError(f"a CUDA graph needs {why}")
     return bool(graph)
 
 

@@ -6,7 +6,9 @@ Records and keys are the JAX package's: one JSON object a line in
 ``<dirpath>/metrics.jsonl`` (``{"step": .., "ts": .., "diffusion_model
 train_loss": ..}``), stdout, and the running min/max of declared keys in
 ``summary.json``.  Sample grids are written as ``.npy`` (uint8 HWC), and as
-``.png`` too when PIL is installed.  No wandb sink.
+``.png`` too when PIL is installed.  No wandb sink.  Under a process group
+the sinks live on the primary process alone (as the JAX logger's live on
+process 0): the others write and print nothing.
 """
 
 from __future__ import annotations
@@ -32,8 +34,13 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 
 class MetricsLogger:
     def __init__(self, dirpath: Optional[str] = None):
+        from ldm_tpu_torch.parallel.distributed import is_primary
+
+        # the sinks' owner: the default process group's rank 0 (every
+        # process without a group)
+        self.primary = is_primary()
         self._path = self._summary_path = None
-        if dirpath:
+        if dirpath and self.primary:
             os.makedirs(dirpath, exist_ok=True)
             self._path = os.path.join(dirpath, "metrics.jsonl")
             self._summary_path = os.path.join(dirpath, "summary.json")
@@ -64,6 +71,8 @@ class MetricsLogger:
                 json.dump(self._summaries, f, indent=2, sort_keys=True)
 
     def log(self, metrics: Dict[str, Any], step: int) -> None:
+        if not self.primary:
+            return
         metrics = {k: _scalar(v) for k, v in metrics.items()}
         rec = {"step": step, "ts": time.time(), **metrics}
         print(" ".join(f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}"
@@ -79,7 +88,7 @@ class MetricsLogger:
         (and ``.png`` when PIL is present); returns the ``.npy`` path."""
         from ldm_tpu_torch.utils.images import image_grid
 
-        if not dirpath:
+        if not dirpath or not self.primary:
             return None
         grid = image_grid(images)
         os.makedirs(dirpath, exist_ok=True)

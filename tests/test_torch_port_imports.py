@@ -40,7 +40,9 @@ def test_port_modules_are_found():
                  "ldm_tpu_torch.diffusion.sampling", "ldm_tpu_torch.models.resnet",
                  "ldm_tpu_torch.ops.metrics", "ldm_tpu_torch.ops.fid",
                  "ldm_tpu_torch.training.resnet_trainer",
-                 "ldm_tpu_torch.experiments.augmentation", "ldm_tpu_torch.main"):
+                 "ldm_tpu_torch.experiments.augmentation", "ldm_tpu_torch.main",
+                 "ldm_tpu_torch.parallel.distributed", "ldm_tpu_torch.parallel.mesh",
+                 "ldm_tpu_torch.parallel.fsdp"):
         assert want in mods
 
 

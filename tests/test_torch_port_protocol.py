@@ -141,17 +141,32 @@ def test_one_seed_gives_the_same_results(family, tmp_path):
         b.fid_pixel, b.fid_classifier, b.fid_pixel_broken, b.fid_classifier_broken)
 
 
-def test_generator_config_and_parallel_flags_raise(tmp_path):
+def test_generator_config_and_parallel_flags_raise(tmp_path, monkeypatch):
     """A generator config must be a latent one (the latent generator itself:
-    tests/test_torch_port_latent.py); the parallel flags wait for item 12."""
+    tests/test_torch_port_latent.py).  The parallel flags reach the trainers
+    (their runs: tests/test_torch_port_parallel.py and _multiprocess.py):
+    ``--distributed`` without the environment raises, and ``--mesh`` with a
+    model-axis placement raises naming item 12b."""
+    import torch.distributed as dist
+
     cfg = config_from_dict(raw_config("pixel", tmp_path))
     path = tmp_path / "c.yaml"
     path.write_text(yaml.safe_dump(raw_config("pixel", tmp_path)))
     with pytest.raises(ValueError, match="must be a latent config"):
         aug.run_augmentation_experiment(cfg, generator_config=str(path), device="cpu")
-    for flag in ("--mesh", "--distributed"):
-        with pytest.raises(ValueError, match="item 12"):
-            port_main.main([str(path), "--device", "cpu", flag])
+    for var in ("LDM_TPU_COORDINATOR", "LDM_TPU_NUM_PROCESSES", "LDM_TPU_PROCESS_ID",
+                "LDM_TPU_DISTRIBUTED"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="LDM_TPU_COORDINATOR"):
+        port_main.main([str(path), "--device", "cpu", "--distributed"])
+    tp = tmp_path / "tp.yaml"
+    tp.write_text(yaml.safe_dump(dict(raw_config("pixel", tmp_path), param_sharding="tp")))
+    try:
+        with pytest.raises(ValueError, match="item 12b"):
+            port_main.main([str(tp), "--device", "cpu", "--mesh"])
+    finally:  # --mesh made a group of this process alone
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def test_main_module_prints_the_json(tmp_path):

@@ -165,23 +165,29 @@ def test_queue_full_rejects_cleanly(use_native):
 
 @pytest.mark.parametrize("use_native", [True, False])
 def test_worker_failure_fails_futures_not_hangs(use_native):
-    """A sampler that raises fails every pending future promptly and marks
-    the service dead, instead of leaving clients on futures nobody resolves."""
+    """A sampler that raises fails every pending future and marks the service
+    dead, instead of leaving clients on futures nobody resolves.  No race
+    against a clock: the sampler raises only once the three requests are
+    queued (else a request submitted after the death fails at submission,
+    with another message), and the waits are events bounded by the file's
+    hang limit (``WAIT``); the worker sets ``_failure`` and ``_died`` before
+    it fails the futures."""
     svc = make_service(use_native=use_native)
+    submitted = threading.Event()
 
     def exploding(*args):
+        submitted.wait(WAIT)
         raise ValueError("device fell over")
 
     svc._batched = exploding
     svc.start(warmup=False)
     try:
         futs = [svc.submit(c % NUM_CLASSES, n=2) for c in range(3)]
+        submitted.set()
         for f in futs:
             with pytest.raises(RuntimeError, match="worker failed"):
-                f.result(timeout=10)
-        deadline = time.monotonic() + 5
-        while svc._failure is None and time.monotonic() < deadline:
-            time.sleep(0.01)
+                f.result(timeout=WAIT)
+        assert svc._died.wait(timeout=WAIT) and svc._failure is not None
         with pytest.raises(RuntimeError, match="service failed"):
             svc.submit(0)
     finally:

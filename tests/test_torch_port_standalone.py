@@ -73,7 +73,9 @@ def test_port_files_are_found():
                  "ldm_tpu_torch/models/autoencoder.py",
                  "ldm_tpu_torch/training/autoencoder_trainer.py",
                  "ldm_tpu_torch/train_autoencoder.py", "ldm_tpu_torch/models/latent.py",
-                 "ldm_tpu_torch/training/latent_trainer.py", "ldm_tpu_torch/train_latent.py"):
+                 "ldm_tpu_torch/training/latent_trainer.py", "ldm_tpu_torch/train_latent.py",
+                 "ldm_tpu_torch/parallel/__init__.py", "ldm_tpu_torch/parallel/distributed.py",
+                 "ldm_tpu_torch/parallel/mesh.py", "ldm_tpu_torch/parallel/fsdp.py"):
         assert want in names
 
 
