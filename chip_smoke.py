@@ -9,7 +9,8 @@ from a seed), through their entry points: the class-conditional samplers
 with classifier-free guidance (``ldm_tpu_torch.generate.main``: ancestral
 DDPM, DDIM, DPM-Solver++(2M)) and the diffusion trainer
 (``ldm_tpu_torch.train.run``); then serving, the protocol, consistency
-distillation, the latent family and data parallelism (phases 7b-7f).  Both run as they do by default on a card: one
+distillation, the latent family, data parallelism and the reference's own
+workflow with the checkpoint bridge (phases 7b-7g).  Both run as they do by default on a card: one
 sampler step and one train step captured into CUDA graphs and replayed; the
 eager loops are timed beside them.  Phases, each printing its own lines; any
 failure raises and exits nonzero:
@@ -41,7 +42,8 @@ failure raises and exits nonzero:
    UNet's forward at 64px (the shape of configs/protocol_hard_64.yaml) at
    2B=4, kernel path vs plain path (fp32 <= 1e-3, bf16 finite).
 6. the sampling slice: generate.main at T=400, CFG 3, B=10 (2B=20), bf16,
-   as a replayed graph; every kernel's count is set to 0 just before and
+   as a replayed graph, from the flagship's seeded weights written where the
+   trainer leaves its EMA weights; every kernel's count is set to 0 just before and
    read just after: the forward kernel must launch exactly 8 x (400 replayed
    steps + the 3 eager warm-up steps before the capture) times, the others
    not at all; uint8 (10, 32, 32, 3) images from a finite x0; then a DDIM-50
@@ -166,8 +168,26 @@ failure raises and exits nonzero:
    and ResNet-18's BatchNorm statistics after 4 steps at lr 0 (1e-6); the
    gloo step's host ms; (c) the DDIM-50 service at B=64 over two replicas on
    cuda:0 against a one-device service at the replicas' batch, bit for bit
-   alone and under load, the launches exact, and how far it lands from the
-   one-device service at B=64 (ROADMAP fault 8, printed).
+   alone and under load (the service's contract is per device batch), the
+   launches exact, and how far it lands from the one-device service at B=64
+   (printed: cuDNN picks a conv's bf16 algorithm by batch size).
+7g. the reference's own workflow at the flagship width, bf16, graphed: (a)
+   ``train.main([cfg, "--profile", DIR])`` for 2 epochs of 9 steps at B=64 on
+   the synthetic fallback: the backward kernel 8 a step, the Chrome trace
+   holding the card's events, its 5 largest printed; (b) ``generate.main``
+   with DDIM-50, ``--per-class 32`` (B=320) and no ``--weights``, from (a)'s
+   ``diffusion_model_ema.pt``: the forward kernel 8 x (steps + warm-up), 320
+   PNGs under ``<results>/<class>/`` that ``load_image_folder`` reads back
+   bit for bit; the default request equals ``--weights
+   diffusion_model_ema.pt``, ``--no-ema`` equals ``--weights
+   diffusion_model.pt``, a run directory without weights raises; (c)
+   ``train_classifier.main([cfg2, "--pretrain-dir", tree])`` (ResNet-18,
+   B=64, 2 epochs): 320 // 64 = 5 pretrain steps, no attention launch, the
+   F1 line, wall seconds of pretrain, train and test; (d) the bridge: the
+   run's EMA exported and imported into a fresh run directory gives the
+   DDIM-50 request at B=10 bit for bit, the classifier exported and imported
+   the same test F1, phase 7e's VAE the same tensors; the phase's seconds by
+   stage, within 60.
 8. the fused ResNet-block kernel (``ops/resnet_block.py``) vs plain: at
    the 11 ResNet sites of the 32px flagship UNet at 2B=20 and 2B=128, at
    probe 13's four sites at 2B=256, at the 64px (4096, 64->64) site at
@@ -203,9 +223,11 @@ import argparse
 import base64
 import contextlib
 import dataclasses
+import glob
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -219,15 +241,18 @@ import torch.nn.functional as F
 
 from ldm_tpu_torch import (
     distill,
+    export_torch_checkpoint,
     generate,
+    import_torch_checkpoint,
     main as protocol_main,
     train,
     train_autoencoder,
+    train_classifier,
     train_latent,
 )
 from ldm_tpu_torch.data.transforms import reverse_transform, scale_to_minus_one_one
 from ldm_tpu_torch.data.datasets import synthetic_dataset
-from ldm_tpu_torch.data.loader import DataLoader
+from ldm_tpu_torch.data.loader import DataLoader, create_dataloaders
 from ldm_tpu_torch.diffusion.consistency import (
     consistency_fn,
     sample_consistency,
@@ -244,7 +269,7 @@ from ldm_tpu_torch.ops import resnet_block as rb
 from ldm_tpu_torch.perf import compare_parent, probe7, probe13, probe13b
 from ldm_tpu_torch.perf.common import card, cuda_graph_ms
 from ldm_tpu_torch.serving import GenerationHTTPServer
-from ldm_tpu_torch.serving.builder import build_generation_service, load_sampler
+from ldm_tpu_torch.serving.builder import build_generation_service, checkpoint_path, load_sampler
 from ldm_tpu_torch.serving.service import slot_x_init
 from ldm_tpu_torch.training.consistency_trainer import ConsistencyDistillTrainer
 from ldm_tpu_torch.training.diffusion_trainer import DiffusionTrainer
@@ -252,6 +277,7 @@ from ldm_tpu_torch.training.latent_trainer import build_ldm, load_latent_scaling
 from ldm_tpu_torch.training.resnet_trainer import ResNetTrainer
 from ldm_tpu_torch.training.state import step_generator
 from ldm_tpu_torch.utils.graphs import WARMUP_STEPS
+from ldm_tpu_torch.utils.images import load_image_folder
 
 FLAGSHIP = "configs/pixel_diffusion_model_cifar10.yaml"
 SMOKE = "configs/smoke_synthetic.yaml"  # channels 8, multipliers [1, 2], 16px, T=8
@@ -712,11 +738,12 @@ def check_smoke_config(tag: str) -> None:
     out = {}
     for how, extra, steps in (("graphed", [], t_steps + WARMUP_STEPS), ("eager", ["--eager"],
                                                                          t_steps)):
-        zero_counts()
         with tempfile.TemporaryDirectory() as d:
-            out[how] = generate.main([SMOKE, "--device", "cuda", "--out",
+            path = seeded_run(d, SMOKE)
+            zero_counts()
+            out[how] = generate.main([path, "--device", "cuda", "--out",
                                       os.path.join(d, "x.npy"), *extra])
-        counts = read_counts()
+            counts = read_counts()
         if counts != dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": blocks * steps}:
             raise AssertionError(f"the {how} smoke request launched {counts}")
     err = np.abs(out["graphed"].x0 - out["eager"].x0).max()
@@ -1300,11 +1327,12 @@ def check_requests(config, tag: str) -> dict:
                  len(host._dpmpp_coeffs(15)[0]))]
     out = {}
     for name, extra, steps in requests:
-        zero_counts()
         with tempfile.TemporaryDirectory() as d:
-            res = generate.main([FLAGSHIP, "--per-class", "1", "--device", "cuda",
+            path = seeded_run(d, FLAGSHIP)
+            zero_counts()
+            res = generate.main([path, "--per-class", "1", "--device", "cuda",
                                  "--out", os.path.join(d, "x.npy"), *extra])
-        counts = read_counts()
+            counts = read_counts()
         want = 8 * (steps + WARMUP_STEPS)
         print(f"kernel launches in the {name} request of {steps} steps: {counts} (want {want} "
               f"of the forward kernel: 8 x ({steps} replayed + {WARMUP_STEPS} warm-up steps), "
@@ -1518,6 +1546,17 @@ def seeded_checkpoint(config, path: str) -> str:
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(config.seed)
         torch.save(build_model(config).state_dict(), path)
+    return path
+
+
+def seeded_run(workdir: str, base: str) -> str:
+    """``base`` with its run directory under ``workdir``, and its UNet's
+    weights from its seed where a trainer leaves the EMA weights (what
+    ``generate`` reads by default); the config's path."""
+    path = write_config(os.path.join(workdir, "run.json"), base, workdir=workdir)
+    config = load_config(path)
+    os.makedirs(config.checkpoints, exist_ok=True)
+    seeded_checkpoint(config, checkpoint_path(config))
     return path
 
 
@@ -1986,9 +2025,11 @@ def check_consistency(tag: str) -> dict:
     return out
 
 
-def check_latent(tag: str) -> dict:
+def check_latent(tag: str, keep_dir: str) -> dict:
     """Phase 7e: the VAE, the latent DDPM, their sampler and service at the
-    configs' full width, and the protocol with the latent generator."""
+    configs' full width, and the protocol with the latent generator; the
+    trained VAE's ``autoencoder.pt`` is copied into ``keep_dir`` (phase 7g
+    exports it)."""
     out = {}
     with tempfile.TemporaryDirectory() as workdir:
         ae_cfg = load_config(write_config(os.path.join(workdir, "ae.json"), AE_CONFIG,
@@ -2011,6 +2052,7 @@ def check_latent(tag: str) -> dict:
                 or not os.path.isfile(ae_pt) or any(counts.values())
                 or at.step_counts != {"graphed": 18 - WARMUP_STEPS, "eager": WARMUP_STEPS}):
             raise AssertionError(f"train_autoencoder: {at.step_counts}, {hist}, {counts}")
+        shutil.copy(ae_pt, os.path.join(keep_dir, "autoencoder.pt"))
         ae_scan = at.epoch_scan
         out["autoencoder_device_ms"] = at._steps.captured[ae_scan].device_ms(10)
         print(f"autoencoder step B={TRAIN_B} bf16: device {out['autoencoder_device_ms']:.3f} ms "
@@ -2505,11 +2547,12 @@ def check_mesh_serving(config, tag: str) -> dict:
     """Phase 7f (c): the DDIM-50 service at B=64 with two replicas on the one
     card (``mesh=["cuda:0", "cuda:0"]``, 32 slots each, a graph each): the
     reference request alone and under load, bit for bit against the
-    one-device service at the replicas' batch (B=32) and against itself;
-    the forward kernel's launches; and how far it lands from the one-device
-    service at B=64, which is not bit for bit on this card (ROADMAP queue 3,
-    fault 8: cuDNN takes another bf16 algorithm for a 3x3 conv at 2B=64
-    than at 2B=128, so a slot's image depends on the device's batch size)."""
+    one-device service at the replicas' batch (B=32) and against itself:
+    the service's contract, which is per device batch; the forward kernel's
+    launches; and how far it lands from the one-device service at B=64,
+    which the contract does not promise (cuDNN takes another bf16 algorithm
+    for a 3x3 conv at 2B=64 than at 2B=128, so on a card a slot's image
+    depends on the device's batch size)."""
     host = GaussianDiffusion(T_STEPS)
     steps = len(host.ddim_timesteps(50)[0])
     out = {}
@@ -2549,8 +2592,10 @@ def check_mesh_serving(config, tag: str) -> dict:
     off = np.abs(images["mesh"][0].astype(np.int32) - images["one"][0].astype(np.int32))
     out["vs_one_b64"] = {"pixels_differ": int((off > 0).sum()), "max_diff": int(off.max()),
                          "pixels": int(off.size)}
-    print(f"mesh serving ddim-{steps} B={SERVE_B} over ['cuda:0', 'cuda:0']: {same}; against "
-          f"the one-device service at B={SERVE_B} (fault 8, not asserted): "
+    print(f"mesh serving ddim-{steps} B={SERVE_B} over ['cuda:0', 'cuda:0']: {same} (the "
+          f"contract: a slot's image is a one-device service's at B={SERVE_B // 2}, the "
+          f"replicas' batch); against the one-device service at B={SERVE_B}, which the "
+          f"contract does not promise (printed, not asserted): "
           f"{out['vs_one_b64']['pixels_differ']} of {off.size} values differ, by at most "
           f"{out['vs_one_b64']['max_diff']}")
     if not all(same.values()):
@@ -2600,6 +2645,182 @@ def check_mesh(config, tag: str) -> dict:
         dist.destroy_process_group()
     out["gloo"] = check_mesh_gloo(tag)
     out["serving"] = check_mesh_serving(config, tag)
+    return out
+
+
+# ---------------------------------------------------------------- phase 7g
+def trace_device_events(trace_dir: str) -> list:
+    """The device's events (kernels, copies, sets) of the one Chrome trace
+    under ``trace_dir``, largest first."""
+    paths = glob.glob(os.path.join(trace_dir, "trace_*.json"))
+    if len(paths) != 1:
+        raise AssertionError(f"want one trace under {trace_dir}, found {paths}")
+    with open(paths[0]) as f:
+        events = json.load(f)["traceEvents"]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    return sorted(device, key=lambda e: -e.get("dur", 0))
+
+
+def request_b10(path: str, workdir: str, *extra) -> "generate.Generated":
+    """The DDIM-50 request of 10 images (one a class) through ``generate.main``."""
+    return generate.main([path, "--sampler", "ddim", "--ddim-steps", "50", "--per-class", "1",
+                          "--out", os.path.join(workdir, "b10.npy"), *extra])
+
+
+def check_workflow(tag: str, vae_pt: str) -> dict:
+    """Phase 7g: the reference's workflow at the flagship width, bf16,
+    graphed: (a) ``train.main --profile`` for 2 epochs of 9 steps at B=64,
+    (b) ``generate`` from its checkpoint into the PNG tree, (c)
+    ``train_classifier --pretrain-dir`` on that tree, (d) the checkpoint
+    bridge both ways (the UNet's EMA, the classifier, the VAE of 7e)."""
+    out = {}
+    t_phase = time.perf_counter()
+    host = GaussianDiffusion(T_STEPS)
+    ddim_steps = len(host.ddim_timesteps(50)[0])
+    with tempfile.TemporaryDirectory() as workdir:
+        # (a) train with a trace
+        path = write_config(os.path.join(workdir, "wf.json"), FLAGSHIP, workdir=workdir,
+                            epochs=2, sample_every=0, data={"synthetic_size": SYNTHETIC_SIZE})
+        config = load_config(path)
+        trace_dir = os.path.join(workdir, "trace")
+        zero_counts()
+        t0 = time.perf_counter()
+        run = train.main([path, "--profile", trace_dir])
+        seconds = {"train": time.perf_counter() - t0}
+        counts, steps = read_counts(), run.trainer.state.step
+        events = trace_device_events(trace_dir)
+        by_cat = {c: sum(e["cat"] == c for e in events)
+                  for c in ("kernel", "gpu_memcpy", "gpu_memset")}
+        kernels = [e for e in events if e["cat"] == "kernel"]
+        print(f"(a) train --profile: {steps} steps {run.trainer.step_counts} in "
+              f"{seconds['train']:.1f} s (profiler on; builds, captures, checkpoints and the "
+              f"trace's export included), losses {run.history['train_loss']}; launches {counts}; "
+              f"the trace holds {len(events)} device events {by_cat}, the 5 largest (us): "
+              + "; ".join(f"{e['name'][:70]} {e['dur']}" for e in events[:5])
+              + "; the 5 largest kernels (us): "
+              + "; ".join(f"{e['name'][:70]} {e['dur']}" for e in kernels[:5]) + f" [{tag}]")
+        if (steps != 18 or counts["linear_attention_bwd"] != 8 * steps or not events
+                or not np.isfinite(run.history["train_loss"]).all()):
+            raise AssertionError(f"train --profile: {steps} steps, {counts}, {len(events)} "
+                                 "device events")
+        out["train"] = {"steps": steps, "launches": counts, "device_events": by_cat,
+                        "top5_us": [[e["name"][:100], e["dur"]] for e in events[:5]],
+                        "top5_kernels_us": [[e["name"][:100], e["dur"]] for e in kernels[:5]]}
+
+        # (b) generate from the trained checkpoint into the PNG tree
+        zero_counts()
+        t0 = time.perf_counter()
+        g = generate.main([path, "--sampler", "ddim", "--ddim-steps", "50", "--per-class",
+                           "32", "--out", os.path.join(workdir, "tree.npy")])
+        seconds["generate"] = time.perf_counter() - t0
+        counts = read_counts()
+        want = dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": 8 * (ddim_steps
+                                                                         + WARMUP_STEPS)}
+        back = load_image_folder(config.results, config.data.image_size)
+        # the reader's order: class directories, then file names, as strings
+        order = sorted(range(len(g.paths)), key=lambda i: g.paths[i].split(os.sep)[-2:])
+        classes = np.repeat(np.arange(10), 32)[order]
+        ok = {"320 PNGs": len(g.paths) == 320 and all(os.path.isfile(q) for q in g.paths),
+              "tree read back bit for bit": np.array_equal(back.images, g.images[order])
+              and np.array_equal(back.labels, classes),
+              "launches": counts == want}
+        tree = shutil.copytree(config.results, os.path.join(workdir, "tree"))
+        ck = config.checkpoints
+        ema, raw = request_b10(path, workdir), request_b10(path, workdir, "--no-ema")
+        ok["default == --weights diffusion_model_ema.pt"] = np.array_equal(
+            ema.images, request_b10(path, workdir, "--weights",
+                                    os.path.join(ck, "diffusion_model_ema.pt")).images)
+        ok["--no-ema == --weights diffusion_model.pt"] = np.array_equal(
+            raw.images, request_b10(path, workdir, "--weights",
+                                    os.path.join(ck, "diffusion_model.pt")).images)
+        ok["ema != raw"] = not np.array_equal(ema.x0, raw.x0)
+        empty = write_config(os.path.join(workdir, "empty.json"), FLAGSHIP,
+                             workdir=os.path.join(workdir, "empty"))
+        try:
+            request_b10(empty, workdir)
+            ok["a missing checkpoint raises"] = False
+        except FileNotFoundError as e:
+            ok["a missing checkpoint raises"] = "diffusion_model_ema.pt" in str(e)
+        print(f"(b) generate ddim-{ddim_steps} --per-class 32 (B=320, CFG 3, bf16) from the "
+              f"trained diffusion_model_ema.pt: {g.seconds:.3f} s ({320 / g.seconds:.1f} img/s, "
+              f"warm-up and capture {g.capture_seconds:.3f} s), {seconds['generate']:.1f} s with "
+              f"the model's load and the PNGs; launches {counts} (want {want}); {ok} [{tag}]")
+        if not all(ok.values()):
+            raise AssertionError(f"generate from the checkpoint: {ok}")
+        out["generate"] = {"seconds": g.seconds, "capture_seconds": g.capture_seconds,
+                           "launches": counts["linear_attention_fwd"]}
+
+        # (c) the classifier on the tree
+        clf_path = write_config(os.path.join(workdir, "clf.json"), FLAGSHIP,
+                                workdir=os.path.join(workdir, "clf"), epochs=2, sample_every=0,
+                                data={"synthetic_size": SYNTHETIC_SIZE})
+        zero_counts()
+        t0 = time.perf_counter()
+        clf = train_classifier.main([clf_path, "--pretrain-dir", tree])
+        seconds["classifier"] = time.perf_counter() - t0
+        counts = read_counts()
+        ct = clf.trainer
+        epoch_steps = 2 * (ct.epoch_scan.n_batches if ct.epoch_scan is not None
+                           else len(ct.train_loader))
+        pre_steps = ct.state.step - epoch_steps
+        print(f"(c) train_classifier --pretrain-dir (ResNet-18, B={TRAIN_B}, bf16, 2 epochs): "
+              f"pretrain {pre_steps} steps (want {320 // TRAIN_B}) loss "
+              f"{clf.pretrain['loss']:.4f}, then {epoch_steps} steps, steps "
+              f"{ct.step_counts}; test F1 micro {clf.test['f1_micro']:.4f} macro "
+              f"{clf.test['f1_macro']:.4f}; wall s pretrain {clf.seconds['pretrain']:.3f}, train "
+              f"{clf.seconds['train']:.3f}, test {clf.seconds['test']:.3f}; launches {counts} "
+              f"[{tag}]")
+        if (pre_steps != 320 // TRAIN_B or any(counts.values())
+                or sum(ct.step_counts.values()) != ct.state.step
+                or not np.isfinite(clf.test["loss"])):
+            raise AssertionError(f"train_classifier: {pre_steps} pretrain steps, {counts}")
+        out["classifier"] = {"pretrain_steps": pre_steps, "step_counts": ct.step_counts,
+                             "test": clf.test, "seconds": clf.seconds}
+
+        # (d) the bridge: the UNet's EMA, the classifier, the VAE, out and back in
+        t0 = time.perf_counter()
+        fresh = os.path.join(workdir, "fresh")
+        ok = {}
+        unet_pt = export_torch_checkpoint.main([path, "--ema", "--out",
+                                                os.path.join(workdir, "unet_ref.pt")])
+        fresh_unet = write_config(os.path.join(workdir, "fresh_unet.json"), FLAGSHIP,
+                                  workdir=fresh)
+        import_torch_checkpoint.main([unet_pt, fresh_unet])
+        ok["DDIM-50 B=10 from the imported EMA == from the original"] = np.array_equal(
+            request_b10(fresh_unet, workdir).x0, request_b10(path, workdir).x0)
+        clf_pt = export_torch_checkpoint.main([os.path.join(load_config(clf_path).checkpoints,
+                                                            "resnet.pt"), clf_path,
+                                               "--out", os.path.join(workdir, "clf_ref.pt")])
+        fresh_clf = write_config(os.path.join(workdir, "fresh_clf.json"), clf_path,
+                                 workdir=fresh)
+        import_torch_checkpoint.main([clf_pt, fresh_clf])
+        fcfg = load_config(fresh_clf)
+        _, val_loader, test_loader, classes = create_dataloaders(fcfg)
+        tester = ResNetTrainer(fcfg, build_classifier(fcfg, fcfg.data.image_channels,
+                                                      len(classes), DEV), ct.train_loader,
+                               val_loader, classes, test_loader=test_loader, name="classifier")
+        f1 = tester.test()
+        ok["classifier test F1 after the round trip"] = (
+            f1["f1_micro"] == clf.test["f1_micro"] and f1["f1_macro"] == clf.test["f1_macro"])
+        vae_ref = export_torch_checkpoint.main([vae_pt, AE_CONFIG, "--out",
+                                                os.path.join(workdir, "vae_ref.pt")])
+        fresh_vae = write_config(os.path.join(workdir, "fresh_vae.json"), AE_CONFIG,
+                                 workdir=fresh)
+        vae_in = import_torch_checkpoint.main([vae_ref, fresh_vae])
+        before = torch.load(vae_pt, map_location="cpu", weights_only=True)
+        after = torch.load(vae_in, map_location="cpu", weights_only=True)
+        ok["the 7e VAE tensor for tensor"] = before.keys() == after.keys() and all(
+            torch.equal(before[k], after[k]) for k in before)
+        seconds["bridge"] = time.perf_counter() - t0
+        print(f"(d) the bridge, export then import: {ok}; {seconds['bridge']:.1f} s [{tag}]")
+        if not all(ok.values()):
+            raise AssertionError(f"the bridge: {ok}")
+    seconds["phase"] = time.perf_counter() - t_phase
+    out["seconds"] = seconds
+    print(f"phase 7g seconds by stage: {json.dumps({k: round(v, 3) for k, v in seconds.items()})}"
+          f" (budget 60) [{tag}]")
+    if seconds["phase"] > 60:
+        raise AssertionError(f"phase 7g took {seconds['phase']:.1f} s, over its 60 s budget")
     return out
 
 
@@ -2700,8 +2921,9 @@ def main(argv=None) -> None:
     phase("7e the latent family at full width: train_autoencoder, train_latent, the latent "
           "sampler and service, main --generator-config, bf16")
     t_phase = time.perf_counter()
+    keep = tempfile.TemporaryDirectory()  # the VAE 7e trains, for 7g's bridge
     try:
-        latent = check_latent(tag)
+        latent = check_latent(tag, keep.name)
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
     print(f"phase 7e wall time {time.perf_counter() - t_phase:.1f} s")
@@ -2715,6 +2937,14 @@ def main(argv=None) -> None:
     print(f"phase 7f wall time {time.perf_counter() - t_phase:.1f} s")
     paths["train_b64_dp"] = mesh["world1"]["dp"]
     paths["train_b64_fsdp"] = mesh["world1"]["fsdp"]
+
+    phase("7g the reference's workflow at the flagship width: train --profile, generate into "
+          "the PNG tree, train_classifier --pretrain-dir, the checkpoint bridge both ways")
+    try:
+        workflow = check_workflow(tag, os.path.join(keep.name, "autoencoder.pt"))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+        keep.cleanup()
 
     phase("8 the ResNet-block kernel vs plain, and ResNetBlockFn")
     t_rb = time.perf_counter()
@@ -2780,7 +3010,10 @@ def main(argv=None) -> None:
                              "train_mesh_cli": mesh["cli"]["launches"]["linear_attention_fwd"],
                              "serve_mesh_ddim": mesh["serving"]["mesh"]["launches"],
                              "train_gloo_rank0":
-                                 mesh["gloo"]["rank0"]["launches"]["linear_attention_fwd"]},
+                                 mesh["gloo"]["rank0"]["launches"]["linear_attention_fwd"],
+                             "workflow_train_profiled":
+                                 workflow["train"]["launches"]["linear_attention_fwd"],
+                             "workflow_generate_ddim50_b320": workflow["generate"]["launches"]},
         "launches_per_step": {**per_step("linear_attention_fwd"),
                               "train_dp_per_rank":
                                   mesh["world1"]["launches"]["dp"]["linear_attention_fwd"],
@@ -2812,7 +3045,9 @@ def main(argv=None) -> None:
                                  latent["protocol"]["counts"]["linear_attention_bwd"],
                              "train_mesh_cli": mesh["cli"]["launches"]["linear_attention_bwd"],
                              "train_gloo_rank0":
-                                 mesh["gloo"]["rank0"]["launches"]["linear_attention_bwd"]},
+                                 mesh["gloo"]["rank0"]["launches"]["linear_attention_bwd"],
+                             "workflow_train_profiled":
+                                 workflow["train"]["launches"]["linear_attention_bwd"]},
         "launches_per_step": {**per_step("linear_attention_bwd"),
                               "train_dp_per_rank":
                                   mesh["world1"]["launches"]["dp"]["linear_attention_bwd"],
@@ -2895,6 +3130,10 @@ def main(argv=None) -> None:
                      "one card, fp32, global B=64, eager by design; serving: DDIM-50 B=64 one "
                      "device vs 2 replicas on cuda:0",
         "protocol": protocol,
+        "workflow": workflow,
+        "workflow_unit": "phase 7g: train --profile (2 epochs of 9 steps, B=64), generate "
+                         "DDIM-50 at B=320 into the PNG tree, train_classifier --pretrain-dir "
+                         "(ResNet-18, B=64, 2 epochs), the bridge; seconds: host wall clock",
         "consistency": {k: v for k, v in consistency.items() if k != "path"},
         "latent": {k: v for k, v in latent.items() if k not in ("train_path", "sampler_path")},
         "consistency_unit": "phase 7d: distill.main at the flagship width, B=64, bf16; requests "

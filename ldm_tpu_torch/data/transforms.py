@@ -45,18 +45,45 @@ def bilinear_weights(in_size: int, out_size: int) -> np.ndarray:
     return np.where(inside[None, :], w, f32(0.0)).astype(f32)
 
 
+def _contract(x: np.ndarray, w: np.ndarray, axis: int, lanes: int) -> np.ndarray:
+    """``x`` contracted with ``w`` (K, M) along ``axis`` in float32: ``lanes``
+    accumulators, the j-th a chain of fused multiply-adds over the k = j
+    (mod lanes), then summed pairwise in order.  A product of two float32
+    values is exact in float64, so each step rounds once, as a fused
+    multiply-add does (bar a rare double rounding)."""
+    xm = np.moveaxis(x, axis, -1).astype(np.float64)
+    w64 = w.astype(np.float64)
+    acc = [np.zeros(xm.shape[:-1] + (w.shape[1],), np.float32) for _ in range(lanes)]
+    for k in range(w.shape[0]):
+        acc[k % lanes] = (xm[..., k, None] * w64[k] + acc[k % lanes]).astype(np.float32)
+    while len(acc) > 1:
+        acc = [acc[i] + acc[i + 1] for i in range(0, len(acc), 2)]
+    return np.moveaxis(acc[0], -1, axis)
+
+
+# images a resize takes at once: bounds its float64 temporaries
+RESIZE_CHUNK = 4096
+
+
 def resize_images(images: np.ndarray, size: int) -> np.ndarray:
     """Resize an NHWC uint8 batch to (size, size), bilinear, on the host once
-    (the same signature and result as ``ldm_tpu.data.transforms.resize_images``)."""
+    (the same signature and result as ``ldm_tpu.data.transforms.resize_images``).
+
+    The two contractions run in the order XLA's CPU dot runs them inside
+    ``jax.image.resize``: over H one chain of fused multiply-adds, over W
+    four interleaved chains summed pairwise.  At 32 -> 16 px this is bit for
+    bit the JAX package's resize; at other sizes XLA may block its sums or
+    round its weights otherwise, and the uint8 results stay within 1."""
     if images.shape[1] == size and images.shape[2] == size:
         return images
-    out = images.astype(np.float32)
-    for axis in (1, 2):
-        if out.shape[axis] == size:
-            continue
-        w = bilinear_weights(out.shape[axis], size)
-        out = np.moveaxis(np.tensordot(out, w, axes=([axis], [0])), -1, axis)
-    return np.clip(out, 0, 255).astype(np.uint8)
+    parts = []
+    for i in range(0, len(images), RESIZE_CHUNK):
+        out = images[i: i + RESIZE_CHUNK].astype(np.float32)
+        for axis, lanes in ((1, 1), (2, 4)):
+            if out.shape[axis] != size:
+                out = _contract(out, bilinear_weights(out.shape[axis], size), axis, lanes)
+        parts.append(np.clip(out, 0, 255).astype(np.uint8))
+    return np.concatenate(parts)
 
 
 def scale_to_minus_one_one(images_uint8: np.ndarray) -> np.ndarray:

@@ -20,7 +20,11 @@ as ``python -m ldm_tpu_torch.train`` writes them.  On a CUDA device (the
 default) the sampler's step is captured as a CUDA graph before the server
 listens; ``--device cpu`` runs the eager loop on the CPU.  ``--mesh`` serves
 with one replica on every local card, each batch's slots split over them
-(the JAX server's ``--mesh``).
+(the JAX server's ``--mesh``).  Its contract is per device batch: with n
+cards and ``--batch-size B`` a slot's image is the one a single card serving
+``--batch-size B/n`` gives it, bit for bit, not necessarily the one a single
+card at B gives (cuDNN picks a convolution's algorithm by batch size;
+``GenerationService``).
 """
 
 from __future__ import annotations
@@ -53,7 +57,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--mesh", action="store_true",
-                    help="one replica on every local card, each batch's slots split over them")
+                    help="one replica on every local card, each batch's slots split over "
+                         "them (a slot's image is a one-card service's at batch-size / cards)")
     return ap.parse_args(argv)
 
 

@@ -49,6 +49,13 @@ def checkpoint_path(config: Config, use_ema: bool = True, stem: str = "diffusion
     return os.path.join(config.checkpoints, f"{stem}_ema.pt" if use_ema else f"{stem}.pt")
 
 
+def sampler_checkpoint(config: Config, use_ema: bool, sampler: str) -> str:
+    """The weights ``sampler`` reads by default: the distilled student's for
+    ``consistency``, else the diffusion model's."""
+    stem = "consistency_model" if sampler == CONSISTENCY else "diffusion_model"
+    return checkpoint_path(config, use_ema, stem)
+
+
 def load_sampler(config: Config, checkpoint: Optional[str] = None, use_ema: bool = True,
                  device="cuda") -> Tuple[torch.nn.Module, SamplingProcess]:
     """The UNet with the checkpoint's weights (strict), in eval mode on
@@ -56,8 +63,9 @@ def load_sampler(config: Config, checkpoint: Optional[str] = None, use_ema: bool
     ``RectifiedFlow``)."""
     checkpoint = checkpoint or checkpoint_path(config, use_ema)
     if not os.path.exists(checkpoint):
-        raise FileNotFoundError(f"diffusion checkpoint not found: {checkpoint} "
-                                "(train first, or pass --checkpoint)")
+        raise FileNotFoundError(f"diffusion checkpoint not found: {checkpoint} (train "
+                                "first, or name the weights: serve's --checkpoint, "
+                                "generate's --weights)")
     device = torch.device(device)
     model = build_model(config)
     model.load_state_dict(torch.load(checkpoint, map_location="cpu", weights_only=True),
@@ -101,8 +109,7 @@ def build_generation_service(
     cfg = config.diffusion.cfg_scale if cfg_scale is None else cfg_scale
     d = config.data
     pixel_shape = (d.image_size, d.image_size, d.image_channels)
-    checkpoint = checkpoint or checkpoint_path(
-        config, use_ema, "consistency_model" if consistency else "diffusion_model")
+    checkpoint = checkpoint or sampler_checkpoint(config, use_ema, sampler)
     devices = [torch.device(dv) for dv in (mesh if mesh is not None else [device])]
     if mesh is not None and (not devices or batch_size % len(devices)):
         raise ValueError(f"batch_size={batch_size} must divide by the mesh's "

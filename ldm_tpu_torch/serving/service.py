@@ -192,7 +192,15 @@ class GenerationService:
       device: where the sampler runs; ``sample_fn`` returns tensors there.
       devices: replicas over these local devices (``sample_fn`` then a list
         of as many, the i-th sampling on ``devices[i]``); ``batch_size`` must
-        divide by their count.
+        divide by their count.  The contract is per device batch: a service
+        over n replicas at batch B gives each slot the image that a
+        one-device service at batch B/n gives it (each replica samples its
+        B/n slots as such a service would).  It need not be the image of a
+        one-device service at B: a GPU's convolution libraries choose their
+        algorithm by shape, and cuDNN's bf16 3x3 convolution sums in another
+        order at another batch size (on an H100 2,376 of 30,720 values of a
+        DDIM-50 request move by up to 10 of 255 between B=32 and B=64).  On
+        the CPU it is that image too, as the JAX service's is on a TPU.
       x_init_fn: ``(seeds, slot indices) -> x_T``; by default each slot's
         x_T is drawn from :func:`slot_generator`.  Randomness is an input:
         a test hands in another package's draws here.

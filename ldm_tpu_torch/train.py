@@ -4,7 +4,7 @@ config -> data loaders -> UNet + diffusion -> DiffusionTrainer -> train().
 
     python -m ldm_tpu_torch.train configs/pixel_diffusion_model_cifar10.yaml \\
         [--epochs N] [--resume] [--device cuda] [--strict-data] [--eager] \\
-        [--mesh | --distributed]
+        [--mesh | --distributed] [--profile DIR]
 
 Data parallel on a machine with several cards (one process a card, over
 NCCL; ``param_sharding: fsdp`` in the config for ZeRO-3):
@@ -21,6 +21,10 @@ On a CUDA device the train step (everything after the step's random draws)
 and the sample grid's sampler steps run as CUDA graphs captured once and
 replayed; ``--eager`` asks for the steps that launch every kernel from
 Python (the only ones on the CPU).
+
+``--profile DIR`` records the training run (``trainer.train()``) with
+``torch.profiler`` (the host's operators, and the card's kernels when there
+is one) and writes its Chrome trace under DIR (``utils/profiling.py``).
 
 Data come from ``ldm_tpu_torch.data`` (the JAX package's numpy readers and
 loaders, resized without JAX): when the dataset's files are not under the
@@ -44,6 +48,7 @@ from ldm_tpu_torch.data.loader import create_dataloaders
 from ldm_tpu_torch.factory import build_diffusion, build_model, load_config
 from ldm_tpu_torch.training.diffusion_trainer import DiffusionTrainer
 from ldm_tpu_torch.utils.cli import add_runtime_args, runtime_setup
+from ldm_tpu_torch.utils.profiling import trace
 
 
 class Run(NamedTuple):
@@ -67,17 +72,21 @@ def build_trainer(config: Config, device, strict_data: bool = False,
 
 
 def run(config: Config, device="cuda", resume: bool = False,
-        strict_data: bool = False, eager: bool = False, mesh=None) -> Run:
+        strict_data: bool = False, eager: bool = False, mesh=None,
+        profile: Optional[str] = None) -> Run:
     """Build the trainer for ``config`` on ``device``, resume from the latest
     checkpoint if asked and one exists, and train ``config.epochs`` epochs;
-    ``eager``: without CUDA graphs; ``mesh``: data parallel over it."""
+    ``eager``: without CUDA graphs; ``mesh``: data parallel over it;
+    ``profile``: a directory for the training's trace."""
     device = torch.device(device)
     trainer = build_trainer(config, device, strict_data, eager, mesh)
     resumed = None
     if resume and trainer.resume_latest():
         resumed = trainer.state.step
         print(f"resumed from step {resumed}")
-    return Run(trainer, trainer.train(), resumed)
+    with trace(profile):
+        history = trainer.train()
+    return Run(trainer, history, resumed)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Run:
@@ -90,13 +99,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Run:
     add_runtime_args(ap)
     ap.add_argument("--eager", action="store_true",
                     help="launch every kernel from Python instead of replaying CUDA graphs")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of the training under DIR")
     args = ap.parse_args(argv)
     config = load_config(args.config)
     if args.epochs is not None:
         config = dataclasses.replace(config, epochs=args.epochs)
     device, mesh = runtime_setup(args)
     return run(config, device, resume=args.resume, strict_data=args.strict_data,
-               eager=args.eager, mesh=mesh)
+               eager=args.eager, mesh=mesh, profile=args.profile)
 
 
 if __name__ == "__main__":

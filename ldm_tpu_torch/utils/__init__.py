@@ -1,1 +1,4 @@
-"""Utilities: the weight bridge from the JAX package, metrics logging."""
+"""Utilities: the weight bridges, metrics logging, images, timing and
+tracing."""
+
+from ldm_tpu_torch.utils.timing import timeit  # noqa: F401

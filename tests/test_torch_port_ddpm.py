@@ -16,6 +16,8 @@ from ldm_tpu.diffusion.schedule import DiffusionSchedule as JaxSchedule
 from ldm_tpu.models.unet import UNet as FlaxUNet
 from ldm_tpu_torch import generate
 from ldm_tpu_torch.diffusion.ddpm import GaussianDiffusion
+from ldm_tpu_torch.factory import build_model, load_config
+from ldm_tpu_torch.serving.builder import checkpoint_path
 from ldm_tpu_torch.diffusion.schedule import DiffusionSchedule
 from ldm_tpu_torch.models.unet import UNet
 from ldm_tpu_torch.ops import linear_attention as la
@@ -131,12 +133,24 @@ data:
 """
 
 
+def seeded_weights(cfg) -> str:
+    """The config's UNet with weights from its seed, written where the
+    trainer leaves its EMA weights (what ``generate`` reads by default)."""
+    config = load_config(str(cfg))
+    path = checkpoint_path(config)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.manual_seed(config.seed)
+    torch.save(build_model(config).state_dict(), path)
+    return path
+
+
 @pytest.mark.parametrize("amp", [True, False])
 def test_generate_main_end_to_end_on_cpu(tmp_path, amp):
-    """config -> model -> diffusion -> sample -> uint8 NHWC .npy, seeded and
-    repeatable; a CPU run launches no kernel."""
+    """config -> the run directory's weights -> diffusion -> sample -> uint8
+    NHWC .npy and PNG tree, repeatable; a CPU run launches no kernel."""
     cfg = tmp_path / "tiny.yaml"
     cfg.write_text(TINY_YAML.format(workdir=tmp_path / "runs", amp=amp))
+    seeded_weights(cfg)
     before = la.linear_attention_block.launches
     out = tmp_path / "x.npy"
     res = generate.main([str(cfg), "--device", "cpu", "--per-class", "2", "--out", str(out)])
@@ -147,6 +161,7 @@ def test_generate_main_end_to_end_on_cpu(tmp_path, amp):
                            "--out", str(tmp_path / "y.npy")])
     np.testing.assert_array_equal(again.x0, res.x0)
     assert la.linear_attention_block.launches == before
+    assert len(res.paths) == 20 and all(os.path.exists(p) for p in res.paths)
 
 
 def test_generate_main_loads_exported_weights(tmp_path):
@@ -172,6 +187,7 @@ def test_generate_main_loads_exported_weights(tmp_path):
 
     res = generate.main([str(cfg), "--device", "cpu", "--weights", weights,
                          "--out", str(tmp_path / "x.npy")])
+    seeded_weights(cfg)
     seeded = generate.main([str(cfg), "--device", "cpu", "--out", str(tmp_path / "y.npy")])
     assert res.images.shape == (10, 8, 8, 3)
     assert not np.array_equal(res.x0, seeded.x0)  # the weights were used

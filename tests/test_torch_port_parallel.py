@@ -179,6 +179,30 @@ def test_graph_policy_follows_the_backend():
     assert not use_graphs("cpu", None, FakeMesh(backend="gloo"))
 
 
+def served(cfg, ckpt, mesh, batch_size):
+    """A request alone, the same request among others, and the others,
+    through a DDIM-3 service at ``batch_size`` over ``mesh`` (None: one
+    device); the service's devices."""
+    kw = dict(sampler="ddim", ddim_steps=3, max_delay_s=0.05, use_native=False, device="cpu")
+    svc = build_generation_service(cfg, str(ckpt), mesh=mesh, batch_size=batch_size,
+                                   **kw).start()
+    try:
+        alone = svc.submit(3, n=3, seed=11).result(timeout=120)
+        futs = [svc.submit(c, n=2, seed=c) for c in range(4)]
+        mixed = svc.submit(3, n=3, seed=11)
+        return (alone, mixed.result(timeout=120),
+                [f.result(timeout=120) for f in futs]), svc.devices
+    finally:
+        svc.stop()
+
+
+def seeded_unet_checkpoint(tmp_path):
+    torch.manual_seed(0)
+    ckpt = tmp_path / "unet.pt"
+    torch.save(UNet(**w.MODEL).state_dict(), ckpt)
+    return ckpt
+
+
 def test_mesh_serving_over_two_cpu_replicas_is_bit_identical(tmp_path):
     """One replica a device over ["cpu", "cpu"], each sampling its half of
     every batch's slots: a request's images equal the one-device service's
@@ -186,28 +210,32 @@ def test_mesh_serving_over_two_cpu_replicas_is_bit_identical(tmp_path):
     the devices raises."""
     torch.set_num_threads(1)
     cfg = w.tiny_config(tmp_path)
-    torch.manual_seed(0)
-    ckpt = tmp_path / "unet.pt"
-    torch.save(UNet(**w.MODEL).state_dict(), ckpt)
-    kw = dict(sampler="ddim", ddim_steps=3, batch_size=4, max_delay_s=0.05, use_native=False,
-              device="cpu")
+    ckpt = seeded_unet_checkpoint(tmp_path)
     with pytest.raises(ValueError, match="divide"):
-        build_generation_service(cfg, str(ckpt), mesh=["cpu"] * 3, **kw)
-    out = {}
-    for name, mesh in (("one", None), ("mesh", ["cpu", "cpu"])):
-        svc = build_generation_service(cfg, str(ckpt), mesh=mesh, **kw).start()
-        try:
-            alone = svc.submit(3, n=3, seed=11).result(timeout=120)
-            futs = [svc.submit(c, n=2, seed=c) for c in range(4)]
-            mixed = svc.submit(3, n=3, seed=11)
-            out[name] = (alone, mixed.result(timeout=120),
-                         [f.result(timeout=120) for f in futs])
-        finally:
-            svc.stop()
-    assert len(svc.devices) == 2
-    np.testing.assert_array_equal(out["mesh"][0], out["one"][0])
-    np.testing.assert_array_equal(out["mesh"][1], out["one"][0])
-    for a, b in zip(out["mesh"][2], out["one"][2]):
+        build_generation_service(cfg, str(ckpt), mesh=["cpu"] * 3, sampler="ddim",
+                                 ddim_steps=3, batch_size=4, use_native=False, device="cpu")
+    one, _ = served(cfg, ckpt, None, 4)
+    mesh, devices = served(cfg, ckpt, ["cpu", "cpu"], 4)
+    assert len(devices) == 2
+    np.testing.assert_array_equal(mesh[0], one[0])
+    np.testing.assert_array_equal(mesh[1], one[0])
+    for a, b in zip(mesh[2], one[2]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_mesh_serving_contract_is_per_device_batch(tmp_path):
+    """The contract a GPU can keep (cuDNN chooses a convolution's algorithm
+    by batch size): two replicas at B=4 give each slot what a one-device
+    service at B/2 = 2 gives it, bit for bit, alone and among others."""
+    torch.set_num_threads(1)
+    cfg = w.tiny_config(tmp_path)
+    ckpt = seeded_unet_checkpoint(tmp_path)
+    half, devices = served(cfg, ckpt, None, 2)
+    mesh, _ = served(cfg, ckpt, ["cpu", "cpu"], 4)
+    assert devices == [torch.device("cpu")]
+    np.testing.assert_array_equal(mesh[0], half[0])
+    np.testing.assert_array_equal(mesh[1], half[0])
+    for a, b in zip(mesh[2], half[2]):
         np.testing.assert_array_equal(a, b)
 
 

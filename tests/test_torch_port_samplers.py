@@ -4,6 +4,8 @@ ldm_tpu/diffusion/ddpm.py with the same weights, inputs and noise; the
 samplers through ``DiffusionTrainer.sample(method=...)`` and
 ``generate.main --sampler`` on the CPU."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +17,9 @@ from ldm_tpu.diffusion.ddpm import GaussianDiffusion as JaxDiffusion
 from ldm_tpu.models.unet import UNet as FlaxUNet
 from ldm_tpu_torch import generate
 from ldm_tpu_torch.diffusion.ddpm import GaussianDiffusion
+from ldm_tpu_torch.factory import build_model, load_config
 from ldm_tpu_torch.models.unet import UNet
+from ldm_tpu_torch.serving.builder import checkpoint_path
 from ldm_tpu_torch.training.diffusion_trainer import DiffusionTrainer, run_sampler
 from ldm_tpu_torch.utils.flax_import import unet_from_flax
 from ldm_tpu_torch.utils.graphs import StepGraph, use_graphs
@@ -287,6 +291,10 @@ def test_generate_main_sampler_on_cpu(tmp_path, sampler, capsys):
     give different images."""
     cfg = tmp_path / "tiny.yaml"
     cfg.write_text(TINY_YAML.format(workdir=tmp_path / "runs"))
+    config = load_config(str(cfg))
+    os.makedirs(config.checkpoints)
+    torch.manual_seed(config.seed)  # the run directory's weights, from the seed
+    torch.save(build_model(config).state_dict(), checkpoint_path(config))
     argv = [str(cfg), "--device", "cpu", "--sampler", sampler, "--ddim-steps", "3",
             "--out", str(tmp_path / "x.npy")]
     res = generate.main(argv)

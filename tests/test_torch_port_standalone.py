@@ -88,7 +88,8 @@ def test_no_import_of_the_jax_package(rel):
 def test_port_runs_where_ldm_tpu_cannot_be_imported(tmp_path):
     """A fresh interpreter whose import system raises on ``ldm_tpu`` (and
     jax, jaxlib, flax): every port module imports, the configs load, the
-    synthetic loaders yield a batch and ``generate.main`` samples on the CPU."""
+    synthetic loaders yield a batch and ``generate.main`` samples seeded
+    weights from a ``.pt`` on the CPU."""
     code = f"""
 import importlib, importlib.abc, pkgutil, sys
 class Refuse(importlib.abc.MetaPathFinder):
@@ -111,7 +112,14 @@ cfg.workdir = {str(tmp_path)!r}
 train, val, test, classes = create_dataloaders(cfg)
 batch = next(iter(train))
 assert batch["image"].shape == (8, 16, 16, 1) and len(classes) == 10
-res = generate.main(["configs/smoke_synthetic.yaml", "--device", "cpu",
+import dataclasses, json, torch
+from ldm_tpu_torch.factory import build_model
+torch.manual_seed(0)
+torch.save(build_model(cfg).state_dict(), {str(tmp_path / "w.pt")!r})
+with open({str(tmp_path / "smoke.json")!r}, "w") as f:
+    json.dump(dataclasses.asdict(cfg), f)
+res = generate.main([{str(tmp_path / "smoke.json")!r}, "--device", "cpu",
+                     "--weights", {str(tmp_path / "w.pt")!r},
                      "--out", {str(tmp_path / "s.npy")!r}])
 assert res.images.shape == (10, 16, 16, 1) and str(res.images.dtype) == "uint8"
 assert not [k for k in sys.modules if k.split(".")[0] in {sorted(FORBIDDEN)!r}]
