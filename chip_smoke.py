@@ -188,6 +188,19 @@ failure raises and exits nonzero:
    DDIM-50 request at B=10 bit for bit, the classifier exported and imported
    the same test F1, phase 7e's VAE the same tensors; the phase's seconds by
    stage, within 60.
+7h. the mesh's model axis (``parallel/tp.py``, ``parallel/sp_explicit.py``)
+   at the flagship width, fp32: (a) two processes on the one card over gloo
+   (``--axis-worker``; eager by design) as a (data=1, model=2) mesh, for
+   ``param_sharding`` tp and fsdp_tp and ``activation_sharding`` spatial, 6
+   steps at global B=64 against one process on the same batches and draws
+   (the model axis's plain per-head attention; losses rtol 1e-5, parameters
+   atol 5e-3), no attention kernel launched, each process's parameter bytes
+   against the rule's arithmetic, host ms a step beside phase 7f's gloo DP
+   step; (b) the DDIM-50 request at B=10 from the same EMA weights and x_T
+   under tp and spatial against one process (1e-3); (c) tp at model = 1
+   over a NCCL group of this process alone, graphed: bit for bit the
+   one-process step over 8 steps, 8 + 8 launches a replayed step; (d) the
+   phase within 120 s.
 8. the fused ResNet-block kernel (``ops/resnet_block.py``) vs plain: at
    the 11 ResNet sites of the 32px flagship UNet at 2B=20 and 2B=128, at
    probe 13's four sites at 2B=256, at the 64px (4096, 64->64) site at
@@ -2280,12 +2293,14 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def mesh_trainer(cfg, mesh, graphs=None, seed: int = 11) -> DiffusionTrainer:
-    """The flagship UNet from ``seed`` in a trainer over ``mesh`` (None:
-    one process), no loaders: the caller hands over the batches."""
+def mesh_trainer(cfg, mesh, graphs=None, seed: int = 11, attention_impl=None
+                 ) -> DiffusionTrainer:
+    """The flagship UNet from ``seed`` (its attention blocks' ``impl``
+    ``attention_impl``) in a trainer over ``mesh`` (None: one process), no
+    loaders: the caller hands over the batches."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = build_model(cfg, DEV)
+        model = build_model(cfg, DEV).set_attention_impl(attention_impl)
     return DiffusionTrainer(cfg, model, build_diffusion(cfg, DEV), None, None, list(range(10)),
                             device=DEV, graphs=graphs, mesh=mesh)
 
@@ -2350,50 +2365,61 @@ def fsdp_rule_as_if(n: int):
         fsdp.fsdp_shard_dim = rule
 
 
-def _check_mesh_world1(config, tag: str, mesh, out: dict) -> dict:
+def graphed_fp32_runs(cfg, variants, out: dict) -> dict:
+    """Each variant ``(name, param_sharding, mesh, rule_n)`` of the flagship
+    trainer over ``MESH_STEPS`` fp32 steps on the same batches and draws,
+    graphed: its losses, attention weights, step counts and sharded leaves;
+    a replayed step must launch 8 + 8 attention kernels.  Every variant but
+    the first ("one": one process) is held to it within ``MESH_TOL``."""
     from ldm_tpu_torch.parallel import fsdp
 
+    steps = global_steps(MESH_STEPS, 21)
+    runs = {}
+    for name, sharding, m, rule_n in variants:
+        with fsdp_rule_as_if(rule_n):
+            tr = mesh_trainer(dataclasses.replace(cfg, param_sharding=sharding), m)
+        losses = []
+        for i, (batch, draws) in enumerate(steps):
+            if i == MESH_STEPS - 1:
+                zero_counts()
+            losses.append(tr.train_step(batch, **draws)["loss"].item())
+        counts = read_counts()
+        runs[name] = (losses, attn_weights(tr.state.state_dict()["model"]),
+                      tr.step_counts, [n for n, p in tr.model.named_parameters()
+                                       if fsdp.is_sharded(p)])
+        print(f"  fp32 {name}: losses {' '.join(f'{v:.7f}' for v in losses)}; steps "
+              f"{tr.step_counts}; one replayed step's launches {counts}; sharded leaves "
+              f"{len(runs[name][3])}")
+        if counts != dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": 8,
+                                                  "linear_attention_bwd": 8}:
+            raise AssertionError(f"{name}: a replayed step launched {counts}")
+        if tr.step_counts != {"graphed": MESH_STEPS - WARMUP_STEPS, "eager": WARMUP_STEPS}:
+            raise AssertionError(f"{name}: step counts {tr.step_counts}")
+        out["launches"][name] = counts
+        del tr
+        torch.cuda.empty_cache()
+    one = variants[0][0]
+    ref_losses, ref_w = runs[one][:2]
+    for name, *_ in variants[1:]:
+        losses, w = runs[name][0], runs[name][1]
+        loss_rel = max(abs(a - b) / b for a, b in zip(losses, ref_losses))
+        w_rel = worst_rel(w, ref_w)
+        out[f"{name}_fp32_loss_rel"], out[f"{name}_fp32_weight_rel"] = loss_rel, w_rel
+        print(f"world size 1 {name} vs {one}, fp32, {MESH_STEPS} steps "
+              f"({MESH_STEPS - WARMUP_STEPS} replayed): losses within {loss_rel:.2e}, the "
+              f"{len(w)} attention weights within {w_rel:.2e} of their largest entry "
+              f"(bar {MESH_TOL})")
+        if loss_rel > MESH_TOL or w_rel > MESH_TOL:
+            raise AssertionError(f"{name} left the one-process step")
+    return runs
+
+
+def _check_mesh_world1(config, tag: str, mesh, out: dict) -> dict:
     variants = (("one", "replicated", None, 1), ("dp", "replicated", mesh, 1),
                 ("fsdp", "fsdp", mesh, 1), ("fsdp2", "fsdp", mesh, 2))
     with tempfile.TemporaryDirectory() as workdir:
         cfg = dataclasses.replace(config, use_amp=False, workdir=workdir)
-        steps = global_steps(MESH_STEPS, 21)
-        runs = {}
-        for name, sharding, m, rule_n in variants:
-            with fsdp_rule_as_if(rule_n):
-                tr = mesh_trainer(dataclasses.replace(cfg, param_sharding=sharding), m)
-            losses = []
-            for i, (batch, draws) in enumerate(steps):
-                if i == MESH_STEPS - 1:
-                    zero_counts()
-                losses.append(tr.train_step(batch, **draws)["loss"].item())
-            counts = read_counts()
-            runs[name] = (losses, attn_weights(tr.state.state_dict()["model"]),
-                          tr.step_counts, [n for n, p in tr.model.named_parameters()
-                                           if fsdp.is_sharded(p)])
-            print(f"  fp32 {name}: losses {' '.join(f'{v:.7f}' for v in losses)}; steps "
-                  f"{tr.step_counts}; one replayed step's launches {counts}; sharded leaves "
-                  f"{len(runs[name][3])}")
-            if counts != dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": 8,
-                                                      "linear_attention_bwd": 8}:
-                raise AssertionError(f"{name}: a replayed step launched {counts}")
-            if tr.step_counts != {"graphed": MESH_STEPS - WARMUP_STEPS, "eager": WARMUP_STEPS}:
-                raise AssertionError(f"{name}: step counts {tr.step_counts}")
-            out["launches"][name] = counts
-            del tr
-            torch.cuda.empty_cache()
-        ref_losses, ref_w = runs["one"][0], runs["one"][1]
-        for name in ("dp", "fsdp", "fsdp2"):
-            losses, w = runs[name][0], runs[name][1]
-            loss_rel = max(abs(a - b) / b for a, b in zip(losses, ref_losses))
-            w_rel = worst_rel(w, ref_w)
-            out[f"{name}_fp32_loss_rel"], out[f"{name}_fp32_weight_rel"] = loss_rel, w_rel
-            print(f"world size 1 {name} vs one process, fp32, {MESH_STEPS} steps "
-                  f"({MESH_STEPS - WARMUP_STEPS} replayed): losses within {loss_rel:.2e}, the "
-                  f"{len(w)} attention weights within {w_rel:.2e} of their largest entry "
-                  f"(bar {MESH_TOL})")
-            if loss_rel > MESH_TOL or w_rel > MESH_TOL:
-                raise AssertionError(f"{name} left the one-process step")
+        runs = graphed_fp32_runs(cfg, variants, out)
         if runs["dp"][3] or runs["fsdp"][3] or not runs["fsdp2"][3]:
             raise AssertionError("the rule sharded a leaf at N = 1, or none as at N = 2")
 
@@ -2648,6 +2674,233 @@ def check_mesh(config, tag: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 7h
+AXIS_MODES = ("tp", "fsdp_tp", "spatial")
+AXIS_STEPS = GLOO_STEPS
+AXIS_BUDGET_S = 120
+AXIS_SAMPLE_TOL = 1e-3  # fp32 trajectories (the graphed-vs-eager-vs-plain bar)
+AXIS_SAMPLED = ("tp", "spatial")
+
+
+def axis_config(workdir: str, mode: str):
+    """The flagship config in fp32 under a model-axis placement: ``tp`` /
+    ``fsdp_tp`` parameters, or ``spatial`` activations."""
+    cfg = dataclasses.replace(load_config(FLAGSHIP), use_amp=False, workdir=workdir)
+    if mode == "spatial":
+        return dataclasses.replace(cfg, activation_sharding="spatial")
+    return dataclasses.replace(cfg, param_sharding=mode)
+
+
+def rule_bytes(cfg, model: int) -> tuple:
+    """(bytes a process holds of the flagship's fp32 parameters under the TP
+    rule over a model axis of ``model``, bytes of the whole model): from
+    the shapes alone."""
+    from ldm_tpu_torch.parallel.tp import tp_leaf_spec
+
+    shapes = {n: tuple(p.shape) for n, p in build_model(cfg, "cpu").named_parameters()}
+    whole = sum(4 * int(np.prod(v)) for v in shapes.values())
+    share = sum(4 * int(np.prod(v)) // (model if tp_leaf_spec(n.split("."), v, model) else 1)
+                for n, v in shapes.items())
+    return share, whole
+
+
+def axis_worker(rank: int, port: int, outdir: str) -> None:
+    """One of phase 7h (a)'s two processes on the one card: a (data=1,
+    model=2) mesh over gloo (eager steps by design), fp32, global B=64, each
+    placement of ``AXIS_MODES`` for ``AXIS_STEPS`` steps on the given global
+    batches and draws; its bytes of the parameters, host ms a step, the
+    launches; then the DDIM-50 request at B=10 from the EMA under tp and
+    spatial."""
+    import torch.distributed as dist
+
+    from ldm_tpu_torch.parallel import create_mesh, fsdp
+    from ldm_tpu_torch.parallel.mesh import shard_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=2)
+    try:
+        mesh = create_mesh(model=2, device=DEV)
+        # gloo's MAX on a CUDA tensor (the spatial k-softmax shift's reduction)
+        m = torch.tensor([float(rank), -float(rank)], device=DEV)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=mesh.model_group)
+        res = {"mesh": repr(mesh), "gloo_max": m.tolist()}
+        with tempfile.TemporaryDirectory() as workdir:
+            for mode in AXIS_MODES:
+                cfg = axis_config(workdir, mode)
+                tr = mesh_trainer(cfg, mesh)
+                if tr.graphs:
+                    raise AssertionError("a gloo step must run eagerly")
+                losses, gnorms, ms = [], [], []
+                zero_counts()
+                for batch, draws in global_steps(AXIS_STEPS, 31):
+                    t0 = time.perf_counter()
+                    m = tr.train_step(shard_batch(mesh, batch), **draws)
+                    losses.append(m["loss"].item())
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    gnorms.append(m["grad_norm"].item())
+                out = {"losses": losses, "grad_norms": gnorms, "ms": ms, "counts": read_counts(),
+                       "bytes": sum(fsdp.local(p).nbytes for p in tr.model.parameters()),
+                       "impls": sorted({str(b.impl) for b in tr.model.lin_attn_blocks()})}
+                state = tr.state.state_dict()  # gathered: every process calls it
+                out["model"] = {k: v.float().cpu() for k, v in state["model"].items()}
+                if mode in AXIS_SAMPLED:
+                    out["ema"] = {k: v.cpu() for k, v in state["ema"].items()}
+                    zero_counts()
+                    t0 = time.perf_counter()
+                    out["x0"] = tr.sample_x0(REF_CLASSES, cfg_scale=3.0, method="ddim",
+                                             ddim_steps=50).cpu()
+                    out["sample_s"] = time.perf_counter() - t0
+                    out["sample_counts"] = read_counts()
+                res[mode] = out
+                del tr, state
+                torch.cuda.empty_cache()
+        torch.save(res, os.path.join(outdir, f"rank{rank}.pt"))
+        mesh.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def check_axis_gloo(tag: str, gloo_dp_ms: float) -> dict:
+    """Phase 7h (a) and (b): two processes on the one card over gloo as a
+    (data=1, model=2) mesh, each placement against one process on the same
+    global batches and draws (losses rtol 1e-5, parameters atol 5e-3: the
+    JAX TP / SP bars; each step's gradient norm rtol 1e-5), no attention
+    kernel launched; the DDIM-50 request at B=10 under tp and spatial
+    against one process from the same EMA weights and x_T (fp32, 1e-3).
+    The one-process reference runs the attention the model axis runs
+    (``impl="torch"``, plain PyTorch); the kernel path's distance from it is
+    printed beside."""
+    port = free_port()
+    with tempfile.TemporaryDirectory() as outdir:
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--axis-worker",
+                                   str(r), str(port), outdir], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=AXIS_BUDGET_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                raise AssertionError(f"model-axis worker {r} failed:\n{logs[r][-4000:]}")
+        outs = [torch.load(os.path.join(outdir, f"rank{r}.pt"), weights_only=False)
+                for r in range(2)]
+        cfg = axis_config(outdir, "tp")
+        want, ref_model, ref_x0 = {}, {}, {}
+        for impl in ("torch", None):
+            ref = mesh_trainer(cfg, None, graphs=False, attention_impl=impl)
+            steps = [ref.train_step(b, **d) for b, d in global_steps(AXIS_STEPS, 31)]
+            want[impl] = [m["loss"].item() for m in steps]
+            if impl == "torch":
+                want_gnorms = [m["grad_norm"].item() for m in steps]
+                ref_model = {k: v.float().cpu() for k, v in ref.state.state_dict()["model"].items()}
+                for mode in AXIS_SAMPLED:
+                    ref.state.ema.load_state_dict(outs[0][mode]["ema"])
+                    ref_x0[mode] = ref.sample_x0(REF_CLASSES, cfg_scale=3.0, method="ddim",
+                                                 ddim_steps=50).cpu()
+            del ref
+            torch.cuda.empty_cache()
+    share, whole = rule_bytes(cfg, 2)
+    none = dict.fromkeys(COUNTED, 0)
+    print(f"{outs[0]['mesh']}; one process on the same batches and draws, the model axis's "
+          f"attention (plain): losses {' '.join(f'{v:.6f}' for v in want['torch'])}, gradient "
+          f"norms {' '.join(f'{v:.6f}' for v in want_gnorms)}; the kernel path's losses: "
+          f"{' '.join(f'{v:.6f}' for v in want[None])} (within "
+          f"{max(abs(a - b) / b for a, b in zip(want[None], want['torch'])):.2e}, printed); "
+          f"gloo MAX over the model group on cuda tensors {[o['gloo_max'] for o in outs]}")
+    if any(o["gloo_max"] != [1.0, 0.0] for o in outs):
+        raise AssertionError("gloo's MAX over the model group went wrong")
+    out = {"gloo_dp_step_ms": gloo_dp_ms}
+    for mode in AXIS_MODES:
+        out[mode] = {}
+        for r, o in enumerate(outs):
+            m = o[mode]
+            loss_rel = max(abs(a - b) / b for a, b in zip(m["losses"], want["torch"]))
+            gnorm_rel = max(abs(a - b) / b for a, b in zip(m["grad_norms"], want_gnorms))
+            param_abs = max(float((m["model"][k] - v).abs().max()) for k, v in ref_model.items())
+            expect = whole if mode == "spatial" else share
+            print(f"  {mode} rank {r}: losses {' '.join(f'{v:.6f}' for v in m['losses'])}: "
+                  f"within {loss_rel:.2e} (rtol 1e-5); gradient norms within {gnorm_rel:.2e} "
+                  f"(rtol 1e-5); parameters within {param_abs:.2e} "
+                  f"(atol 5e-3); attention {m['impls']}, launches in {AXIS_STEPS} steps "
+                  f"{m['counts']}; parameter bytes {m['bytes']:,} (the rule: {expect:,} of "
+                  f"{whole:,}); host ms a step {' '.join(f'{v:.1f}' for v in m['ms'])} [{tag}]")
+            if loss_rel > 1e-5 or gnorm_rel > 1e-5 or param_abs > 5e-3:
+                raise AssertionError(f"{mode} rank {r} left the one-process run")
+            if m["counts"] != none or m["impls"] != ["torch"]:
+                raise AssertionError(f"{mode} rank {r} launched {m['counts']}")
+            if m["bytes"] != expect:
+                raise AssertionError(f"{mode} rank {r} holds {m['bytes']} bytes, not {expect}")
+            row = {"loss_rel": loss_rel, "grad_norm_rel": gnorm_rel, "param_abs": param_abs,
+                   "bytes": m["bytes"],
+                   "step_ms": m["ms"], "launches": m["counts"]}
+            if mode in AXIS_SAMPLED:
+                err = float((m["x0"] - ref_x0[mode]).abs().max())
+                print(f"  {mode} rank {r}: DDIM-50 at B=10, CFG 3, fp32, from the same EMA and "
+                      f"x_T: within {err:.2e} of one process (bar {AXIS_SAMPLE_TOL}); "
+                      f"{m['sample_s']:.2f} s; launches {m['sample_counts']} [{tag}]")
+                if err > AXIS_SAMPLE_TOL or m["sample_counts"] != none:
+                    raise AssertionError(f"{mode} rank {r}: the sampler left one process")
+                row.update(sample_err=err, sample_s=m["sample_s"])
+            out[mode][f"rank{r}"] = row
+        steady = float(np.median([v for o in outs for v in o[mode]["ms"][1:]]))
+        out[mode]["step_ms_median"] = steady
+        print(f"{mode} step, 2 processes on one card as (data=1, model=2), fp32, global "
+              f"B={TRAIN_B}, eager by design: host {steady:.3f} ms a step (median of steps "
+              f"2-{AXIS_STEPS} of both processes), phase 7f's gloo DP step {gloo_dp_ms:.3f} ms "
+              f"[{tag}]")
+    out["bytes_rule"] = {"tp_share": share, "whole": whole}
+    return out
+
+
+def check_axis_world1(config, tag: str) -> dict:
+    """Phase 7h (c): ``param_sharding: tp`` at model = 1 over a NCCL group of
+    this process alone, graphed: the rule shards nothing at M = 1, so the
+    kernels stay (8 + 8 launches a replayed step) and the step is the
+    one-process step bit for bit (fp32, 8 steps)."""
+    import torch.distributed as dist
+
+    from ldm_tpu_torch.parallel import create_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1)
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    out = {"launches": {}}
+    try:
+        mesh = create_mesh(device=DEV)
+        with tempfile.TemporaryDirectory() as workdir:
+            cfg = dataclasses.replace(config, use_amp=False, workdir=workdir)
+            runs = graphed_fp32_runs(cfg, (("one", "replicated", None, 1),
+                                           ("tp_model1", "tp", mesh, 1)), out)
+        if runs["tp_model1"][3]:
+            raise AssertionError("the TP rule sharded a leaf at M = 1")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+        dist.destroy_process_group()
+    return out
+
+
+def check_model_axis(config, tag: str, gloo_dp_ms: float) -> dict:
+    """Phase 7h: (a) and (b) two gloo processes as a (1, 2) mesh, (c) tp at
+    model = 1 over NCCL, (d) the phase within its budget."""
+    t0 = time.perf_counter()
+    out = {"gloo": check_axis_gloo(tag, gloo_dp_ms), "world1": check_axis_world1(config, tag)}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 7h wall time {out['seconds']:.1f} s (budget {AXIS_BUDGET_S} s)")
+    if out["seconds"] > AXIS_BUDGET_S:
+        raise AssertionError(f"phase 7h took {out['seconds']:.1f} s, over {AXIS_BUDGET_S} s")
+    return out
+
+
 # ---------------------------------------------------------------- phase 7g
 def trace_device_events(trace_dir: str) -> list:
     """The device's events (kernels, copies, sets) of the one Chrome trace
@@ -2830,10 +3083,15 @@ def main(argv=None) -> None:
                     "and ResNet-block kernels are timed in turns with this tree's")
     ap.add_argument("--mesh-worker", nargs=3, metavar=("RANK", "PORT", "OUTDIR"),
                     help=argparse.SUPPRESS)  # one of phase 7f's gloo processes
+    ap.add_argument("--axis-worker", nargs=3, metavar=("RANK", "PORT", "OUTDIR"),
+                    help=argparse.SUPPRESS)  # one of phase 7h's gloo processes
     a = ap.parse_args(argv)
     if a.mesh_worker:
         rank, port, outdir = a.mesh_worker
         return mesh_worker(int(rank), int(port), outdir)
+    if a.axis_worker:
+        rank, port, outdir = a.axis_worker
+        return axis_worker(int(rank), int(port), outdir)
     phase("1 device")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -2946,6 +3204,13 @@ def main(argv=None) -> None:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
         keep.cleanup()
 
+    phase("7h the mesh's model axis at the flagship width: tp, fsdp_tp and spatial over two "
+          "gloo processes as (data=1, model=2), their DDIM-50 requests, tp at model = 1 over "
+          "NCCL")
+    axis = check_model_axis(config, tag, mesh["gloo"]["step_ms_median"])
+    axis_launches = {f"train_{mode}_model2_rank0": axis["gloo"][mode]["rank0"]["launches"]
+                     for mode in AXIS_MODES}
+
     phase("8 the ResNet-block kernel vs plain, and ResNetBlockFn")
     t_rb = time.perf_counter()
     resnet = check_resnet_block(tag)
@@ -3013,12 +3278,17 @@ def main(argv=None) -> None:
                                  mesh["gloo"]["rank0"]["launches"]["linear_attention_fwd"],
                              "workflow_train_profiled":
                                  workflow["train"]["launches"]["linear_attention_fwd"],
-                             "workflow_generate_ddim50_b320": workflow["generate"]["launches"]},
+                             "workflow_generate_ddim50_b320": workflow["generate"]["launches"],
+                             **{k: v["linear_attention_fwd"] for k, v in axis_launches.items()}},
         "launches_per_step": {**per_step("linear_attention_fwd"),
                               "train_dp_per_rank":
                                   mesh["world1"]["launches"]["dp"]["linear_attention_fwd"],
                               "train_fsdp_per_rank":
                                   mesh["world1"]["launches"]["fsdp"]["linear_attention_fwd"],
+                              "train_tp_model1_per_rank": axis["world1"]["launches"][
+                                  "tp_model1"]["linear_attention_fwd"],
+                              "train_model2_per_rank": max(
+                                  v["linear_attention_fwd"] for v in axis_launches.values()) // AXIS_STEPS,
                               "distill": consistency["per_step"]["linear_attention_fwd"],
                               "consistency_sample": consistency["sample_per_step"],
                               "latent_train": latent["train_per_step"]["linear_attention_fwd"],
@@ -3047,12 +3317,17 @@ def main(argv=None) -> None:
                              "train_gloo_rank0":
                                  mesh["gloo"]["rank0"]["launches"]["linear_attention_bwd"],
                              "workflow_train_profiled":
-                                 workflow["train"]["launches"]["linear_attention_bwd"]},
+                                 workflow["train"]["launches"]["linear_attention_bwd"],
+                             **{k: v["linear_attention_bwd"] for k, v in axis_launches.items()}},
         "launches_per_step": {**per_step("linear_attention_bwd"),
                               "train_dp_per_rank":
                                   mesh["world1"]["launches"]["dp"]["linear_attention_bwd"],
                               "train_fsdp_per_rank":
                                   mesh["world1"]["launches"]["fsdp"]["linear_attention_bwd"],
+                              "train_tp_model1_per_rank": axis["world1"]["launches"][
+                                  "tp_model1"]["linear_attention_bwd"],
+                              "train_model2_per_rank": max(
+                                  v["linear_attention_bwd"] for v in axis_launches.values()) // AXIS_STEPS,
                               "distill": consistency["per_step"]["linear_attention_bwd"],
                               "latent_train": latent["train_per_step"]["linear_attention_bwd"]},
         "max_abs_err": bwd["max_rel_err"],
@@ -3129,6 +3404,14 @@ def main(argv=None) -> None:
                      "bf16, for one / dp / fsdp at world size 1 over NCCL; gloo: 2 processes on "
                      "one card, fp32, global B=64, eager by design; serving: DDIM-50 B=64 one "
                      "device vs 2 replicas on cuda:0",
+        "model_axis": {"gloo": axis["gloo"],
+                       "world1": {k: v for k, v in axis["world1"].items() if k != "launches"},
+                       "seconds": axis["seconds"]},
+        "model_axis_unit": "phase 7h: gloo: 2 processes on one card as (data=1, model=2), fp32, "
+                           "global B=64, eager by design, tp / fsdp_tp / spatial vs one process "
+                           "(losses rel, parameters abs, bytes a process, host ms a step) and "
+                           "the DDIM-50 request at B=10 (max abs vs one process, seconds); "
+                           "world1: tp at model = 1 over NCCL vs one process, fp32, graphed",
         "protocol": protocol,
         "workflow": workflow,
         "workflow_unit": "phase 7g: train --profile (2 epochs of 9 steps, B=64), generate "

@@ -79,7 +79,7 @@ class BatchNorm(nn.BatchNorm2d):
         sums = torch.cat([xf.sum((0, 2, 3), dtype=torch.float64),
                           (xf * xf).sum((0, 2, 3), dtype=torch.float64),
                           xf.new_full((1,), xf.numel() // c, dtype=torch.float64)])
-        sums = all_reduce(sums, group=self.mesh.group)
+        sums = all_reduce(sums, group=self.mesh.data_group)
         n = sums[2 * c]
         mean = sums[:c] / n
         var = (sums[c: 2 * c] / n - mean * mean).clamp_min(0.0)

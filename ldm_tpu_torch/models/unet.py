@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ldm_tpu_torch.ops.collectives import copy_to_model, reduce_from_model
 from ldm_tpu_torch.ops.linear_attention import (
     KernelWeights,
     linear_attention_block,
@@ -173,7 +174,13 @@ class Residual(nn.Module):
 class Attention(nn.Module):
     """Full softmax self-attention over the spatial grid, 4 heads x 32; used
     only in the bottleneck.  The 1x1 convs are applied as matmuls on the NHWC
-    view."""
+    view.
+
+    Under tensor parallelism (``parallel/tp.py``) ``to_qkv`` holds the q, k
+    and v rows of this process's heads and ``to_out`` their columns, and
+    ``model_group`` is the model axis's group: the input enters through
+    ``copy_to_model``, the partial output projection leaves through
+    ``reduce_from_model``, and the bias is added once."""
 
     def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
         super().__init__()
@@ -181,15 +188,17 @@ class Attention(nn.Module):
         hidden = heads * dim_head
         self.to_qkv = nn.Conv2d(dim, hidden * 3, 1, bias=False)
         self.to_out = nn.Conv2d(hidden, dim, 1)
+        self.model_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, hh, ww = x.shape
         n = hh * ww
         cd = x.dtype
-        xs = x.permute(0, 2, 3, 1).reshape(b, n, c)
+        heads = self.to_qkv.weight.shape[0] // (3 * self.dim_head)  # this process's
+        xs = copy_to_model(x.permute(0, 2, 3, 1).reshape(b, n, c), self.model_group)
         qkv = xs @ self.to_qkv.weight.view(-1, c).t().to(cd)
         q, k, v = (
-            t.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
+            t.reshape(b, n, heads, self.dim_head).transpose(1, 2)
             for t in qkv.chunk(3, dim=-1)
         )
         q = q * (self.dim_head**-0.5)
@@ -198,20 +207,29 @@ class Attention(nn.Module):
         attn = torch.softmax(sim, dim=-1).to(cd)
         out = (attn @ v).transpose(1, 2).reshape(b, n, -1)
         w_out = self.to_out.weight.view(c, -1).t().to(cd)
-        out = out @ w_out + self.to_out.bias.to(cd)
+        out = reduce_from_model(out @ w_out, self.model_group) + self.to_out.bias.to(cd)
         return out.view(b, hh, ww, c).permute(0, 3, 1, 2)
 
 
 class LinearAttention(nn.Module):
     """Parameters of the per-level linear attention in the reference layout:
     ``to_qkv`` (1x1 conv, no bias) and ``to_out`` (1x1 conv, GroupNorm(1)).
-    :class:`LinAttnBlock` runs them, with its pre-norm, as one fused op."""
+    :class:`LinAttnBlock` runs them, with its pre-norm, as one fused op.
+    ``model_group``: as :class:`Attention`'s."""
 
     def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
         super().__init__()
+        self.heads, self.dim_head = heads, dim_head
         hidden = heads * dim_head
         self.to_qkv = nn.Conv2d(dim, hidden * 3, 1, bias=False)
         self.to_out = nn.Sequential(nn.Conv2d(hidden, dim, 1), nn.GroupNorm(1, dim))
+        self.model_group = None
+
+
+def _check_attention_impl(impl: Optional[str]) -> Optional[str]:
+    if impl not in (None, "torch"):
+        raise ValueError(f"attention impl must be None or 'torch', got {impl!r}")
+    return impl
 
 
 class LinAttnBlock(Residual):
@@ -220,15 +238,18 @@ class LinAttnBlock(Residual):
     ``impl=None`` runs :func:`linear_attention_block` (the Hopper kernels on a
     CUDA tensor, the plain versions on a CPU tensor; in grad mode through the
     autograd op ``LinearAttentionBlockFn``); ``impl="torch"`` runs the plain
-    forward under torch autograd on any device.
+    forward under torch autograd on any device, over the heads whose weights
+    the block holds: the path of every block under a model axis > 1 (the
+    JAX trainer's ``attention_impl="xla_heads"``), with the model axis's
+    group in ``fn.fn.model_group`` under tensor parallelism (this process's
+    heads and the collectives around them; the kernels compute whole blocks
+    and refuse a group).
     """
 
     def __init__(self, dim: int, heads: int = 4, dim_head: int = 32,
                  impl: Optional[str] = None):
         super().__init__(PreNorm(dim, LinearAttention(dim, heads, dim_head)))
-        if impl not in (None, "torch"):
-            raise ValueError(f"attention impl must be None or 'torch', got {impl!r}")
-        self.heads, self.dim_head, self.impl = heads, dim_head, impl
+        self.heads, self.dim_head, self.impl = heads, dim_head, _check_attention_impl(impl)
         self._kernel_w_key, self._kernel_w = None, None
         self.replayed_steps = 0
 
@@ -269,6 +290,10 @@ class LinAttnBlock(Residual):
         kw = {}
         if self.impl == "torch":
             op = linear_attention_block_torch
+            kw["group"] = attn.model_group
+        elif attn.model_group is not None:
+            raise ValueError("the attention kernels compute whole blocks: a block whose heads "
+                             "are split over a model axis takes impl='torch'")
         else:
             op = linear_attention_block
             if x.is_cuda:
@@ -279,7 +304,7 @@ class LinAttnBlock(Residual):
         y = op(
             x.permute(0, 2, 3, 1).reshape(b, hh * ww, c).contiguous(),
             wqkv, wout, *params,
-            heads=self.heads, dim_head=self.dim_head, eps=1e-5,
+            heads=wout.shape[0] // self.dim_head, dim_head=self.dim_head, eps=1e-5,
             compute_dtype=x.dtype, **kw,
         )
         return y.view(b, hh, ww, c).permute(0, 3, 1, 2)
@@ -290,7 +315,8 @@ class UNet(nn.Module):
 
     Constructor surface matches the config schema (in_channels, out_channels,
     channels, channel_multipliers, with_time_emb, num_classes) plus the
-    compute ``dtype``, the attention ``attention_impl`` (None or "torch"), the
+    compute ``dtype``, the attention ``attention_impl`` (None or "torch":
+    :class:`LinAttnBlock`'s; :meth:`set_attention_impl` changes it), the
     ``bottleneck_time_emb`` flag and the ``device`` to build on.
     """
 
@@ -364,6 +390,14 @@ class UNet(nn.Module):
     def lin_attn_blocks(self) -> List[LinAttnBlock]:
         return [m for m in self.modules() if isinstance(m, LinAttnBlock)]
 
+    def set_attention_impl(self, impl: Optional[str]) -> "UNet":
+        """Every linear-attention block's ``impl`` (the JAX model's
+        ``clone(attention_impl=...)``, in place)."""
+        _check_attention_impl(impl)
+        for block in self.lin_attn_blocks():
+            block.impl = impl
+        return self
+
     def weights_replayed(self) -> None:
         """Tell the blocks that a replayed CUDA graph changed the weights in
         place (no version counter moved): their cached kernel copies are
@@ -393,19 +427,27 @@ class UNet(nn.Module):
             raise ValueError("an unconditional UNet has no null label")
         return self.num_classes
 
+    def conditioning(self, t: torch.Tensor, y: Optional[torch.Tensor] = None
+                     ) -> Optional[torch.Tensor]:
+        """The time embedding in the compute type, the class embedding added
+        (zero for the null label); None without a time MLP."""
+        cd = self.dtype
+        if self.time_emb is None:
+            return None
+        t_emb = self.time_emb(t, cd)
+        if self.label_emb is not None and y is not None:
+            is_null = y >= self.num_classes
+            safe_y = torch.where(is_null, torch.zeros_like(y), y)
+            lab = self.label_emb.weight.to(cd)[safe_y]
+            t_emb = t_emb + lab * (1.0 - is_null.to(cd))[:, None]
+        return t_emb
+
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 y: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: (B, H, W, C) NHWC; t: (B,) int steps; y: (B,) int labels or None.
         Returns the eps prediction, (B, H, W, out_channels) float32."""
         cd = self.dtype
-        t_emb = None
-        if self.time_emb is not None:
-            t_emb = self.time_emb(t, cd)
-            if self.label_emb is not None and y is not None:
-                is_null = y >= self.num_classes
-                safe_y = torch.where(is_null, torch.zeros_like(y), y)
-                lab = self.label_emb.weight.to(cd)[safe_y]
-                t_emb = t_emb + lab * (1.0 - is_null.to(cd))[:, None]
+        t_emb = self.conditioning(t, y)
 
         h = self.initial_conv(x.to(cd).permute(0, 3, 1, 2))
 

@@ -50,13 +50,14 @@ from typing import NamedTuple, Optional
 import torch
 
 from ldm_tpu_torch.ops import build
+from ldm_tpu_torch.ops.collectives import copy_to_model, reduce_from_model
 
 HIDDEN = 128  # heads * dim_head the kernel is written for
 DIM_HEAD = 32
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _block_diag_mask(heads: int, dim_head: int, dtype, device) -> torch.Tensor:
+def block_diag_mask(heads: int, dim_head: int, dtype, device) -> torch.Tensor:
     return torch.kron(
         torch.eye(heads, dtype=dtype, device=device),
         torch.ones((dim_head, dim_head), dtype=dtype, device=device),
@@ -83,6 +84,7 @@ def linear_attention_block_torch(
     eps: float = 1e-5,
     compute_dtype: torch.dtype = torch.float32,
     stat_c: Optional[int] = None,
+    group=None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the fused block (linear_attention_block_xla).
 
@@ -94,8 +96,17 @@ def linear_attention_block_torch(
       stat_c: the kernels' treatment of a zero-padded width (:func:`pad_width`):
         the two GroupNorms take their statistics over the first ``stat_c``
         columns alone.  None: over all C.
+      group: under tensor parallelism, the model axis's process group the
+        heads are split over; ``heads``, ``wqkv`` and ``wout`` are then this
+        process's share (its heads' q, k and v columns, in that order, and
+        their rows of ``wout``).  The normalized input enters the heads
+        through ``copy_to_model``, their partial output projection leaves
+        through ``reduce_from_model``, and the bias is added once.  None:
+        every head is here.
     """
     hidden = heads * dim_head
+    if wout.shape[0] != hidden:
+        raise ValueError(f"wout has {wout.shape[0]} rows, not heads * dim_head = {hidden}")
     cd = compute_dtype
     acc = _stat_dtype(cd)
     sc = x.shape[-1] if stat_c is None else stat_c
@@ -107,7 +118,8 @@ def linear_attention_block_torch(
 
     xf = x.to(acc)
     mean, var = stats(xf)
-    h = ((xf - mean) * torch.rsqrt(var + eps) * gn1_scale + gn1_bias).to(cd)
+    h = copy_to_model(((xf - mean) * torch.rsqrt(var + eps) * gn1_scale + gn1_bias).to(cd),
+                      group)
 
     w = wqkv.to(cd)
     q = h @ w[:, :hidden]
@@ -117,7 +129,7 @@ def linear_attention_block_torch(
     # q: per-head softmax over dim_head; the row max over all lanes is a valid
     # shift for every head; per-head sums via a block-diagonal ones matmul in
     # fp32 (the products of values in the compute type are exact in fp32)
-    seg = _block_diag_mask(heads, dim_head, cd, x.device)
+    seg = block_diag_mask(heads, dim_head, cd, x.device)
     q_shift = q.to(acc).amax(dim=-1, keepdim=True).to(cd)
     q_e = torch.exp(q - q_shift)
     q_sum = q_e.to(acc) @ seg.to(acc)
@@ -132,7 +144,7 @@ def linear_attention_block_torch(
     ctx = torch.einsum("bnd,bne->bde", k_e, v).to(acc)
     ctx = ctx * (seg.to(acc) / k_sum[:, :, None])
     ctx_w = torch.einsum("bde,ec->bdc", ctx.to(cd), wout.to(cd))
-    out = torch.einsum("bdc,bnd->bnc", ctx_w, q) + bout.to(cd)
+    out = reduce_from_model(torch.einsum("bdc,bnd->bnc", ctx_w, q), group) + bout.to(cd)
 
     of = out.to(acc)
     mean2, var2 = stats(of)
@@ -200,7 +212,7 @@ def linear_attention_block_bwd_torch(
         inv = torch.rsqrt(item_mean((t - mu) ** 2) + eps)
         return (t - mu) * inv, inv
 
-    seg = _block_diag_mask(heads, dim_head, acc, x.device)
+    seg = block_diag_mask(heads, dim_head, acc, x.device)
     xf = x.to(acc)
     dyf = dy.to(x.dtype).to(acc)
 

@@ -1,5 +1,5 @@
-"""Data parallelism, FSDP and the multi-process runtime (port of
-``ldm_tpu/parallel/`` for the data axis; the model axis is ROADMAP item 12b)."""
+"""Data, tensor and spatial parallelism and the multi-process runtime (port
+of ``ldm_tpu/parallel/``; pipeline parallelism is ROADMAP item 12b.3)."""
 
 from ldm_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,

@@ -18,8 +18,9 @@ One ``fully_shard`` unit covers the whole model, resharded after the
 forward (the backward gathers again): one all-gather and one
 reduce-scatter a step for the weights of every layer.
 
-``"tp"`` / ``"fsdp_tp"`` and ``activation_sharding: spatial`` wait for
-ROADMAP item 12b.
+Under ``"fsdp_tp"`` the attention projections are tensor-parallel over
+the model axis (``parallel/tp.py``) and FSDP2 ignores them too; its
+``DeviceMesh`` is the data axis's group.
 """
 
 from __future__ import annotations
@@ -29,11 +30,12 @@ from typing import Iterable, List, Optional, Sequence
 import torch
 from torch import nn
 
-from ldm_tpu_torch.parallel.mesh import DATA_AXIS, ITEM_12B, Mesh
+from ldm_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
 
 # the JAX rule's: leaves under 4,096 elements (16 KiB fp32) stay replicated
 MIN_SHARD_SIZE = 2 ** 12
-MODES = ("replicated", "fsdp")
+MODES = ("replicated", "fsdp", "tp", "fsdp_tp")
+ACTIVATION_MODES = ("batch", "spatial")
 
 
 def fsdp_shard_dim(shape: Sequence[int], n: int, min_size: int = MIN_SHARD_SIZE
@@ -64,25 +66,26 @@ def fsdp_leaf_spec(shape: Sequence[int], n: int, axis: str = DATA_AXIS,
 
 
 def check_modes(param_sharding: str, activation_sharding: str = "batch") -> None:
-    """Raise for the placements the port does not run yet."""
-    if param_sharding in ("tp", "fsdp_tp"):
-        raise ValueError(f"param_sharding {param_sharding!r} {ITEM_12B}")
+    """Raise for a placement that does not exist."""
     if param_sharding not in MODES:
-        raise ValueError(f"unknown param_sharding {param_sharding!r} "
-                         f"(expected one of {MODES + ('tp', 'fsdp_tp')})")
-    if activation_sharding == "spatial":
-        raise ValueError(f"activation_sharding 'spatial' {ITEM_12B}")
+        raise ValueError(f"unknown param_sharding {param_sharding!r} (expected one of {MODES})")
+    if activation_sharding not in ACTIVATION_MODES:
+        raise ValueError(f"unknown activation_sharding {activation_sharding!r} "
+                         f"(expected one of {ACTIVATION_MODES})")
 
 
-def shard_module(module: nn.Module, mesh: Mesh) -> nn.Module:
+def shard_module(module: nn.Module, mesh: Mesh, ignored: Iterable[nn.Parameter] = ()
+                 ) -> nn.Module:
     """``fully_shard`` over the mesh's data axis with the leaf rule: the
-    parameters it shards become DTensors, the rest stay plain (ignored by
-    FSDP2: their gradients are the caller's to reduce).  In place."""
+    parameters it shards become DTensors, the rest (and ``ignored``: the
+    tensor-parallel shares) stay plain, ignored by FSDP2: their gradients
+    are the caller's to reduce.  In place."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
     n = mesh.size
-    ignored = {p for p in module.parameters() if fsdp_shard_dim(p.shape, n) is None}
+    ignored = set(ignored) | {p for p in module.parameters()
+                              if fsdp_shard_dim(p.shape, n) is None}
 
     def placement(p: nn.Parameter):
         return Shard(fsdp_shard_dim(p.shape, n))

@@ -66,7 +66,7 @@ def stage_torch(stage, x, wqkv, wout, bout, g1s, g1b, g2s, g2b, *, eps: float = 
 
     if stage == 2:
         return out(q, k, v)
-    seg = la._block_diag_mask(HEADS, DIM_HEAD, f32, x.device)
+    seg = la.block_diag_mask(HEADS, DIM_HEAD, f32, x.device)
     q_shift = q.to(f32).amax(dim=-1, keepdim=True).to(cd)
     q_e = torch.exp(q - q_shift)
     qn = (q_e.to(f32) / (q_e.to(f32) @ seg) * DIM_HEAD**-0.5).to(cd)

@@ -59,6 +59,24 @@ FSDP a checkpoint is the whole state, gathered, and the sample grid comes
 from the EMA weights gathered into an unsharded copy of the model.  Over a
 gloo group the step runs eagerly (``utils/graphs.py::use_graphs``); over
 NCCL it is one graph, the all-reduce inside.
+
+The mesh's model axis (``create_mesh(model=k)``, as the JAX trainer takes
+it; no flag): under a model axis > 1 every attention block of the model and
+the EMA takes the plain path (``LinAttnBlock(impl="torch")``, over the heads
+the block holds; the JAX trainer's ``attention_impl="xla_heads"``), so the
+step launches no attention kernel.  As under FSDP, the trainer changes the
+model it is given in place (its attention path, under TP its attention
+weights' shares): it trains that module, where the JAX trainer clones an
+immutable one.  ``param_sharding`` ``"tp"`` / ``"fsdp_tp"`` splits the
+heads over the axis (``parallel/tp.py``); ``activation_sharding:
+spatial`` splits the image rows (``parallel/sp_explicit.py``): each
+process takes its rows of its data row's images and of the eps draws, its
+squared error is taken over the global element count, and the loss and the
+gradients are summed over the model axis and averaged over the data axis.
+Spatial parallelism needs replicated parameters and a height that splits
+into even rows at every pooled level; the sampler then runs the same
+explicit forward on each process's rows of x_T (and of each step's noise)
+and gathers the rows.
 """
 
 from __future__ import annotations
@@ -74,8 +92,10 @@ from ldm_tpu_torch.data.transforms import reverse_transform
 from ldm_tpu_torch.diffusion.consistency import sample_consistency, sampling_timesteps
 from ldm_tpu_torch.diffusion.ddpm import GaussianDiffusion
 from ldm_tpu_torch.diffusion.sampling import SamplingProcess
-from ldm_tpu_torch.parallel import distributed, fsdp
+from ldm_tpu_torch.parallel import distributed, fsdp, tp
+from ldm_tpu_torch.ops.collectives import gather_rows_model
 from ldm_tpu_torch.parallel.mesh import Mesh, shard_batch
+from ldm_tpu_torch.parallel.sp_explicit import SpatialUNet, supports_spatial_training
 from ldm_tpu_torch.training import checkpoint as ckpt
 from ldm_tpu_torch.training.early_stopping import EarlyStopping
 from ldm_tpu_torch.training.scan_epochs import EpochScan, build_epoch_scan
@@ -118,6 +138,11 @@ class DiffusionTrainer:
         if mesh is not None:
             fsdp.check_modes(config.param_sharding, config.activation_sharding)
             distributed.build_kernels_once(mesh.device, mesh.group)
+        model_axis = mesh is not None and mesh.model_size > 1
+        if model_axis:
+            # no kernel splits over heads or rows: the JAX trainer's
+            # clone(attention_impl="xla_heads") (ldm_tpu/parallel/tp.py NOTE)
+            model.set_attention_impl("torch")
         self.config = config
         self.device = torch.device(device) if device is not None else next(
             model.parameters()).device
@@ -130,12 +155,29 @@ class DiffusionTrainer:
         config.create_dirs()
         d = config.data
         self.image_shape = tuple(input_shape or (d.image_size, d.image_size, d.image_channels))
-        # under FSDP: an unsharded twin of the model, the gathered weights'
-        # home for sampling
-        self._unsharded = (copy.deepcopy(model).requires_grad_(False).eval()
-                           if mesh is not None and config.param_sharding == "fsdp" else None)
+        self.spatial = model_axis and config.activation_sharding == "spatial"
+        if self.spatial:
+            if config.param_sharding != "replicated":
+                raise ValueError("activation_sharding 'spatial' composes with param_sharding "
+                                 f"'replicated' only, got {config.param_sharding!r}")
+            levels = len(model.encoder.downs)
+            if not supports_spatial_training(mesh, self.image_shape[0], levels):
+                raise ValueError(
+                    "activation_sharding 'spatial' needs the height to split into even rows "
+                    f"at every pooled level: H={self.image_shape[0]} % ({mesh.model_size} * "
+                    f"2^{levels}) != 0")
+        # under FSDP: an unsharded twin of the model (under fsdp_tp with the
+        # TP shares), the gathered weights' home for sampling
+        self._unsharded = None
+        if mesh is not None and config.param_sharding in ("fsdp", "fsdp_tp"):
+            self._unsharded = copy.deepcopy(model).requires_grad_(False).eval()
+            if config.param_sharding == "fsdp_tp":
+                tp.shard_module(self._unsharded, mesh)
         self.state = TrainState(model, config.lr, config.ema_decay, mesh=mesh,
-                                param_sharding=config.param_sharding)
+                                param_sharding=config.param_sharding, spatial=self.spatial)
+        # the explicit spatial forwards of the model and the EMA
+        self._sp = ({m: SpatialUNet(mesh, m) for m in (self.state.model, self.state.ema)}
+                    if self.spatial else {})
         self.early_stopping = EarlyStopping(
             patience=config.early_stopping_patience, verbose=True,
             save_fn=self._save_best, min_delta_rel=config.early_stopping_min_delta_rel,
@@ -151,7 +193,9 @@ class DiffusionTrainer:
 
         # the step after the draws, eager or replayed: one graph a batch
         # source (None: the caller's batches; or the EpochScan whose batches
-        # the step gathers itself)
+        # the step gathers itself).  Over NCCL a step with a model axis > 1
+        # is captured as any other (its collectives inside); that needs one
+        # card a process, so no run on one card has replayed one
         self._steps = GraphedStep(self._device_step, self.state, self.device,
                                   use_graphs(self.device, graphs, mesh),
                                   before_capture=drop_copies)
@@ -321,18 +365,37 @@ class DiffusionTrainer:
         target (eps; a flow's velocity), backward, the gradient norm, Adam
         and the EMA."""
         state = self.state
-        x0 = self._encode(x0, *enc)
+        x0, eps = self._rows(self._encode(x0, *enc), eps)
         target, xt, t_in = self.diffusion.noised(x0, t, eps)
         y = torch.where(drop, state.model.null_label, y)
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        out = state.model(xt, t_in, y)
-        loss = torch.mean((target.to(torch.float32) - out) ** 2)
+        out = self._forward(state.model)(xt, t_in, y)
+        loss = self._mse(target, out)
         loss.backward()
         loss = state.reduce_grads(loss)
         gnorm = state.norm(p.grad for p in state.params())
         state.update()
         return {"loss": loss, "grad_norm": gnorm}
+
+    def _rows(self, *xs: torch.Tensor) -> tuple:
+        """Under spatial parallelism this process's image rows of each NHWC
+        tensor; else the tensors."""
+        return tuple(self.mesh.model_rows(x) for x in xs) if self.spatial else xs
+
+    def _forward(self, model):
+        """``model``'s forward on what :meth:`_rows` gives: the explicit
+        spatial one under spatial parallelism."""
+        return self._sp[model] if self.spatial else model
+
+    def _mse(self, target: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+        """The mean squared error; under spatial parallelism this process's
+        rows' squared errors over the element count of its data row's
+        images (the model axis's terms sum to the mean)."""
+        sq = (target.to(torch.float32) - out) ** 2
+        if self.spatial:
+            return sq.sum() / (sq.numel() * self.mesh.model_size)
+        return torch.mean(sq)
 
     @torch.no_grad()
     def eval_step(self, batch: dict, index: int, t: Optional[torch.Tensor] = None,
@@ -349,15 +412,17 @@ class DiffusionTrainer:
         gx0 = self._global_like(x0)
         t, eps = self.diffusion.draw_t_eps(self._space_like(gx0), t, eps, gen)
         t, eps, *enc = self._local(t, eps, *self._encode_draws(gx0, enc, gen))
-        x0 = self._encode(x0, *enc)
+        x0, eps = self._rows(self._encode(x0, *enc), eps)
         target, xt, t_in = self.diffusion.noised(x0, t, eps)
-        model = self.model.eval()
+        model = self._forward(self.model.eval())
         out = model(xt, t_in, y)
         if self.cfg_scale > 0:
             uncond = model(xt, t_in, torch.full_like(y, model.null_label))
             out = uncond + self.cfg_scale * (out - uncond)
-        loss = torch.mean((target.to(torch.float32) - out) ** 2)
-        return loss if self.mesh is None else self.mesh.all_reduce_mean_(loss)
+        loss = self._mse(target, out)
+        if self.mesh is None:
+            return loss
+        return self.mesh.split_mean_(loss) if self.spatial else self.mesh.all_reduce_mean_(loss)
 
     # ------------------------------------------------------------ persistence
     def _save_best(self, _state) -> None:
@@ -508,7 +573,20 @@ class DiffusionTrainer:
         ``decode_scale_override`` != 0 is the latent family's (see
         :meth:`_postprocess`).  Under a mesh every process samples the whole
         grid from the same draws (under FSDP from the weights gathered into
-        an unsharded copy: a collective)."""
+        an unsharded copy: a collective; under spatial parallelism each
+        process its rows, gathered)."""
+        x0 = self.sample_x0(classes, cfg_scale, use_ema, generator, method, ddim_steps, eta,
+                            ode_direction)
+        x0 = self._postprocess(x0, decode_scale_override)
+        return reverse_transform(x0.cpu().numpy())
+
+    def sample_x0(self, classes, cfg_scale: float = 0.0, use_ema: bool = True,
+                  generator: Optional[torch.Generator] = None, method: str = "ddpm",
+                  ddim_steps: int = 50, eta: float = 0.0,
+                  ode_direction: float = 1.0) -> torch.Tensor:
+        """:meth:`sample`'s draws in the diffusion space, before the
+        post-processing: (B, H, W, C) fp32 on the device, whole on every
+        process."""
         model = (self.state.ema if use_ema else self.model).eval()
         if self._unsharded is not None:
             self._unsharded.load_state_dict(fsdp.full_tree(model.state_dict()))
@@ -516,13 +594,26 @@ class DiffusionTrainer:
         if generator is None:
             generator = step_generator(self.config.seed, 0, self.device, SAMPLE_SALT)
         classes = torch.as_tensor(np.asarray(classes), dtype=torch.int64, device=self.device)
-        brk = {} if ode_direction == 1.0 else {"ode_direction": ode_direction}
-        x0 = run_sampler(self.diffusion, method, model, classes, self.image_shape,
+        kw = {} if ode_direction == 1.0 else {"ode_direction": ode_direction}
+        shape = self.image_shape
+        if self.spatial:
+            # the one-process draws (x_T, then each step's noise), this
+            # process's rows of them
+            whole = (classes.shape[0],) + tuple(shape)
+
+            def rows_of_draw(*_):
+                return self.mesh.model_rows(torch.randn(whole, generator=generator,
+                                                        device=self.device))
+
+            kw["x_init"] = rows_of_draw()
+            if isinstance(self.diffusion, GaussianDiffusion) and method in ("ddpm", "ddim"):
+                kw["noise"] = rows_of_draw  # the samplers that draw a step's noise
+            shape = tuple(kw["x_init"].shape[1:])
+        x0 = run_sampler(self.diffusion, method, self._forward(model), classes, shape,
                          ddim_steps=ddim_steps, eta=eta, cfg_scale=cfg_scale,
                          null_label=model.null_label, generator=generator,
-                         graph=None if self.graphs else False, **brk)
-        x0 = self._postprocess(x0, decode_scale_override)
-        return reverse_transform(x0.cpu().numpy())
+                         graph=None if self.graphs else False, **kw)
+        return gather_rows_model(x0, self.mesh.model_group, 1) if self.spatial else x0
 
 
 def run_sampler(diffusion: SamplingProcess, method: str, model, classes, image_shape,

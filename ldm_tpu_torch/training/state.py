@@ -42,6 +42,20 @@ of the shards' squares).  Adam and the EMA run on each process's shards.
 :meth:`TrainState.state_dict` is then the whole state, gathered (every
 process calls it); :meth:`TrainState.load_state_dict` takes a whole state
 and keeps each process's chunk.
+
+Under a model axis (``"tp"``, ``"fsdp_tp"``; ``parallel/tp.py``) the
+attention projections of the model and the EMA are this process's heads'
+shares, plain tensors that Adam and the EMA update in place; under
+``"fsdp_tp"`` FSDP2 shards the other large leaves over the data axis and
+ignores the shares.  Every gradient FSDP2 does not reduce, the shares'
+included, is averaged over the data axis alone: *f* and *g* leave a
+replicated leaf's gradient the same on every process of a model group.
+:meth:`TrainState.norm` sums the shares' squares over the model axis and
+counts a replicated leaf once; the whole state gathers the shares and
+re-slices them on load, so a checkpoint moves between one process and a
+model axis bit for bit.  Under spatial parallelism (``spatial``) each
+process's loss and gradients are its image rows' terms: they are summed
+over the model axis and averaged over the data axis.
 """
 
 from __future__ import annotations
@@ -52,7 +66,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from ldm_tpu_torch.parallel import fsdp
+import torch.distributed as dist
+
+from ldm_tpu_torch.parallel import fsdp, tp
 from ldm_tpu_torch.utils.logging import global_norm
 
 
@@ -82,20 +98,30 @@ class TrainState:
     and the step counter."""
 
     def __init__(self, model: nn.Module, lr: float, ema_decay: float = 0.9999,
-                 ema: bool = True, mesh=None, param_sharding: str = "replicated"):
+                 ema: bool = True, mesh=None, param_sharding: str = "replicated",
+                 spatial: bool = False):
         """``mesh``: a ``parallel.Mesh`` (None: one process);
-        ``param_sharding``: ``"replicated"`` or ``"fsdp"`` under a mesh."""
+        ``param_sharding``: ``"replicated"``, ``"fsdp"``, ``"tp"`` or
+        ``"fsdp_tp"`` under a mesh; ``spatial``: the loss and gradients are
+        each process's image rows' terms (spatial parallelism)."""
         self.model = model
         self.ema = copy.deepcopy(model).requires_grad_(False).eval() if ema else None
         self.mesh = mesh
         self.sharding = "replicated"
+        self.spatial = spatial
         if mesh is not None:
             fsdp.check_modes(param_sharding)
             self.sharding = param_sharding
-        if self.sharding == "fsdp":
-            for m in (model, self.ema):
-                if m is not None:
-                    fsdp.shard_module(m, mesh)
+        # the tensor-parallel shares by name (empty without a model axis)
+        self.tp_layout: dict = {}
+        models = [m for m in (model, self.ema) if m is not None]
+        if self.sharding in ("tp", "fsdp_tp"):
+            for m in models:
+                self.tp_layout = tp.shard_module(m, mesh)
+        if self.sharding in ("fsdp", "fsdp_tp"):
+            for m in models:
+                fsdp.shard_module(m, mesh, ignored=[p for n, p in m.named_parameters()
+                                                    if n in self.tp_layout])
         self.lr = float(lr)
         self.ema_decay = float(ema_decay)
         device = next(model.parameters()).device
@@ -108,6 +134,10 @@ class TrainState:
         )
         self.step = 0
         self.step_t = torch.zeros((), dtype=torch.int64, device=device)  # step, on the device
+        names = {id(p): n for n, p in model.named_parameters()}
+        # the optimizer's parameter indices' names, and which parameters are shares
+        self._opt_names = [names[id(p)] for g in self.optimizer.param_groups for p in g["params"]]
+        self._tp_flags = [n in self.tp_layout for n, _ in model.named_parameters()]
 
     def params(self) -> list[torch.Tensor]:
         return list(self.model.parameters())
@@ -128,7 +158,9 @@ class TrainState:
         plain = [g for g in grads if not fsdp.is_sharded(g)]
         flat = torch.cat([g.reshape(-1) for g in plain] + [loss.reshape(1).to(plain[0].dtype)]
                          if plain else [loss.reshape(1)])
-        if mean:
+        if self.spatial:
+            self.mesh.split_mean_(flat)
+        elif mean:
             self.mesh.all_reduce_mean_(flat)
         else:
             self.mesh.all_reduce_(flat)
@@ -140,17 +172,25 @@ class TrainState:
     @torch.no_grad()
     def norm(self, tensors) -> torch.Tensor:
         """The global L2 norm of tensors placed as the state's leaves are
-        (its parameters, their gradients): under FSDP the shards' squares
-        summed over the processes (a collective), plus the replicated
-        leaves'."""
+        (its parameters, their gradients, in the parameters' order): under
+        FSDP the shards' squares summed over the data axis and the TP
+        shares' over the model axis (collectives), plus the replicated
+        leaves' once."""
         tensors = list(tensors)
-        if self.sharding != "fsdp":
+        if self.sharding == "replicated" or (self.sharding == "tp" and not self.tp_layout):
             return global_norm(tensors)
-        shards = [fsdp.local(t) for t in tensors if fsdp.is_sharded(t)]
-        plain = [t for t in tensors if not fsdp.is_sharded(t)]
-        sq = (torch.stack(torch._foreach_norm(shards)).square().sum() if shards
-              else torch.zeros((), device=self.step_t.device))
-        self.mesh.all_reduce_(sq)
+        shares = [t for t, f in zip(tensors, self._tp_flags) if f]
+        plain = [t for t, f in zip(tensors, self._tp_flags) if not f and not fsdp.is_sharded(t)]
+        sq = torch.zeros((), device=self.step_t.device)
+        if self.sharding in ("fsdp", "fsdp_tp"):
+            shards = [fsdp.local(t) for t in tensors if fsdp.is_sharded(t)]
+            if shards:
+                sq = torch.stack(torch._foreach_norm(shards)).square().sum()
+            self.mesh.all_reduce_(sq)
+        if shares:
+            sq_m = torch.stack(torch._foreach_norm(shares)).square().sum()
+            dist.all_reduce(sq_m, group=self.mesh.model_group)
+            sq = sq + sq_m
         if plain:
             sq = sq + global_norm(plain).square()
         return sq.sqrt()
@@ -178,7 +218,7 @@ class TrainState:
         keeps, possibly at the same address, and leaves its version counter
         as it was, while Adam moved only the shards."""
         self.step += 1
-        if self.sharding == "fsdp":
+        if self.sharding in ("fsdp", "fsdp_tp"):
             self._weights_moved()
 
     def count_replayed_step(self) -> None:
@@ -210,19 +250,46 @@ class TrainState:
         self.step = 0
         self.step_t.zero_()
 
+    def _tp_opt_state(self, state: dict, leaf_fn) -> dict:
+        """Adam's per-parameter state with ``leaf_fn(tensor, layout)`` applied
+        to the moments of every TP share."""
+        out = {}
+        for i, st in state.items():
+            leaf = self.tp_layout.get(self._opt_names[int(i)])
+            out[i] = st if leaf is None else {
+                k: leaf_fn(v, leaf) if torch.is_tensor(v) and v.dim() > 0 else v
+                for k, v in st.items()}
+        return out
+
     def state_dict(self) -> dict:
-        """The whole state; under FSDP gathered from the shards (a
-        collective: every process calls it)."""
+        """The whole state; under FSDP and a model axis gathered from the
+        shards and shares (a collective: every process calls it)."""
         sd = {"step": self.step, "model": self.model.state_dict(),
               "optimizer": self.optimizer.state_dict()}
         if self.ema is not None:
             sd["ema"] = self.ema.state_dict()
-        return fsdp.full_tree(sd) if self.sharding == "fsdp" else sd
+        if self.tp_layout:
+            for part in ("model", "ema"):
+                if part in sd:
+                    sd[part] = tp.gather_state(sd[part], self.tp_layout, self.mesh)
+            sd["optimizer"] = dict(sd["optimizer"], state=self._tp_opt_state(
+                sd["optimizer"]["state"], lambda v, leaf: tp.gather(v, leaf, self.mesh)))
+        return fsdp.full_tree(sd) if self.sharding in ("fsdp", "fsdp_tp") else sd
 
     def load_state_dict(self, sd: dict) -> None:
-        """A whole state (:meth:`state_dict`'s); under FSDP each process
-        keeps its chunk of every sharded leaf."""
-        if self.sharding == "fsdp":
+        """A whole state (:meth:`state_dict`'s); under FSDP and a model axis
+        each process keeps its chunk of every sharded leaf and its share of
+        every TP leaf."""
+        if self.tp_layout:
+            m = self.mesh
+            sd = dict(sd)
+            for part in ("model", "ema"):
+                if part in sd:
+                    sd[part] = tp.local_state(sd[part], self.tp_layout, m)
+            sd["optimizer"] = dict(sd["optimizer"], state=self._tp_opt_state(
+                sd["optimizer"]["state"],
+                lambda v, leaf: tp.local_slice(v, leaf, m.model_rank, m.model_size)))
+        if self.sharding in ("fsdp", "fsdp_tp"):
             fsdp.load_full_state_dict(self.model, sd["model"])
             if self.ema is not None:
                 fsdp.load_full_state_dict(self.ema, sd["ema"])
@@ -236,7 +303,7 @@ class TrainState:
         opt = dict(sd["optimizer"])
         opt["param_groups"] = [dict(g, capturable=self.capturable)
                                for g in opt["param_groups"]]
-        if self.sharding == "fsdp":
+        if self.sharding in ("fsdp", "fsdp_tp"):
             params = [p for g in self.optimizer.param_groups for p in g["params"]]
             opt["state"] = {i: {k: fsdp.shard_like(v, params[int(i)])
                                 if torch.is_tensor(v) and v.dim() > 0 else v

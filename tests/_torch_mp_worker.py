@@ -15,6 +15,17 @@ A scenario is parts joined by "+"; each process writes
   batches.
 * ``bn``: the ResNet classifier's steps, BatchNorm on the global batch's
   statistics, and again with each process's own (the wrong answer).
+* ``tp`` / ``fsdp_tp`` / ``sp`` (a mesh with a model axis of 2): the tiny
+  UNet trained with ``param_sharding`` tp or fsdp_tp, or with
+  ``activation_sharding`` spatial; the history, each step's gradient norm
+  and the final parameters' norm, the whole final state, the TP shares'
+  shapes, sampler draws (DDPM and DDIM) from the EMA; under tp
+  and fsdp_tp a resume from the checkpoint, a one-process state loaded and
+  gathered back, and the bytes each process holds of the flagship UNet.
+* ``heads``: the plain attention over this process's heads of one block,
+  forward and grads (:func:`heads_inputs`).
+* ``spjax``: the explicit spatial forward and gradients of a UNet read from
+  ``<outdir>/spjax_in.pt`` (weights, x, t, y, the target).
 
 The tiny setup (the same for the one-process reference the test runs) is
 defined here; this module imports torch and the port only.
@@ -131,6 +142,155 @@ def cache_check(trainer, batch) -> list:
     return seen
 
 
+MODEL_AXIS_PARTS = {"tp", "fsdp_tp", "sp", "heads", "spjax"}
+
+
+def rule_bytes(named_shapes: dict, data: int, model: int) -> int:
+    """The fp32 bytes one process holds of the named leaves under the
+    fsdp_tp rule over a (data, model) mesh (at data 1: the TP rule alone)."""
+    from ldm_tpu_torch.parallel.tp import fsdp_tp_leaf_spec
+
+    total = 0
+    for name, shape in named_shapes.items():
+        spec = fsdp_tp_leaf_spec(name.split("."), shape, data, model)
+        split = model if "model" in spec else data if "data" in spec else 1
+        total += 4 * int(np.prod(shape)) // split
+    return total
+
+
+def same_state(a: dict, b: dict) -> bool:
+    """Two whole states equal bit for bit: model, EMA, Adam's state."""
+    for part in ("model", "ema"):
+        if a[part].keys() != b[part].keys() or not all(
+                torch.equal(a[part][k], v) for k, v in b[part].items()):
+            return False
+    sa, sb = a["optimizer"]["state"], b["optimizer"]["state"]
+    return sa.keys() == sb.keys() and all(
+        torch.equal(sa[i][k], v) for i, st in sb.items() for k, v in st.items())
+
+
+def record_grad_norms(trainer) -> list:
+    """The list that each of ``trainer``'s steps appends its ``grad_norm``
+    to (a float), from now on."""
+    norms = []
+    for name in ("train_step", "scan_step"):
+        def step(*args, _step=getattr(trainer, name), **kw):
+            m = _step(*args, **kw)
+            norms.append(float(m["grad_norm"]))
+            return m
+        setattr(trainer, name, step)
+    return norms
+
+
+def model_axis_run(part: str, mesh, workdir: str) -> dict:
+    """``tp`` / ``fsdp_tp`` / ``sp``: the tiny trainer under the placement."""
+    from ldm_tpu_torch.parallel import fsdp, tp
+
+    sharding = "replicated" if part == "sp" else part
+    cfg = tiny_config(os.path.join(workdir, part), sharding,
+                      activation_sharding="spatial" if part == "sp" else "batch")
+    tr = tiny_trainer(cfg, mesh)
+    grad_norms = record_grad_norms(tr)
+    out = {"history": tr.train(), "grad_norms": grad_norms,
+           "param_norm": float(tr.state.norm(tr.state.params())),
+           "state": copy.deepcopy(tr.state.state_dict()),
+           "step": tr.state.step, "impls": {b.impl for b in tr.model.lin_attn_blocks()},
+           "shares": {n: tuple(p.shape) for n, p in tr.model.named_parameters()
+                      if n in tr.state.tp_layout},
+           "x0": {m: tr.sample_x0([1, 2, 3], cfg_scale=3.0, method=m, ddim_steps=2)
+                  for m in ("ddpm", "ddim")}}
+    if part == "sp":
+        return out
+    # resume from the checkpoint the primary process wrote at the end
+    with torch.no_grad():
+        for p in tr.model.parameters():
+            fsdp.local(p).zero_()
+    assert tr.resume_latest()
+    out["resumed"] = same_state(tr.state.state_dict(), out["state"])
+    if part == "tp":
+        # a one-process state, loaded under the model axis and gathered back
+        # (an FSDP state's Adam has its own parameter order and groups)
+        one = tiny_trainer(tiny_config(os.path.join(workdir, part + "_one")))
+        for b in global_batches(2):
+            one.train_step(b)
+        sd = copy.deepcopy(one.state.state_dict())
+        tr.state.load_state_dict(sd)
+        out["loaded"] = same_state(tr.state.state_dict(), sd)
+    # the flagship UNet's parameters under the rule
+    flag = UNet(**FLAGSHIP)
+    shapes = {n: tuple(p.shape) for n, p in flag.named_parameters()}
+    layout = tp.shard_module(flag, mesh)
+    if part == "fsdp_tp":
+        fsdp.shard_module(flag, mesh, ignored=[p for n, p in flag.named_parameters()
+                                               if n in layout])
+    out["flagship_bytes"] = fsdp.sharded_bytes_per_device(flag.parameters())
+    out["flagship_bytes_expected"] = rule_bytes(shapes, mesh.size if part == "fsdp_tp" else 1,
+                                                mesh.model_size)
+    out["flagship_bytes_replicated"] = rule_bytes(shapes, 1, 1)
+    out["attention_bytes"] = sum(4 * int(np.prod(shapes[n])) for n in layout)
+    return out
+
+
+def heads_inputs(seed: int = 5):
+    """One attention block's inputs, C=24, N=16, B=2, 4 heads of 32: x,
+    the seven parameters, and the output's cotangent."""
+    g = torch.Generator().manual_seed(seed)
+    c, hidden = 24, 128
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g) * scale
+
+    return (rnd(2, 16, c), rnd(c, 3 * hidden, scale=0.2), rnd(hidden, c, scale=0.2),
+            rnd(c, scale=0.1), 1 + rnd(c, scale=0.1), rnd(c, scale=0.1), 1 + rnd(c, scale=0.1),
+            rnd(c, scale=0.1)), rnd(2, 16, c)
+
+
+def head_share(wqkv, wout, rank: int, size: int) -> tuple:
+    """Process ``rank``'s heads' weights of the (C, 3H) ``wqkv`` and the
+    (H, C) ``wout``: its q, k and v columns and its rows (``tp``'s share)."""
+    from ldm_tpu_torch.parallel.tp import TpLeaf, local_slice
+
+    return (local_slice(wqkv, TpLeaf(1, 3), rank, size),
+            local_slice(wout, TpLeaf(0, 1), rank, size))
+
+
+def heads_run(mesh) -> dict:
+    """The plain block over this process's heads (``linear_attention_block_torch``
+    with the model group): its output and the grads of x, its heads'
+    weights and the vectors."""
+    from ldm_tpu_torch.ops.linear_attention import linear_attention_block_torch
+
+    (x, wqkv, wout, *vec), dy = heads_inputs()
+    wq, wo = head_share(wqkv, wout, mesh.model_rank, mesh.model_size)
+    args = [t.clone().requires_grad_() for t in (x, wq, wo, *vec)]
+    y = linear_attention_block_torch(*args, heads=4 // mesh.model_size, dim_head=32,
+                                     group=mesh.model_group)
+    (y * dy).sum().backward()
+    return {"y": y.detach(), "grads": [a.grad for a in args]}
+
+
+def spjax_run(mesh, outdir: str) -> dict:
+    """The explicit spatial forward (gathered) and the loss's gradients
+    (summed over the model axis) of the UNet in ``spjax_in.pt``."""
+    import torch.distributed as dist
+
+    from ldm_tpu_torch.ops.collectives import gather_rows_model
+    from ldm_tpu_torch.parallel.sp_explicit import SpatialUNet
+
+    inp = torch.load(os.path.join(outdir, "spjax_in.pt"), weights_only=False)
+    model = UNet(**inp["model"])
+    model.load_state_dict(inp["state_dict"], strict=True)
+    out = SpatialUNet(mesh, model)(mesh.model_rows(inp["x"]), inp["t"], inp["y"])
+    target = mesh.model_rows(inp["target"])
+    sq = (out - target) ** 2
+    (sq.sum() / (sq.numel() * mesh.model_size)).backward()
+    grads = {}
+    for n, p in model.named_parameters():
+        dist.all_reduce(p.grad, group=mesh.model_group)
+        grads[n] = p.grad
+    return {"out": gather_rows_model(out.detach(), mesh.model_group, 1), "grads": grads}
+
+
 def run(scenario, mesh, outdir) -> dict:
     """The parts of ``scenario`` ("+"-joined), each process's results."""
     from ldm_tpu_torch.parallel import fsdp
@@ -166,6 +326,13 @@ def run(scenario, mesh, outdir) -> dict:
             out["grid"] = tr.sample([1, 2, 3], cfg_scale=3.0, method="ddim", ddim_steps=2)
             # the kernel-cache hazard: three more steps, the copies read in each
             out["cache"] = cache_check(tr, shard_batch(mesh, global_batches(1)[0]))
+    for part in ("tp", "fsdp_tp", "sp"):
+        if part in parts:
+            out[part] = model_axis_run(part, mesh, workdir)
+    if "heads" in parts:
+        out["heads"] = heads_run(mesh)
+    if "spjax" in parts:
+        out["spjax"] = spjax_run(mesh, outdir)
     if "perbatch" in parts:
         tr = tiny_trainer(tiny_config(os.path.join(workdir, "perbatch")), mesh)
         losses = [tr.train_step(shard_batch(mesh, b))["loss"].item() for b in global_batches()]
@@ -194,8 +361,9 @@ def main() -> None:
 
     assert distributed.initialize(f"127.0.0.1:{port}", world, rank, device="cpu")
     try:
-        mesh = create_mesh(device="cpu")
-        assert mesh.size == world and mesh.rank == rank
+        model = 2 if MODEL_AXIS_PARTS & set(scenario.split("+")) else 1
+        mesh = create_mesh(model=model, device="cpu")
+        assert mesh.size * model == world and mesh.rank * model + mesh.model_rank == rank
         out = run(scenario, mesh, outdir)
         out["primary"] = mesh.is_primary
         torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))

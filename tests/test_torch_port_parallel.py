@@ -5,7 +5,7 @@ row, the one-process trainer's losses against the JAX step's from the same
 draws (the reference the multi-process tests hold DP and FSDP against), the
 device-resident epoch's rows, the graph policy over a gloo group, mesh
 serving over two CPU replicas bit for bit, and the runtime flags
-(``--mesh`` / ``--distributed``; the model axis raising with item 12b).
+(``--mesh`` / ``--distributed``; the refusals of the mesh's model axis).
 The multi-process runs are in tests/test_torch_port_multiprocess.py.
 """
 
@@ -240,14 +240,20 @@ def test_mesh_serving_contract_is_per_device_batch(tmp_path):
 
 
 def test_model_axis_and_spatial_raise_naming_item_12b(tmp_path):
-    """TP, FSDP+TP and spatial activations wait for ROADMAP item 12b."""
-    with pytest.raises(ValueError, match="item 12b"):
+    """The model axis runs (ROADMAP items 12b.1 and 12b.2: the TP and SP
+    tests); the refusals that stay are JAX's own: a mesh that does not cover
+    the processes (checked before a group of this process alone is made),
+    and spatial activations with sharded parameters."""
+    with pytest.raises(ValueError, match="processes"):
         create_mesh(model=2, device="cpu")
-    for mode in ("tp", "fsdp_tp"):
-        with pytest.raises(ValueError, match="item 12b"):
-            w.tiny_trainer(w.tiny_config(tmp_path, mode), mesh=FakeMesh())
-    with pytest.raises(ValueError, match="item 12b"):
-        w.tiny_trainer(w.tiny_config(tmp_path, activation_sharding="spatial"), mesh=FakeMesh())
+    with pytest.raises(ValueError, match="processes"):
+        create_mesh(data=2, device="cpu")
+    model_axis = argparse.Namespace(device=torch.device("cpu"), group=None, size=1, rank=0,
+                                    model_size=2, model_rank=0)
+    for mode in ("fsdp", "tp", "fsdp_tp"):
+        with pytest.raises(ValueError, match="spatial"):
+            w.tiny_trainer(w.tiny_config(tmp_path, mode, activation_sharding="spatial"),
+                           mesh=model_axis)
 
 
 def test_distributed_flag_needs_the_environment(monkeypatch):

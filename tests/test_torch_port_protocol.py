@@ -146,7 +146,9 @@ def test_generator_config_and_parallel_flags_raise(tmp_path, monkeypatch):
     tests/test_torch_port_latent.py).  The parallel flags reach the trainers
     (their runs: tests/test_torch_port_parallel.py and _multiprocess.py):
     ``--distributed`` without the environment raises, and ``--mesh`` with a
-    model-axis placement raises naming item 12b."""
+    model-axis placement raises: the diffusion trainer runs ``tp`` (at
+    model = 1 it shards nothing), the classifier trains with replicated
+    parameters alone."""
     import torch.distributed as dist
 
     cfg = config_from_dict(raw_config("pixel", tmp_path))
@@ -162,7 +164,7 @@ def test_generator_config_and_parallel_flags_raise(tmp_path, monkeypatch):
     tp = tmp_path / "tp.yaml"
     tp.write_text(yaml.safe_dump(dict(raw_config("pixel", tmp_path), param_sharding="tp")))
     try:
-        with pytest.raises(ValueError, match="item 12b"):
+        with pytest.raises(ValueError, match="classifier trains data-parallel with replicated"):
             port_main.main([str(tp), "--device", "cpu", "--mesh"])
     finally:  # --mesh made a group of this process alone
         if dist.is_initialized():
