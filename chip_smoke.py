@@ -9,8 +9,9 @@ from a seed), through their entry points: the class-conditional samplers
 with classifier-free guidance (``ldm_tpu_torch.generate.main``: ancestral
 DDPM, DDIM, DPM-Solver++(2M)) and the diffusion trainer
 (``ldm_tpu_torch.train.run``); then serving, the protocol, consistency
-distillation, the latent family, data parallelism and the reference's own
-workflow with the checkpoint bridge (phases 7b-7g).  Both run as they do by default on a card: one
+distillation, the latent family, data parallelism, the reference's own
+workflow with the checkpoint bridge, the model axis and the pipeline (phases
+7b-7i).  Both run as they do by default on a card: one
 sampler step and one train step captured into CUDA graphs and replayed; the
 eager loops are timed beside them.  Phases, each printing its own lines; any
 failure raises and exits nonzero:
@@ -201,6 +202,22 @@ failure raises and exits nonzero:
    over a NCCL group of this process alone, graphed: bit for bit the
    one-process step over 8 steps, 8 + 8 launches a replayed step; (d) the
    phase within 120 s.
+7i. pipeline parallelism (``parallel/pp.py``) at the flagship width: (a)
+   one process, bf16, the kernel path, 2B=128: ``decode(*encode(...))`` is
+   ``forward`` bit for bit, ``decode`` on the unpacked payload is ``decode``
+   on the packed tensors bit for bit, the staged pass launches the forward
+   kernel 8 times; (b) two processes on the one card over gloo
+   (``--pp-worker``; eager by design) as a (data=1, model=2) pipeline, fp32,
+   each holding its stage (62,785,536 and 18,618,124 parameter bytes): 6
+   steps of the trainer's loss and Adam at global B=64 with M = 2 and M = 4
+   microbatches against one process running the whole UNet through the same
+   recipe on the same batches and draws, the kernels in both (losses and
+   gradient norms rtol 1e-5, parameters gathered atol 5e-3), 4 M forward
+   and 4 M backward launches a step on each process, a payload transfer's
+   bytes and host ms a step beside phases 7f's and 7h's gloo steps; (c) the
+   DDIM-50 request at B=10 (M = 2) through ``make_pp_apply`` from the same
+   weights and x_T within 1e-3 of one process, 4 M forward launches a step;
+   (d) the phase within 60 s.
 8. the fused ResNet-block kernel (``ops/resnet_block.py``) vs plain: at
    the 11 ResNet sites of the 32px flagship UNet at 2B=20 and 2B=128, at
    probe 13's four sites at 2B=256, at the 64px (4096, 64->64) site at
@@ -225,7 +242,8 @@ failure raises and exits nonzero:
 11. one JSON line of per-kernel results (each with its launches on the main
    paths, its time, the plain version's and its bound) and the three
    headline paths' host ms/step graphed and eager beside the device's ms a
-   replay, the card's line, and last ``{"ok": true, "device": {...}}``.
+   replay, the script's wall time, the card's line, and last ``{"ok": true,
+   "device": {...}}``.
 
 No CPU fallback: without a card it exits nonzero before printing a result.
 """
@@ -291,6 +309,7 @@ from ldm_tpu_torch.training.resnet_trainer import ResNetTrainer
 from ldm_tpu_torch.training.state import step_generator
 from ldm_tpu_torch.utils.graphs import WARMUP_STEPS
 from ldm_tpu_torch.utils.images import load_image_folder
+from ldm_tpu_torch.utils.logging import global_norm
 
 FLAGSHIP = "configs/pixel_diffusion_model_cifar10.yaml"
 SMOKE = "configs/smoke_synthetic.yaml"  # channels 8, multipliers [1, 2], 16px, T=8
@@ -2901,6 +2920,271 @@ def check_model_axis(config, tag: str, gloo_dp_ms: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 7i
+PP_M, PP_M_ALSO = 2, 4
+PP_STEPS = GLOO_STEPS
+PP_BUDGET_S = 60
+PP_SAMPLE_B, PP_SAMPLE_STEPS = 10, 50
+PP_SAMPLE_TOL = 1e-3  # fp32 trajectories (the graphed-vs-eager-vs-plain bar)
+# the flagship's fp32 parameter bytes by stage: conditioning, stem, encoder
+# and bottleneck; decoder and head
+PP_STAGE_BYTES = (62_785_536, 18_618_124)
+PP_SITES = 4  # attention blocks a stage: the encoder's, the decoder's
+
+
+def seeded_unet(cfg, seed: int = 11):
+    """The flagship UNet of ``cfg`` from ``seed`` on the card (``mesh_trainer``'s)."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return build_model(cfg, DEV)
+
+
+def pp_steps(forward, params, cfg, steps: list, norm) -> dict:
+    """Adam at the config's learning rate on ``params`` over ``steps``
+    (``global_steps``: the whole batch and its draws t, eps and the drop
+    mask), by the diffusion trainer's loss: x_t from (x0, t, eps), dropped
+    labels to the null label, the mean squared error of ``forward(x_t, t,
+    y)`` against eps.  Each step's loss, gradient norm (``norm()``), host ms
+    and kernel launches."""
+    diffusion = build_diffusion(cfg, DEV)
+    opt = torch.optim.Adam(params, lr=cfg.lr, foreach=True)
+    out = {"losses": [], "grad_norms": [], "ms": [], "counts": []}
+    for batch, d in steps:
+        x0, y = batch["image"].to(DEV), batch["label"].to(DEV)
+        t, eps, drop = d["t"].to(DEV), d["eps"].to(DEV), d["drop"].to(DEV).expand(y.shape)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        target, xt, t_in = diffusion.noised(x0, t, eps)
+        loss = torch.mean((target - forward(xt, t_in, torch.where(drop, 10, y))) ** 2)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        out["grad_norms"].append(norm().item())
+        opt.step()
+        out["losses"].append(loss.item())
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["counts"].append(read_counts())
+    return out
+
+
+def pp_sample(cfg, model_fn, graph) -> tuple:
+    """The DDIM-50 request at B=10, CFG 3, fp32, from a fixed x_T (``graph``
+    the sampler's): x_0, seconds, launches."""
+    g = torch.Generator().manual_seed(REF_SEED)
+    x_init = torch.randn((PP_SAMPLE_B, 32, 32, 3), generator=g).to(DEV)
+    classes = torch.tensor(REF_CLASSES, device=DEV)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    x0 = build_diffusion(cfg, DEV).sample_ddim(
+        model_fn, classes, (32, 32, 3), n_sample_steps=PP_SAMPLE_STEPS, cfg_scale=3.0,
+        null_label=10, x_init=x_init, graph=graph)
+    x0 = x0.cpu()
+    return x0, time.perf_counter() - t0, read_counts()
+
+
+def pp_worker(rank: int, port: int, outdir: str) -> None:
+    """One of phase 7i (b)-(c)'s two processes on the one card: a (data=1,
+    model=2) gloo mesh (eager by design), fp32, this process's stage of the
+    seeded flagship; ``PP_STEPS`` steps at global B=64 at M = 2 and at M = 4,
+    the weights gathered after the M = 2 run, its DDIM-50 request through
+    ``make_pp_apply``."""
+    import torch.distributed as dist
+
+    from ldm_tpu_torch.parallel import create_mesh, pp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=2)
+    try:
+        mesh = create_mesh(model=2, device=DEV)
+        cfg = dataclasses.replace(load_config(FLAGSHIP), use_amp=False)
+        res = {"mesh": repr(mesh)}
+        for m in (PP_M, PP_M_ALSO):
+            stage = pp.pp_stage(mesh, seeded_unet(cfg))
+            run = pp_steps(lambda *a: pp.pipeline_unet_apply(mesh, stage, *a, m),
+                           list(stage.parameters()), cfg, global_steps(PP_STEPS, 37),
+                           lambda: pp.grad_norm(stage, mesh))
+            run["bytes"] = sum(p.nbytes for p in stage.parameters())
+            run["payload_bytes"] = 4 * sum(int(np.prod(s)) for s in pp.payload_shapes(
+                stage, TRAIN_B // m, 32, 32))
+            res[m] = run
+            if m == PP_M:
+                res["model"] = {k: v.cpu() for k, v in pp.gather_state_dict(stage, mesh).items()}
+                stage.eval()
+                # graph=None: the sampler asks use_graphs with the apply's mesh
+                res["x0"], res["sample_s"], res["sample_counts"] = pp_sample(
+                    cfg, pp.make_pp_apply(mesh, stage, PP_M), None)
+            del stage
+            torch.cuda.empty_cache()
+        torch.save(res, os.path.join(outdir, f"rank{rank}.pt"))
+        mesh.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def check_pp_payload(config) -> dict:
+    """Phase 7i (a): one process, bf16, the kernel path, 2B=128:
+    ``decode(*encode(...))`` is ``forward`` bit for bit, ``decode`` on the
+    unpacked payload is ``decode`` on the tensors packed bit for bit (the
+    skips unpacked as NCHW views of NHWC memory, as ``encode`` made them),
+    and the staged pass launches the forward kernel 8 times."""
+    from ldm_tpu_torch.parallel import pp
+
+    b = 2 * SERVE_B
+    model = seeded_unet(config).eval()
+    g = torch.Generator().manual_seed(41)
+    x = torch.randn((b, 32, 32, 3), generator=g).to(DEV)
+    t = torch.randint(0, T_STEPS, (b,), generator=g).to(DEV)
+    y = torch.randint(0, 11, (b,), generator=g).to(DEV)
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        with torch.inference_mode():
+            whole = model(x, t, y)
+            zero_counts()
+            mid, skips, temb = model.encode(x, t, y)
+            staged = model.decode(mid, skips, temb)
+            counts = read_counts()
+            buf = pp.pack_payload(mid, skips, temb)
+            moved = model.decode(*pp.unpack_payload(buf, pp.payload_shapes(model, b, 32, 32)))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    out = {"staged_equal": torch.equal(staged, whole), "payload_equal": torch.equal(moved, staged),
+           "payload_bytes": buf.nbytes, "dtype": str(buf.dtype), "launches": counts}
+    print(f"(a) one process, bf16, 2B={b}: decode(*encode) == forward bit for bit: "
+          f"{out['staged_equal']}; decode on the unpacked payload ({buf.numel():,} values, "
+          f"{buf.nbytes:,} bytes, {buf.dtype}) == decode on the packed tensors: "
+          f"{out['payload_equal']}; launches of the staged pass {counts}")
+    if not (out["staged_equal"] and out["payload_equal"]):
+        raise AssertionError("the staged UNet or the payload changed the bits")
+    if counts != dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": 2 * PP_SITES}:
+        raise AssertionError(f"the staged pass launched {counts}")
+    return out
+
+
+def check_pp_gloo(tag: str, gloo_dp_ms: float, tp_ms: float) -> dict:
+    """Phase 7i (b)-(c): two processes on the one card over gloo as a
+    (data=1, model=2) mesh, each holding its stage, against one process
+    running the whole UNet through the same recipe on the same batches and
+    draws, the kernels in both (fp32): losses and gradient norms rtol 1e-5,
+    parameters atol 5e-3 (the phase 7h bars), each process's parameter
+    bytes its stage's, 4 M forward and 4 M backward launches a step; the
+    DDIM-50 request at B=10 (M = 2) from the same weights and x_T within
+    1e-3, 4 M forward launches a step."""
+    port = free_port()
+    with tempfile.TemporaryDirectory() as outdir:
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--pp-worker",
+                                   str(r), str(port), outdir], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=PP_BUDGET_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                raise AssertionError(f"pipeline worker {r} failed:\n{logs[r][-4000:]}")
+        outs = [torch.load(os.path.join(outdir, f"rank{r}.pt"), weights_only=False)
+                for r in range(2)]
+    cfg = dataclasses.replace(load_config(FLAGSHIP), use_amp=False)
+    model = seeded_unet(cfg)
+    params = list(model.parameters())
+    ref = pp_steps(model, params, cfg, global_steps(PP_STEPS, 37),
+                   lambda: global_norm([p.grad for p in params]))
+    ref_model = {k: v.cpu() for k, v in model.state_dict().items()}
+    model.load_state_dict(outs[0]["model"])
+    ref_x0, ref_s, _ = pp_sample(cfg, model.eval(), False)
+    del model, params
+    torch.cuda.empty_cache()
+    print(f"{outs[0]['mesh']}; one process, the whole UNet, the kernels, on the same batches "
+          f"and draws: losses {' '.join(f'{v:.6f}' for v in ref['losses'])}, gradient norms "
+          f"{' '.join(f'{v:.6f}' for v in ref['grad_norms'])}; host ms a step "
+          f"{' '.join(f'{v:.1f}' for v in ref['ms'])}")
+    per_step = dict.fromkeys(COUNTED, 0)
+    out = {"gloo_dp_step_ms": gloo_dp_ms, "tp_step_ms": tp_ms,
+           "one_process_step_ms": float(np.median(ref["ms"][1:]))}
+    for m in (PP_M, PP_M_ALSO):
+        want_counts = per_step | {"linear_attention_fwd": PP_SITES * m,
+                                  "linear_attention_bwd": PP_SITES * m}
+        out[m] = {}
+        for r, o in enumerate(outs):
+            run = o[m]
+            loss_rel = max(abs(a - b) / b for a, b in zip(run["losses"], ref["losses"]))
+            gnorm_rel = max(abs(a - b) / b for a, b in zip(run["grad_norms"], ref["grad_norms"]))
+            row = {"loss_rel": loss_rel, "grad_norm_rel": gnorm_rel, "bytes": run["bytes"],
+                   "step_ms": run["ms"], "launches_per_step": run["counts"][0],
+                   "launches": {k: sum(c[k] for c in run["counts"]) for k in COUNTED},
+                   "payload_bytes": run["payload_bytes"]}
+            line = (f"  M={m} rank {r}: losses {' '.join(f'{v:.6f}' for v in run['losses'])}: "
+                    f"within {loss_rel:.2e} (rtol 1e-5); gradient norms within {gnorm_rel:.2e} "
+                    f"(rtol 1e-5)")
+            if m == PP_M:
+                row["param_abs"] = max(float((o["model"][k] - v).abs().max())
+                                       for k, v in ref_model.items())
+                line += f"; parameters gathered within {row['param_abs']:.2e} (atol 5e-3)"
+                if row["param_abs"] > 5e-3:
+                    raise AssertionError(f"pipeline rank {r}'s parameters left one process")
+            print(f"{line}; parameter bytes {run['bytes']:,} (its stage: "
+                  f"{PP_STAGE_BYTES[r]:,}); a payload transfer {run['payload_bytes']:,} bytes; "
+                  f"launches a step {run['counts'][0]}; host ms a step "
+                  f"{' '.join(f'{v:.1f}' for v in run['ms'])} [{tag}]")
+            if loss_rel > 1e-5 or gnorm_rel > 1e-5:
+                raise AssertionError(f"pipeline rank {r} at M={m} left the one-process run")
+            if run["bytes"] != PP_STAGE_BYTES[r]:
+                raise AssertionError(f"pipeline rank {r} holds {run['bytes']} parameter bytes, "
+                                     f"not {PP_STAGE_BYTES[r]}")
+            if any(c != want_counts for c in run["counts"]):
+                raise AssertionError(f"pipeline rank {r} at M={m} launched {run['counts']}, "
+                                     f"want {want_counts} a step")
+            out[m][f"rank{r}"] = row
+        steady = float(np.median([v for o in outs for v in o[m]["ms"][1:]]))
+        out[m]["step_ms_median"] = steady
+        print(f"pipeline step, 2 processes on one card as (data=1, model=2), fp32, global "
+              f"B={TRAIN_B}, M={m}, eager by design: host {steady:.3f} ms a step (median of "
+              f"steps 2-{PP_STEPS} of both processes); one process {out['one_process_step_ms']:.3f}"
+              f" ms, phase 7f's gloo DP step {gloo_dp_ms:.3f} ms, phase 7h's tp step "
+              f"{tp_ms:.3f} ms [{tag}]")
+    if any(not torch.equal(outs[1]["model"][k], v) for k, v in outs[0]["model"].items()):
+        raise AssertionError("the two processes gathered different weights")
+    want_sample = per_step | {"linear_attention_fwd": PP_SITES * PP_M * PP_SAMPLE_STEPS}
+    for r, o in enumerate(outs):
+        err = float((o["x0"] - ref_x0).abs().max())
+        print(f"  rank {r}: DDIM-50 at B={PP_SAMPLE_B} (2B={2 * PP_SAMPLE_B}, M={PP_M}), CFG 3, "
+              f"fp32, through make_pp_apply, eager: within {err:.2e} of one process (bar "
+              f"{PP_SAMPLE_TOL}); {o['sample_s']:.2f} s (one process, eager: {ref_s:.2f} s); "
+              f"launches {o['sample_counts']} [{tag}]")
+        if err > PP_SAMPLE_TOL or not torch.isfinite(o["x0"]).all():
+            raise AssertionError(f"pipeline rank {r}: the sampler left one process")
+        if o["sample_counts"] != want_sample:
+            raise AssertionError(f"pipeline rank {r}'s request launched {o['sample_counts']}, "
+                                 f"want {want_sample}")
+        out[f"sample_rank{r}"] = {"err": err, "seconds": o["sample_s"],
+                                  "launches": o["sample_counts"]}
+    out["sample_one_process_s"] = ref_s
+    return out
+
+
+def check_pipeline(config, tag: str, gloo_dp_ms: float, tp_ms: float) -> dict:
+    """Phase 7i: (a) the staged UNet and the payload in one process, (b)-(c)
+    two gloo processes as a (1, 2) pipeline, (d) the phase within its
+    budget."""
+    t0 = time.perf_counter()
+    out = {"payload": check_pp_payload(config), "gloo": check_pp_gloo(tag, gloo_dp_ms, tp_ms)}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 7i wall time {out['seconds']:.1f} s (budget {PP_BUDGET_S} s)")
+    if out["seconds"] > PP_BUDGET_S:
+        raise AssertionError(f"phase 7i took {out['seconds']:.1f} s, over {PP_BUDGET_S} s")
+    return out
+
+
 # ---------------------------------------------------------------- phase 7g
 def trace_device_events(trace_dir: str) -> list:
     """The device's events (kernels, copies, sets) of the one Chrome trace
@@ -3085,6 +3369,8 @@ def main(argv=None) -> None:
                     help=argparse.SUPPRESS)  # one of phase 7f's gloo processes
     ap.add_argument("--axis-worker", nargs=3, metavar=("RANK", "PORT", "OUTDIR"),
                     help=argparse.SUPPRESS)  # one of phase 7h's gloo processes
+    ap.add_argument("--pp-worker", nargs=3, metavar=("RANK", "PORT", "OUTDIR"),
+                    help=argparse.SUPPRESS)  # one of phase 7i's gloo processes
     a = ap.parse_args(argv)
     if a.mesh_worker:
         rank, port, outdir = a.mesh_worker
@@ -3092,6 +3378,10 @@ def main(argv=None) -> None:
     if a.axis_worker:
         rank, port, outdir = a.axis_worker
         return axis_worker(int(rank), int(port), outdir)
+    if a.pp_worker:
+        rank, port, outdir = a.pp_worker
+        return pp_worker(int(rank), int(port), outdir)
+    t_script = time.perf_counter()
     phase("1 device")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -3211,6 +3501,24 @@ def main(argv=None) -> None:
     axis_launches = {f"train_{mode}_model2_rank0": axis["gloo"][mode]["rank0"]["launches"]
                      for mode in AXIS_MODES}
 
+    phase("7i pipeline parallelism at the flagship width: encode / decode and the payload, "
+          "two gloo processes as a (data=1, model=2) pipeline, training and DDIM-50")
+    pipeline = check_pipeline(config, tag, mesh["gloo"]["step_ms_median"],
+                              axis["gloo"]["tp"]["step_ms_median"])
+    pp_gloo = pipeline["gloo"]
+    # the pipeline's launches by path (a process's whole run) and a step
+    pp_runs = {f"train_pp_m{m}_rank{r}": pp_gloo[m][f"rank{r}"]["launches"]
+               for m in (PP_M, PP_M_ALSO) for r in range(2)}
+    pp_runs |= {f"sample_pp_ddim50_b10_rank{r}": pp_gloo[f"sample_rank{r}"]["launches"]
+                for r in range(2)}
+    pp_runs["pp_staged_pass_2b128"] = pipeline["payload"]["launches"]
+
+    def pp_per_step(name: str) -> dict:
+        return {"train_pp_per_rank": pp_gloo[PP_M]["rank0"]["launches_per_step"][name],
+                "train_pp_m4_per_rank": pp_gloo[PP_M_ALSO]["rank0"]["launches_per_step"][name],
+                "sample_pp_per_rank":
+                    pp_gloo["sample_rank0"]["launches"][name] // PP_SAMPLE_STEPS}
+
     phase("8 the ResNet-block kernel vs plain, and ResNetBlockFn")
     t_rb = time.perf_counter()
     resnet = check_resnet_block(tag)
@@ -3279,7 +3587,8 @@ def main(argv=None) -> None:
                              "workflow_train_profiled":
                                  workflow["train"]["launches"]["linear_attention_fwd"],
                              "workflow_generate_ddim50_b320": workflow["generate"]["launches"],
-                             **{k: v["linear_attention_fwd"] for k, v in axis_launches.items()}},
+                             **{k: v["linear_attention_fwd"] for k, v in axis_launches.items()},
+                             **{k: v["linear_attention_fwd"] for k, v in pp_runs.items()}},
         "launches_per_step": {**per_step("linear_attention_fwd"),
                               "train_dp_per_rank":
                                   mesh["world1"]["launches"]["dp"]["linear_attention_fwd"],
@@ -3292,7 +3601,8 @@ def main(argv=None) -> None:
                               "distill": consistency["per_step"]["linear_attention_fwd"],
                               "consistency_sample": consistency["sample_per_step"],
                               "latent_train": latent["train_per_step"]["linear_attention_fwd"],
-                              "latent_sample": latent["sample_per_step"]},
+                              "latent_sample": latent["sample_per_step"],
+                              **pp_per_step("linear_attention_fwd")},
         "max_abs_err": kernel["max_abs_err"],
         "max_abs_err_fp32": kernel["max_abs_err_fp32"],
         **times(kernel),
@@ -3318,7 +3628,8 @@ def main(argv=None) -> None:
                                  mesh["gloo"]["rank0"]["launches"]["linear_attention_bwd"],
                              "workflow_train_profiled":
                                  workflow["train"]["launches"]["linear_attention_bwd"],
-                             **{k: v["linear_attention_bwd"] for k, v in axis_launches.items()}},
+                             **{k: v["linear_attention_bwd"] for k, v in axis_launches.items()},
+                             **{k: v["linear_attention_bwd"] for k, v in pp_runs.items()}},
         "launches_per_step": {**per_step("linear_attention_bwd"),
                               "train_dp_per_rank":
                                   mesh["world1"]["launches"]["dp"]["linear_attention_bwd"],
@@ -3329,7 +3640,8 @@ def main(argv=None) -> None:
                               "train_model2_per_rank": max(
                                   v["linear_attention_bwd"] for v in axis_launches.values()) // AXIS_STEPS,
                               "distill": consistency["per_step"]["linear_attention_bwd"],
-                              "latent_train": latent["train_per_step"]["linear_attention_bwd"]},
+                              "latent_train": latent["train_per_step"]["linear_attention_bwd"],
+                              **pp_per_step("linear_attention_bwd")},
         "max_abs_err": bwd["max_rel_err"],
         "max_abs_err_fp32": bwd["max_rel_err_fp32"],
         "err_unit": "max_abs_err / max|plain| of the worst of the 8 grads",
@@ -3412,6 +3724,14 @@ def main(argv=None) -> None:
                            "(losses rel, parameters abs, bytes a process, host ms a step) and "
                            "the DDIM-50 request at B=10 (max abs vs one process, seconds); "
                            "world1: tp at model = 1 over NCCL vs one process, fp32, graphed",
+        "pipeline": pipeline,
+        "pipeline_unit": "phase 7i: payload: one process, bf16, 2B=128, encode / decode and the "
+                         "payload bit for bit, the staged pass's launches; gloo: 2 processes on "
+                         "one card as (data=1, model=2), fp32, global B=64, eager by design, at "
+                         "M = 2 and 4 microbatches vs one process (losses and gradient norms "
+                         "rel, parameters abs, bytes a process, a payload transfer's bytes, host "
+                         "ms a step, launches) and the DDIM-50 request at B=10 (max abs vs one "
+                         "process, seconds, launches); seconds: the phase's wall time",
         "protocol": protocol,
         "workflow": workflow,
         "workflow_unit": "phase 7g: train --profile (2 epochs of 9 steps, B=64), generate "
@@ -3433,6 +3753,7 @@ def main(argv=None) -> None:
                         "32-image requests, latency client side; host_ms_per_batch the batcher "
                         "thread's; device_ms_per_batch steps x the device's ms a replay",
     }))
+    print(f"chip_smoke wall time {time.perf_counter() - t_script:.1f} s (the build included)")
     print(card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -157,7 +157,9 @@ class SamplingProcess:
         self.last_capture_seconds = 0.0
         if graph is None and noise is not None:
             graph = False  # injected per-step noise: the eager loop unless asked by name
-        if use_graphs(device, graph):
+        # a model over a mesh (the pipeline's apply) says whether a graph can
+        # hold its collectives
+        if use_graphs(device, graph, getattr(model, "mesh", None)):
             return self._graph_for(model, method, xt, y_in, cfg_scale, use_cfg).run(
                 xt, y_in, noise, generator)
 

@@ -26,7 +26,7 @@ conditioning and the output back to fp32, at the JAX package's points.
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -339,6 +339,9 @@ class UNet(nn.Module):
         self.bottleneck_time_emb = bottleneck_time_emb
         chs: List[int] = [channels] + [channels * m for m in channel_multipliers]
         d_time = channels * 4 if with_time_emb else None
+        # the widths of encode's outputs (a skip per level, h_mid, t_emb) and
+        # of decode's: what a pipeline stage sizes its buffers by
+        self.chs, self.time_dim, self.out_channels = chs, d_time, out_channels
 
         self.time_emb = TimeEmbedding(d_time) if with_time_emb else None
         self.label_emb = (
@@ -442,10 +445,12 @@ class UNet(nn.Module):
             t_emb = t_emb + lab * (1.0 - is_null.to(cd))[:, None]
         return t_emb
 
-    def forward(self, x: torch.Tensor, t: torch.Tensor,
-                y: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x: (B, H, W, C) NHWC; t: (B,) int steps; y: (B,) int labels or None.
-        Returns the eps prediction, (B, H, W, out_channels) float32."""
+    def encode(self, x: torch.Tensor, t: torch.Tensor, y: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, List[torch.Tensor], Optional[torch.Tensor]]:
+        """The conditioning, the stem, the encoder and the bottleneck: the
+        first stage of the pipeline's cut (``parallel/pp.py``).  Returns
+        (h_mid, the skips in level order, t_emb), each activation an NCHW
+        view of channels_last memory in the compute type."""
         cd = self.dtype
         t_emb = self.conditioning(t, y)
 
@@ -461,7 +466,13 @@ class UNet(nn.Module):
         h = self.bottleneck.res1(h, bt)
         h = self.bottleneck.attn(h)
         h = self.bottleneck.res2(h, bt)
+        return h, skips, t_emb
 
+    def decode(self, h: torch.Tensor, skips: Sequence[torch.Tensor],
+               t_emb: Optional[torch.Tensor]) -> torch.Tensor:
+        """The decoder and the head on :meth:`encode`'s output: the second
+        stage of the cut.  Returns the eps prediction, NHWC float32."""
+        skips = list(skips)
         for res, attn, up in self.decoder.ups:
             h = torch.cat([up(h), skips.pop()], dim=1)
             h = attn(res(h, t_emb))
@@ -469,3 +480,9 @@ class UNet(nn.Module):
         res, conv = self.final_conv
         h = conv(res(h))
         return h.permute(0, 2, 3, 1).to(torch.float32)
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor,
+                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x: (B, H, W, C) NHWC; t: (B,) int steps; y: (B,) int labels or None.
+        Returns the eps prediction, (B, H, W, out_channels) float32."""
+        return self.decode(*self.encode(x, t, y))

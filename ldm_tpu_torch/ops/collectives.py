@@ -23,6 +23,10 @@ transposes; here each collective the model axis needs is a
   backward, each halo row's gradient goes back to the process it came from.
 * :func:`max_model`: the elementwise maximum over the axis (no gradient:
   a softmax's shift).
+* :func:`stage_transfer`: one pipeline stage's buffer to the others of the
+  axis (``parallel/pp.py``: the payload forward, its gradient backward).
+  The pipeline makes both directions' calls itself, in a fixed order, so it
+  is a plain function and not an autograd one.
 
 ``gloo`` offers only ``all_reduce`` and ``broadcast`` for CUDA tensors, so
 every gather and exchange here is an all-reduce of a zero-padded buffer
@@ -172,3 +176,11 @@ def max_model(x: torch.Tensor, group) -> torch.Tensor:
     out = x.detach().clone()
     dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
     return out
+
+
+def stage_transfer(buf: torch.Tensor, group, src: int) -> torch.Tensor:
+    """``buf`` of the process at rank ``src`` of ``group`` (the model axis's
+    index, not a global rank), in place on every process of the group: a
+    broadcast, exact in any dtype."""
+    dist.broadcast(buf, src=dist.get_global_rank(group, src), group=group)
+    return buf

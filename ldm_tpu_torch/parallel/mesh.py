@@ -8,9 +8,9 @@ group, one process a device, laid out as JAX lays its devices out
 joins the processes of one model column (stride ``model``), a model group the
 ``model`` consecutive processes of one data row.  Both processes of a data
 row hold the same rows of every global batch (:meth:`Mesh.local_rows`); the
-model axis splits the attention heads (``parallel/tp.py``) or the image
-rows (``parallel/sp_explicit.py``).  Pipeline parallelism waits for ROADMAP
-item 12b.3.
+model axis splits the attention heads (``parallel/tp.py``), the image
+rows (``parallel/sp_explicit.py``) or the UNet at its bottleneck into two
+pipeline stages (``parallel/pp.py``).
 
 The collectives work with both backends: ``gloo`` offers only
 ``all_reduce`` and ``broadcast`` for CUDA tensors, so :meth:`gather_rows`

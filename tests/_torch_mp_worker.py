@@ -26,6 +26,11 @@ A scenario is parts joined by "+"; each process writes
   forward and grads (:func:`heads_inputs`).
 * ``spjax``: the explicit spatial forward and gradients of a UNet read from
   ``<outdir>/spjax_in.pt`` (weights, x, t, y, the target).
+* ``pp``: the pipeline (``parallel/pp.py``) on the UNet and inputs of
+  ``<outdir>/pp_in.pt``: for M in :data:`PP_MICROBATCHES` the forward, the
+  stage's gradients of a loss and the ancestral sampler through
+  ``make_pp_apply`` (the draws injected); the stage's names and bytes, the
+  weights gathered back, and :func:`diffusion_steps` at M = 2.
 
 The tiny setup (the same for the one-process reference the test runs) is
 defined here; this module imports torch and the port only.
@@ -142,7 +147,7 @@ def cache_check(trainer, batch) -> list:
     return seen
 
 
-MODEL_AXIS_PARTS = {"tp", "fsdp_tp", "sp", "heads", "spjax"}
+MODEL_AXIS_PARTS = {"tp", "fsdp_tp", "sp", "heads", "spjax", "pp"}
 
 
 def rule_bytes(named_shapes: dict, data: int, model: int) -> int:
@@ -291,6 +296,70 @@ def spjax_run(mesh, outdir: str) -> dict:
     return {"out": gather_rows_model(out.detach(), mesh.model_group, 1), "grads": grads}
 
 
+PP_MICROBATCHES = (1, 2, 4)
+
+
+def diffusion_steps(forward, params, steps, lr: float, n_steps: int, null_label: int,
+                    norm) -> tuple:
+    """Adam on ``params`` over ``steps`` (each the whole batch's x0 and y and
+    the draws t, eps and the label-drop mask), by the diffusion trainer's
+    loss: x_t from (x0, t, eps), the dropped labels to the null label, the
+    mean squared error of ``forward(x_t, t, y)`` against eps.  The losses
+    and each step's gradient norm (``norm()``)."""
+    diffusion = GaussianDiffusion(n_steps)
+    opt = torch.optim.Adam(params, lr=lr, foreach=True)
+    losses, norms = [], []
+    for x0, y, t, eps, drop in steps:
+        target, xt, t_in = diffusion.noised(x0, t, eps)
+        loss = torch.mean((target - forward(xt, t_in, torch.where(drop, null_label, y))) ** 2)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        losses.append(loss.item())
+        norms.append(float(norm()))
+        opt.step()
+    return losses, norms
+
+
+def pp_run(mesh, outdir: str) -> dict:
+    """The ``pp`` part: this process's stage of the UNet in ``pp_in.pt``."""
+    from ldm_tpu_torch.parallel import pp
+
+    inp = torch.load(os.path.join(outdir, "pp_in.pt"), weights_only=False)
+
+    def stage_of_input():
+        stage = pp.pp_stage(mesh, UNet(**inp["model"]))
+        part = pp.split_unet_state_dict(inp["state_dict"])[mesh.model_rank]
+        stage.load_state_dict(part, strict=True)
+        return stage
+
+    stage = stage_of_input()
+    x, t, y, target = inp["grad"]
+    smp = inp["sample"]
+    out = {"fwd": {}, "grads": {}, "x0": {}}
+    for m in PP_MICROBATCHES:
+        with torch.no_grad():
+            out["fwd"][m] = pp.pipeline_unet_apply(mesh, stage, *inp["fwd"], m)
+        stage.zero_grad(set_to_none=True)
+        loss = torch.mean((pp.pipeline_unet_apply(mesh, stage, x, t, y, m) - target) ** 2)
+        loss.backward()
+        out["grads"][m] = {n: p.grad.clone() for n, p in stage.named_parameters()}
+        out["x0"][m] = GaussianDiffusion(smp["n_steps"]).sample(
+            pp.make_pp_apply(mesh, stage, m), smp["classes"], smp["shape"], cfg_scale=3.0,
+            null_label=inp["model"]["num_classes"], x_init=smp["x_init"],
+            noise=smp["noise"].__getitem__)
+    out["names"] = [n for n, _ in stage.named_parameters()]
+    out["bytes"] = sum(p.nbytes for p in stage.parameters())
+    out["gathered"] = pp.gather_state_dict(stage, mesh)
+    tr = inp["train"]
+    stage = stage_of_input()
+    params = list(stage.parameters())
+    out["train"] = diffusion_steps(
+        lambda *a: pp.pipeline_unet_apply(mesh, stage, *a, 2), params, tr["steps"], tr["lr"],
+        tr["n_steps"], inp["model"]["num_classes"], lambda: pp.grad_norm(stage, mesh))
+    out["train_state"] = pp.gather_state_dict(stage, mesh)
+    return out
+
+
 def run(scenario, mesh, outdir) -> dict:
     """The parts of ``scenario`` ("+"-joined), each process's results."""
     from ldm_tpu_torch.parallel import fsdp
@@ -333,6 +402,8 @@ def run(scenario, mesh, outdir) -> dict:
         out["heads"] = heads_run(mesh)
     if "spjax" in parts:
         out["spjax"] = spjax_run(mesh, outdir)
+    if "pp" in parts:
+        out["pp"] = pp_run(mesh, outdir)
     if "perbatch" in parts:
         tr = tiny_trainer(tiny_config(os.path.join(workdir, "perbatch")), mesh)
         losses = [tr.train_step(shard_batch(mesh, b))["loss"].item() for b in global_batches()]

@@ -44,6 +44,7 @@ def test_port_modules_are_found():
                  "ldm_tpu_torch.parallel.distributed", "ldm_tpu_torch.parallel.mesh",
                  "ldm_tpu_torch.parallel.fsdp", "ldm_tpu_torch.ops.collectives",
                  "ldm_tpu_torch.parallel.tp", "ldm_tpu_torch.parallel.sp_explicit",
+                 "ldm_tpu_torch.parallel.pp",
                  "ldm_tpu_torch.train_classifier",
                  "ldm_tpu_torch.import_torch_checkpoint",
                  "ldm_tpu_torch.export_torch_checkpoint", "ldm_tpu_torch.utils.viz",
