@@ -242,8 +242,17 @@ failure raises and exits nonzero:
 11. one JSON line of per-kernel results (each with its launches on the main
    paths, its time, the plain version's and its bound) and the three
    headline paths' host ms/step graphed and eager beside the device's ms a
-   replay, the script's wall time, the card's line, and last ``{"ok": true,
-   "device": {...}}``.
+   replay.
+12. the port's bench (``ldm_tpu_torch.bench``) in quick mode, in this
+   process on cuda:0: its one JSON line printed, no ``errors`` in it; its
+   ``value`` (img/s, B=64, T=1000) within 10% of 64 / (1000 x phase 6's
+   device ms a B=64 replay) and ``train_steps_per_sec`` within 10% of 1000 /
+   phase 7's graphed host ms a step; ``mfu`` the FLOP count (counted again
+   here, over the plain path) at that rate over 989 TFLOP/s to 1e-6, it and
+   ``train_mfu`` in (0, 1); a timed sampler run launched the forward kernel
+   exactly 8 x 1000 times and a timed train step 8 + 8; the phase within
+   60 s.  Then the script's wall time, the card's line, and last
+   ``{"ok": true, "device": {...}}``.
 
 No CPU fallback: without a card it exits nonzero before printing a result.
 """
@@ -271,6 +280,7 @@ import torch
 import torch.nn.functional as F
 
 from ldm_tpu_torch import (
+    bench,
     distill,
     export_torch_checkpoint,
     generate,
@@ -297,7 +307,7 @@ from ldm_tpu_torch.models import unet as unet_module
 from ldm_tpu_torch.ops import build
 from ldm_tpu_torch.ops import linear_attention as la
 from ldm_tpu_torch.ops import resnet_block as rb
-from ldm_tpu_torch.perf import compare_parent, probe7, probe13, probe13b
+from ldm_tpu_torch.perf import compare_parent, flops, probe7, probe13, probe13b
 from ldm_tpu_torch.perf.common import card, cuda_graph_ms
 from ldm_tpu_torch.serving import GenerationHTTPServer
 from ldm_tpu_torch.serving.builder import build_generation_service, checkpoint_path, load_sampler
@@ -3361,6 +3371,56 @@ def check_workflow(tag: str, vae_pt: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 12
+# the bench's readings against phases 6-7 of the same run
+BENCH_TOL = 0.10
+BENCH_BUDGET_S = 60
+
+
+def check_bench(config, sampler_device_ms: float, train_graphed_ms: float, tag: str) -> dict:
+    """Phase 12: ``bench.main(["--quick"])`` in this process on cuda:0 (it
+    prints its line), held against phase 6's device ms a B=64 sampler replay
+    and phase 7's graphed host ms a train step, its MFU against the FLOP
+    count made again here, its kernel launches exactly, within its budget."""
+    t0 = time.perf_counter()
+    res = bench.main(["--quick"])
+    seconds = time.perf_counter() - t0
+    line = res.line
+    if "errors" in line:
+        raise AssertionError(f"the bench's line has errors: {line['errors']}")
+    want_value = 64 / (bench.T * sampler_device_ms * 1e-3)
+    want_train = 1e3 / train_graphed_ms
+    count = flops.sampler_flops_per_img_step(build_model(config))
+    want_mfu = count * bench.T * line["value"] / flops.H100_SXM_BF16_PEAK_FLOPS
+    zero = dict.fromkeys(bench.LAUNCH_NAMES, 0.0)
+    want_launches = {"sampler_b64": zero | {"linear_attention_fwd": 8.0 * bench.T},
+                     "train_step": zero | {"linear_attention_fwd": 8.0,
+                                           "linear_attention_bwd": 8.0}}
+    out = {"seconds": seconds, "value": line["value"], "value_want": want_value,
+           "train_steps_per_sec": line["train_steps_per_sec"], "train_want": want_train,
+           "mfu": line["mfu"], "mfu_want": want_mfu, "train_mfu": line["train_mfu"],
+           "flops_per_img_step": count, "launches": res.launches}
+    print(f"bench --quick: {line['value']:.4f} img/s (phase 6: {want_value:.4f}), "
+          f"{line['train_steps_per_sec']:.4f} train steps/s (phase 7: {want_train:.4f}), mfu "
+          f"{line['mfu']:.6f} (count {count / 1e9:.6f} GFLOP an image a step: "
+          f"{want_mfu:.6f}), train_mfu {line['train_mfu']:.6f}; launches a timed sampler run / "
+          f"train step {res.launches}; {seconds:.1f} s (budget {BENCH_BUDGET_S} s) [{tag}]")
+    if abs(line["value"] / want_value - 1) > BENCH_TOL:
+        raise AssertionError(f"bench value {line['value']} vs phase 6's {want_value}")
+    if abs(line["train_steps_per_sec"] / want_train - 1) > BENCH_TOL:
+        raise AssertionError(f"bench train {line['train_steps_per_sec']} vs phase 7's "
+                             f"{want_train}")
+    if abs(line["mfu"] / want_mfu - 1) > 1e-6 or not (0 < line["mfu"] < 1
+                                                      and 0 < line["train_mfu"] < 1):
+        raise AssertionError(f"bench mfu {line['mfu']} (want {want_mfu}), train_mfu "
+                             f"{line['train_mfu']}")
+    if res.launches != want_launches:
+        raise AssertionError(f"bench launches {res.launches}, want {want_launches}")
+    if seconds > BENCH_BUDGET_S:
+        raise AssertionError(f"phase 12 took {seconds:.1f} s, over {BENCH_BUDGET_S} s")
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="another commit's tree, unpacked: its linear-attention "
@@ -3753,6 +3813,9 @@ def main(argv=None) -> None:
                         "32-image requests, latency client side; host_ms_per_batch the batcher "
                         "thread's; device_ms_per_batch steps x the device's ms a replay",
     }))
+    phase("12 the port's bench, --quick: ldm_tpu_torch.bench.main in this process on cuda:0")
+    check_bench(config, paths["sampler_b64"]["device_ms"], paths["train_b64"]["graphed_ms"], tag)
+
     print(f"chip_smoke wall time {time.perf_counter() - t_script:.1f} s (the build included)")
     print(card())
     print(json.dumps({"ok": True, "device": {

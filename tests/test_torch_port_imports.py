@@ -2,6 +2,7 @@
 chip_smoke.py, imported in a fresh interpreter, leaves jax and flax out of
 sys.modules.  And chip_smoke.py refuses to run without a CUDA card."""
 
+import json
 import os
 import pkgutil
 import subprocess
@@ -49,7 +50,8 @@ def test_port_modules_are_found():
                  "ldm_tpu_torch.import_torch_checkpoint",
                  "ldm_tpu_torch.export_torch_checkpoint", "ldm_tpu_torch.utils.viz",
                  "ldm_tpu_torch.utils.timing", "ldm_tpu_torch.utils.profiling",
-                 "ldm_tpu_torch.utils.torch_import", "ldm_tpu_torch.utils.torch_export"):
+                 "ldm_tpu_torch.utils.torch_import", "ldm_tpu_torch.utils.torch_export",
+                 "ldm_tpu_torch.bench", "ldm_tpu_torch.perf.flops"):
         assert want in mods
 
 
@@ -93,3 +95,29 @@ def test_chip_smoke_fails_without_cuda():
     assert r.returncode != 0
     assert '"ok"' not in r.stdout and "kernels" not in r.stdout
     assert "is_available() is False" in r.stderr
+
+
+def test_bench_without_a_card_leaves_jax_out_and_fails():
+    """``python -m ldm_tpu_torch.bench`` in a fresh interpreter: it imports
+    nothing of jax, flax or ldm_tpu, and without a card it prints its one
+    line with the error and exits nonzero (no CPU fallback)."""
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['bench', '--quick']\n"
+        "try:\n"
+        "    runpy.run_module('ldm_tpu_torch.bench', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    code = e.code\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'ldm_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('exit', code)\n"
+    )
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    lines = r.stdout.strip().splitlines()
+    assert lines[-1] == "exit 1"
+    line = json.loads(lines[-2])
+    assert line["value"] is None and "fatal" in line["errors"]

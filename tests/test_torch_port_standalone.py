@@ -75,7 +75,8 @@ def test_port_files_are_found():
                  "ldm_tpu_torch/train_autoencoder.py", "ldm_tpu_torch/models/latent.py",
                  "ldm_tpu_torch/training/latent_trainer.py", "ldm_tpu_torch/train_latent.py",
                  "ldm_tpu_torch/parallel/__init__.py", "ldm_tpu_torch/parallel/distributed.py",
-                 "ldm_tpu_torch/parallel/mesh.py", "ldm_tpu_torch/parallel/fsdp.py"):
+                 "ldm_tpu_torch/parallel/mesh.py", "ldm_tpu_torch/parallel/fsdp.py",
+                 "ldm_tpu_torch/bench.py", "ldm_tpu_torch/perf/flops.py"):
         assert want in names
 
 
@@ -122,6 +123,15 @@ res = generate.main([{str(tmp_path / "smoke.json")!r}, "--device", "cpu",
                      "--weights", {str(tmp_path / "w.pt")!r},
                      "--out", {str(tmp_path / "s.npy")!r}])
 assert res.images.shape == (10, 16, 16, 1) and str(res.images.dtype) == "uint8"
+from ldm_tpu_torch import bench
+from ldm_tpu_torch.diffusion.ddpm import GaussianDiffusion
+from ldm_tpu_torch.models.unet import UNet as PortUNet
+bench.T, bench.TRAIN_STEPS, bench.QUICK_BATCHES, bench.TRAIN_BATCH = 2, 1, (2,), 2
+bench.BASELINE_FILE = {str(tmp_path / "baseline.json")!r}
+bench.build = lambda device: (PortUNet(3, 3, 8, (1, 2), num_classes=10).eval(),
+                              GaussianDiffusion(2))
+line = bench.main(["--quick", "--device", "cpu"]).line
+assert line["value"] > 0 and line["train_steps_per_sec"] > 0 and "errors" not in line
 assert not [k for k in sys.modules if k.split(".")[0] in {sorted(FORBIDDEN)!r}]
 print("ok", len(mods))
 """
