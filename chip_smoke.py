@@ -10,10 +10,10 @@ with classifier-free guidance (``ldm_tpu_torch.generate.main``: ancestral
 DDPM, DDIM, DPM-Solver++(2M)) and the diffusion trainer
 (``ldm_tpu_torch.train.run``); then serving, the protocol, consistency
 distillation, the latent family, data parallelism, the reference's own
-workflow with the checkpoint bridge, the model axis and the pipeline (phases
-7b-7i).  Both run as they do by default on a card: one
-sampler step and one train step captured into CUDA graphs and replayed; the
-eager loops are timed beside them.  Phases, each printing its own lines; any
+workflow with the checkpoint bridge, the model axis, the pipeline and the
+real-data drill on the MNIST flagship (phases 7b-7j).  Both run as they do
+by default on a card: one sampler step and one train step captured into
+CUDA graphs and replayed; the eager loops are timed beside them.  Phases, each printing its own lines; any
 failure raises and exits nonzero:
 
 1. device: a CUDA card or exit; its name and power limit; TF32 off.
@@ -218,6 +218,25 @@ failure raises and exits nonzero:
    DDIM-50 request at B=10 (M = 2) through ``make_pp_apply`` from the same
    weights and x_T within 1e-3 of one process, 4 M forward launches a step;
    (d) the phase within 60 s.
+7j. the real-data drill: raw MNIST files in the full IDX format, made from
+   a seed under a temporary ``data_path`` (2,560 training and 512 test
+   28x28 images; the test labels gzipped), and
+   configs/pixel_diffusion_model_mnist.yaml at full width (64 channels,
+   1/2/4/8, one input channel, T=400, CFG 3, bf16) with the run directory,
+   1 epoch and that ``data_path`` written beside them; ``main.main`` with
+   ``--strict-data --wandb``, 32 images a class by DDIM-50 and 2 classifier
+   epochs, a recording ``wandb`` module in ``sys.modules``: the UNet's
+   parameters printed; the datasets named MNIST with the files' counts (half
+   the training images in the generator's half, 512 test images, 32x32x1
+   after the resize); exp1-exp5 and finite FIDs; one ``wandb.init`` with the
+   config's project (offline unless ``WANDB_MODE`` says otherwise) and Phase
+   A's train losses at their steps, as ``metrics.jsonl`` has them; the
+   attention launches by phase exactly (``protocol_launches``: Phase A 8
+   forward + 8 backward a train step and 16 a validation batch, Phase C 8 x
+   (chunks x 50 + warm-up), the classifier's phases none); wall seconds by
+   phase and Phase C's img/s; then the files removed and the same argv
+   raises ``FileNotFoundError`` with no launch and no device memory taken;
+   the phase within its budget.
 8. the fused ResNet-block kernel (``ops/resnet_block.py``) vs plain: at
    the 11 ResNet sites of the 32px flagship UNet at 2B=20 and 2B=128, at
    probe 13's four sites at 2B=256, at the 64px (4096, 64->64) site at
@@ -264,15 +283,18 @@ import base64
 import contextlib
 import dataclasses
 import glob
+import gzip
 import io
 import json
 import os
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.request
 
 import numpy as np
@@ -1612,12 +1634,14 @@ def protocol_config(family: str, workdir: str) -> str:
                         data={"synthetic_size": PROTOCOL_SIZE})
 
 
-def protocol_launches(family: str, config) -> dict:
+def protocol_launches(family: str, config, ddim_steps=None, negative_control=True) -> dict:
     """The launches each phase must make, from the shapes: Phase A's train
     steps (8 forward and 8 backward launches each) and validation batches
     (two forwards: CFG's lerp), Phase C's sampler steps over the chunks plus
-    the warm-up steps before each capture (a Heun step is two forwards), the
-    classifier phases none."""
+    the warm-up steps before each capture (a Heun step is two forwards;
+    ``ddim_steps``: the pixel DDPM's Phase C by DDIM at that many steps),
+    the classifier phases none; the negative control's phases only with
+    ``negative_control``."""
     n_train = int(0.9 * (PROTOCOL_SIZE // 2))
     steps = n_train // config.batch_size
     val_batches = (PROTOCOL_SIZE // 2 - n_train) // config.batch_size
@@ -1626,15 +1650,18 @@ def protocol_launches(family: str, config) -> dict:
         c_steps = c_broken = 25   # Heun-25, 2 forwards a step; broken: the other direction
         per = 16
     else:
-        c_steps, c_broken, per = T_STEPS, 5, 8  # ancestral T=400; broken: DDIM-5, cfg 0
+        # ancestral T=400 (or DDIM); broken: DDIM-5, cfg 0
+        c_steps, c_broken, per = ddim_steps or T_STEPS, 5, 8
     want = {"A": {"linear_attention_block": 8 * steps + 16 * val_batches,
                   "linear_attention_block_bwd": 8 * steps},
             "C": {"linear_attention_block": per * (chunks * c_steps + WARMUP_STEPS)},
             "C_broken": {"linear_attention_block": (per if family == "flow" else 8)
                          * (chunks * c_broken + WARMUP_STEPS)}}
+    phases = ["A", "C", "C_broken"] + PROTOCOL_EXPS if negative_control else \
+        ["A", "C"] + [name for name, _, _ in aug.EXPERIMENTS]
     return {phase: {"linear_attention_block": 0, "linear_attention_block_bwd": 0,
                     "resnet_block": 0} | want.get(phase, {})
-            for phase in ["A", "C", "C_broken"] + PROTOCOL_EXPS}
+            for phase in phases}
 
 
 def rerun_exp2(result, config) -> None:
@@ -1857,6 +1884,195 @@ def check_protocol(tag: str) -> dict:
     check_heun_trajectory(flow_config)
     check_graphed_training(flow_config)
     return out
+
+
+# the real-data drill (phase 7j): the MNIST flagship from raw IDX files
+MNIST = "configs/pixel_diffusion_model_mnist.yaml"
+MNIST_SIDE, DRILL_TEST, DRILL_DDIM_STEPS = 28, 512, 50
+DRILL_BUDGET_S = 60  # 18.5 s in its first run (NVIDIA H100 80GB HBM3, 700.00 W)
+
+
+def write_mnist_idx(root: str, n_train: int, n_test: int, seed: int) -> dict:
+    """Raw MNIST files in the full IDX format under ``root/MNIST/raw``
+    (torchvision's layout), from ``seed``: 28x28 uint8 images (magic 2051)
+    and uint8 labels 0-9 in turn (magic 2049); the test labels gzipped, as
+    the JAX package's drill writes them.  Returns the image count a file."""
+    raw = os.path.join(root, "MNIST", "raw")
+    os.makedirs(raw)
+    rng = np.random.default_rng(seed)
+    for prefix, n, gz in (("train", n_train, False), ("t10k", n_test, True)):
+        images = rng.integers(0, 256, (n, MNIST_SIDE, MNIST_SIDE), dtype=np.uint8)
+        with open(os.path.join(raw, f"{prefix}-images-idx3-ubyte"), "wb") as f:
+            f.write(struct.pack(">IIII", 2051, n, MNIST_SIDE, MNIST_SIDE) + images.tobytes())
+        labels = (np.arange(n) % 10).astype(np.uint8)
+        name = os.path.join(raw, f"{prefix}-labels-idx1-ubyte" + (".gz" if gz else ""))
+        with (gzip.open if gz else open)(name, "wb") as f:
+            f.write(struct.pack(">II", 2049, n) + labels.tobytes())
+    return {"train": n_train, "t10k": n_test}
+
+
+class RecordingWandb(types.ModuleType):
+    """A stand-in for the wandb module in ``sys.modules``: every call the
+    logger makes, recorded."""
+
+    def __init__(self):
+        super().__init__("wandb")
+        self.run = None
+        self.init_calls, self.logged, self.define_calls = [], [], []
+
+    def init(self, **kw):
+        self.init_calls.append(kw)
+        self.run = object()
+        return self.run
+
+    def log(self, metrics, step=None):
+        self.logged.append((dict(metrics), step))
+
+    def define_metric(self, key, summary=None):
+        self.define_calls.append((key, summary))
+
+    class Image:
+        def __init__(self, data):
+            self.data = np.asarray(data)
+
+    class Histogram:
+        def __init__(self, data):
+            self.data = np.asarray(data)
+
+
+@contextlib.contextmanager
+def wandb_stub():
+    """``sys.modules["wandb"]`` is a ``RecordingWandb`` inside, what it was
+    after."""
+    saved = sys.modules.get("wandb")
+    stub = sys.modules["wandb"] = RecordingWandb()
+    try:
+        yield stub
+    finally:
+        if saved is None:
+            del sys.modules["wandb"]
+        else:
+            sys.modules["wandb"] = saved
+
+
+def check_drill(tag: str) -> dict:
+    """Phase 7j: ``ldm_tpu_torch.main`` on the MNIST flagship at full width
+    from raw IDX files, ``--strict-data --wandb`` with a recording wandb, the
+    five mixes; then the same argv without the files must raise
+    ``FileNotFoundError`` before any device work."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        data_path = os.path.join(workdir, "data")
+        files = write_mnist_idx(data_path, PROTOCOL_SIZE, DRILL_TEST, seed=0)
+        path = write_config(os.path.join(workdir, "mnist.yaml"), MNIST, workdir=workdir,
+                            epochs=1, sample_every=0, data={"data_path": data_path})
+        config = load_config(path)
+        mp = config.model.params
+        if (mp["channels"], list(mp["channel_multipliers"]), mp["in_channels"],
+                config.diffusion.n_steps, config.diffusion.cfg_scale, config.use_amp) != (
+                64, [1, 2, 4, 8], 1, T_STEPS, 3, True):
+            raise AssertionError(f"{MNIST} is not the full-width MNIST flagship: {config}")
+        argv = [path, "--strict-data", "--wandb", "--per-class", str(PROTOCOL_PER_CLASS),
+                "--classifier-epochs", str(PROTOCOL_CLF_EPOCHS), "--sampler", "ddim",
+                "--ddim-steps", str(DRILL_DDIM_STEPS)]
+        with wandb_stub() as stub:
+            zero_counts()
+            t0 = time.perf_counter()
+            result = protocol_main.main(argv)
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+
+            dt, rt = result.diffusion_trainer, result.classifier_trainer
+            n_params = sum(p.numel() for p in dt.model.parameters())
+            print(f"MNIST flagship UNet: {n_params:,} parameters (in_channels 1, 64 channels, "
+                  f"1/2/4/8), bf16, T={config.diffusion.n_steps}, CFG "
+                  f"{config.diffusion.cfg_scale}")
+            # the data came from the files
+            gen_half = [dl.dataset for dl in (dt.train_loader, dt.val_loader)]
+            test = rt.test_loader.dataset
+            names = {ds.name for ds in gen_half + [test]}
+            print(f"data: {files} images in the IDX files; generator half "
+                  f"{sum(len(ds) for ds in gen_half)} ({len(gen_half[0])} train + "
+                  f"{len(gen_half[1])} validation), test {len(test)}, names {names}, "
+                  f"{test.images.shape[1:]} after the resize")
+            if names != {"MNIST"} or sum(len(ds) for ds in gen_half) != files["train"] // 2 \
+                    or len(test) != files["t10k"] or test.images.shape[1:] != (32, 32, 1):
+                raise AssertionError("the protocol did not read the IDX files")
+            # the JSON main printed
+            out = protocol_main.result_json(result)
+            if set(out["test_f1"]) != {name for name, _, _ in aug.EXPERIMENTS} or \
+                    out["synthetic_size"] != 10 * PROTOCOL_PER_CLASS or \
+                    not np.isfinite(out["fid_pixel"]) or not np.isfinite(out["fid_classifier"]):
+                raise AssertionError(f"main's result: {out}")
+            if result.synthetic.images.shape != (10 * PROTOCOL_PER_CLASS, 32, 32, 1):
+                raise AssertionError(f"synthetic set {result.synthetic.images.shape}")
+            # the wandb sink: one offline init with the config's project, and
+            # Phase A's losses at their steps, as metrics.jsonl has them
+            with open(os.path.join(config.dirpath, "metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+            want = [(rec["step"], {k: v for k, v in rec.items() if k not in ("step", "ts")})
+                    for rec in recs if "diffusion_model train_loss" in rec]
+            got = [(step, m) for m, step in stub.logged if "diffusion_model train_loss" in m]
+            print(f"wandb: init {stub.init_calls}; {len(stub.logged)} log calls, "
+                  f"{len(stub.define_calls)} summary rules; Phase A's train losses (step, "
+                  f"loss): {[(s, m['diffusion_model train_loss']) for s, m in got]}")
+            if stub.init_calls != [{"project": config.project_name,
+                                    "mode": os.environ.get("WANDB_MODE", "offline")}]:
+                raise AssertionError(f"wandb.init calls {stub.init_calls}")
+            if not want or got != want or [s for s, _ in got] != list(range(config.epochs)) \
+                    or not all(np.isfinite(m["diffusion_model train_loss"]) for _, m in got):
+                raise AssertionError(f"wandb got Phase A's losses {got}, metrics.jsonl {want}")
+            # the attention launches by phase
+            print("attention launches by phase (forward / backward): "
+                  + ", ".join(f"{k} {v['linear_attention_block']} / "
+                              f"{v['linear_attention_block_bwd']}"
+                              for k, v in result.launches.items()))
+            want_launches = protocol_launches("pixel", config, ddim_steps=DRILL_DDIM_STEPS,
+                                              negative_control=False)
+            if result.launches != want_launches:
+                raise AssertionError(f"launches by phase {result.launches}, want "
+                                     f"{want_launches}")
+            if counts["linear_attention_fwd"] != sum(
+                    v["linear_attention_block"] for v in want_launches.values()) or \
+                    counts["linear_attention_bwd"] != want_launches["A"][
+                        "linear_attention_block_bwd"]:
+                raise AssertionError(f"{counts} launches in the run")
+            img_s = 10 * PROTOCOL_PER_CLASS / result.seconds["C"]
+            print(f"MNIST drill: {wall:.3f} s in all; by phase "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in result.seconds.items())
+                  + f"; Phase C DDIM-{DRILL_DDIM_STEPS}, {10 * PROTOCOL_PER_CLASS} images at "
+                  f"{img_s:.3f} img/s (graph captures included); test F1 "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in result.test_f1.items())
+                  + f"; FID pixel {result.fid_pixel:.4f}, classifier "
+                  f"{result.fid_classifier:.4f} [{tag}]")
+
+            # strict mode bites: no files, the same argv fails before any device work
+            shutil.rmtree(data_path)
+            zero_counts()
+            torch.cuda.synchronize()
+            allocated = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            try:
+                protocol_main.main(argv)
+            except FileNotFoundError as e:
+                missing = str(e)
+            else:
+                raise AssertionError("--strict-data ran without the dataset's files")
+            strict_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            print(f"without the files: FileNotFoundError after {strict_s:.3f} s ({missing}); "
+                  f"launches {read_counts()}, device memory allocated "
+                  f"{torch.cuda.memory_allocated() - allocated:+d} bytes")
+            if any(read_counts().values()) or torch.cuda.memory_allocated() != allocated:
+                raise AssertionError("--strict-data did device work before it failed")
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 7j wall time {seconds:.1f} s (budget {DRILL_BUDGET_S} s) [{tag}]")
+    if seconds > DRILL_BUDGET_S:
+        raise AssertionError(f"phase 7j took {seconds:.1f} s, over {DRILL_BUDGET_S} s")
+    return {"seconds": seconds, "wall_seconds": wall, "by_phase": result.seconds,
+            "launches": result.launches, "counts": counts, "phase_c_img_s": img_s,
+            "n_params": n_params, "test_f1": result.test_f1, "fid_pixel": result.fid_pixel,
+            "fid_classifier": result.fid_classifier, "strict_seconds": strict_s}
 
 
 class BatchProbe:
@@ -3579,6 +3795,13 @@ def main(argv=None) -> None:
                 "sample_pp_per_rank":
                     pp_gloo["sample_rank0"]["launches"][name] // PP_SAMPLE_STEPS}
 
+    phase("7j the real-data drill: ldm_tpu_torch.main on the MNIST flagship at full width from "
+          "raw IDX files, --strict-data --wandb, DDIM-50, bf16")
+    try:
+        drill = check_drill(tag)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
     phase("8 the ResNet-block kernel vs plain, and ResNetBlockFn")
     t_rb = time.perf_counter()
     resnet = check_resnet_block(tag)
@@ -3648,7 +3871,8 @@ def main(argv=None) -> None:
                                  workflow["train"]["launches"]["linear_attention_fwd"],
                              "workflow_generate_ddim50_b320": workflow["generate"]["launches"],
                              **{k: v["linear_attention_fwd"] for k, v in axis_launches.items()},
-                             **{k: v["linear_attention_fwd"] for k, v in pp_runs.items()}},
+                             **{k: v["linear_attention_fwd"] for k, v in pp_runs.items()},
+                             "drill_mnist": drill["counts"]["linear_attention_fwd"]},
         "launches_per_step": {**per_step("linear_attention_fwd"),
                               "train_dp_per_rank":
                                   mesh["world1"]["launches"]["dp"]["linear_attention_fwd"],
@@ -3689,7 +3913,8 @@ def main(argv=None) -> None:
                              "workflow_train_profiled":
                                  workflow["train"]["launches"]["linear_attention_bwd"],
                              **{k: v["linear_attention_bwd"] for k, v in axis_launches.items()},
-                             **{k: v["linear_attention_bwd"] for k, v in pp_runs.items()}},
+                             **{k: v["linear_attention_bwd"] for k, v in pp_runs.items()},
+                             "drill_mnist": drill["counts"]["linear_attention_bwd"]},
         "launches_per_step": {**per_step("linear_attention_bwd"),
                               "train_dp_per_rank":
                                   mesh["world1"]["launches"]["dp"]["linear_attention_bwd"],
@@ -3793,6 +4018,11 @@ def main(argv=None) -> None:
                          "ms a step, launches) and the DDIM-50 request at B=10 (max abs vs one "
                          "process, seconds, launches); seconds: the phase's wall time",
         "protocol": protocol,
+        "drill": drill,
+        "drill_unit": "phase 7j: ldm_tpu_torch.main --strict-data --wandb on "
+                      "configs/pixel_diffusion_model_mnist.yaml at full width, bf16, CFG 3, from "
+                      "2,560 + 512 fabricated raw MNIST images, 1 generator epoch, 2 classifier "
+                      "epochs, 32 images a class by DDIM-50; seconds: wall, by phase",
         "workflow": workflow,
         "workflow_unit": "phase 7g: train --profile (2 epochs of 9 steps, B=64), generate "
                          "DDIM-50 at B=320 into the PNG tree, train_classifier --pretrain-dir "

@@ -577,10 +577,10 @@ def _main_body(out: dict, section, args) -> None:
         consistency2_imgs = scanned("consistency2", lambda: sample_consistency(
             d400, model, classes, IMAGE_SHAPE, ts=sampling_timesteps(400, 2), generator=gen,
             graph=graphed(device)), 64)
-        # the flow's Euler is its sample(); its Heun is the sample_dpmpp slot
-        flow_euler50_imgs = scanned("flow_euler50", solver(rflow.sample, n_sample_steps=50), 4)
+        flow_euler50_imgs = scanned("flow_euler50",
+                                    solver(rflow.sample_euler, n_sample_steps=50), 4)
         flow_heun15_imgs = scanned("flow_heun15",
-                                   solver(rflow.sample_dpmpp, n_sample_steps=15), 8)
+                                   solver(rflow.sample_heun, n_sample_steps=15), 8)
 
     # ---- baselines, from the file where it was made on this card, at this
     # power limit, on this host; quick mode only reads it

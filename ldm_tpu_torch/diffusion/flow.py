@@ -147,6 +147,10 @@ class RectifiedFlow(SamplingProcess):
                            cfg_scale, null_label, x_init, "euler", ode_direction,
                            generator, graph)
 
+    def sample_euler(self, *args, **kw) -> torch.Tensor:
+        """Few-step Euler sampling (the JAX name); :meth:`sample_ddim`."""
+        return self.sample_ddim(*args, **kw)
+
     @torch.inference_mode()
     def sample_ddim(self, model: ModelFn, classes: torch.Tensor,
                     image_shape: Tuple[int, int, int], n_sample_steps: int = 50,
@@ -159,6 +163,10 @@ class RectifiedFlow(SamplingProcess):
             raise ValueError("rectified flow is deterministic; eta must be 0")
         return self._solve(model, classes, image_shape, n_sample_steps, cfg_scale, null_label,
                            x_init, "euler", ode_direction, generator, graph)
+
+    def sample_heun(self, *args, **kw) -> torch.Tensor:
+        """Second-order few-step sampling (the JAX name); :meth:`sample_dpmpp`."""
+        return self.sample_dpmpp(*args, **kw)
 
     @torch.inference_mode()
     def sample_dpmpp(self, model: ModelFn, classes: torch.Tensor,

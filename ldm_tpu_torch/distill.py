@@ -8,7 +8,7 @@ student.
         [--teacher-checkpoint <checkpoints>/diffusion_model_ema.pt] \\
         [--epochs 24] [--skip 20] [--ema-decay 0.99] [--lr 2e-4] \\
         [--huber-c 0.03] [--sample-steps 2] [--cfg-scale S] \\
-        [--device cuda] [--eager] [--strict-data]
+        [--device cuda | --cpu] [--wandb] [--eager] [--strict-data]
 
 The defaults are the JAX script's recipe (24 epochs, target EMA 0.99, skip
 20, lr 2e-4); ``--epochs 0`` and ``--lr 0`` take the config's.  The teacher
@@ -47,7 +47,7 @@ class Distilled(NamedTuple):
     grid: str  # the sample grid's .npy
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Distilled:
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("config")
     ap.add_argument("--teacher-checkpoint", default=None,
@@ -65,10 +65,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Distilled:
     ap.add_argument("--eager", action="store_true",
                     help="launch every kernel from Python instead of replaying CUDA graphs")
     add_runtime_args(ap)
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
-    device, mesh = runtime_setup(args)
+
+def main(argv: Optional[Sequence[str]] = None) -> Distilled:
+    args = parse_args(argv)
     config = load_config(args.config)
+    device, mesh, logger = runtime_setup(args, config)
     set_seed(config.seed)
     apply_runtime_flags(config)
     train_loader, _val, _test, classes = create_dataloaders(
@@ -86,7 +89,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Distilled:
 
     trainer = ConsistencyDistillTrainer(
         config, teacher.to(device), build_diffusion(config, device), train_loader, classes,
-        device=device, skip_steps=args.skip, cfg_scale=args.cfg_scale,
+        device=device, logger=logger, skip_steps=args.skip, cfg_scale=args.cfg_scale,
         ema_decay=args.ema_decay, huber_c=args.huber_c, lr=args.lr or None,
         graphs=False if args.eager else None, mesh=mesh)
     result = trainer.train(args.epochs or None)

@@ -256,7 +256,7 @@ def run_augmentation_experiment(
     FIDs run whole on every process from the same draws, and the primary
     process alone writes."""
     device = torch.device(device)
-    logger = logger or MetricsLogger(config.dirpath)
+    logger = logger or MetricsLogger(config.dirpath, config.project_name)
     config.create_dirs()
     d = config.data
     phases = _Phases(device)

@@ -13,7 +13,7 @@ the port's, and by the JAX package's importers
 
     python -m ldm_tpu_torch.export_torch_checkpoint [weights.pt] config.yaml \\
         [--kind auto|unet|autoencoder|classifier] [--out model.pt] [--ema] \\
-        [--device cuda]
+        [--device cuda | --cpu]
 
 Without a weights path it reads the trainer-standard file under the
 config's ``checkpoints`` dir of the kind the config's model names
@@ -34,6 +34,7 @@ from typing import Optional, Sequence
 import torch
 
 from ldm_tpu_torch.factory import load_config
+from ldm_tpu_torch.utils.cli import add_device_args
 from ldm_tpu_torch.utils.torch_export import (
     check_kind,
     model_state_dict,
@@ -55,7 +56,7 @@ def default_weights(config, kind: str, ema: bool) -> str:
     return os.path.join(config.checkpoints, name)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> str:
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("weights", nargs="?", default=None,
                     help="the port's .pt weight file or training state (default: the "
@@ -65,8 +66,12 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     ap.add_argument("--out", default=None, help="output .pt path")
     ap.add_argument("--ema", action="store_true",
                     help="the EMA weights: the default UNet file's, or a training state's")
-    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    args = ap.parse_args(argv)
+    add_device_args(ap)
+    return ap.parse_args(argv)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> str:
+    args = parse_args(argv)
 
     config = load_config(args.config)
     weights = args.weights or default_weights(config, args.kind, args.ema)

@@ -7,6 +7,8 @@ reach the config through the port alone.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ldm_tpu_torch.config import Config, load_config
@@ -14,7 +16,7 @@ from ldm_tpu_torch.diffusion.sampling import SamplingProcess
 from ldm_tpu_torch.registry import instantiate_from_config
 
 __all__ = ["build_classifier", "build_diffusion", "build_model", "compute_dtype",
-           "load_config"]
+           "config_summary", "load_config"]
 
 
 def compute_dtype(config: Config) -> torch.dtype:
@@ -62,3 +64,7 @@ def build_classifier(config: Config, img_channels: int, num_classes: int = 10, d
                     "n_blocks": (2, 2, 2, 2), "n_channels": (64, 128, 256, 512)}},
         dtype=compute_dtype(config), device=device,
     )
+
+
+def config_summary(config: Config) -> dict:
+    return dataclasses.asdict(config)

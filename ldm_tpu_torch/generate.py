@@ -8,7 +8,7 @@ as one uint8 NHWC ``.npy``.
 
     python -m ldm_tpu_torch.generate configs/pixel_diffusion_model_cifar10.yaml \\
         [--weights unet.pt] [--ema | --no-ema] [--cfg-scale S] [--per-class 1] \\
-        [--device cuda] [--out x.npy] [--sampler ddpm|ddim|dpmpp|consistency] \\
+        [--device cuda | --cpu] [--out x.npy] [--sampler ddpm|ddim|dpmpp|consistency] \\
         [--ddim-steps 50] [--eta 0.0] [--eager]
 
 The weights are the state_dict a trainer of the port left under the
@@ -53,6 +53,7 @@ from ldm_tpu_torch.models.autoencoder import latent_shape_of
 from ldm_tpu_torch.serving.builder import load_sampler, sampler_checkpoint
 from ldm_tpu_torch.training.diffusion_trainer import CONSISTENCY, SAMPLERS, run_sampler
 from ldm_tpu_torch.training.latent_trainer import load_ldm
+from ldm_tpu_torch.utils.cli import add_device_args
 from ldm_tpu_torch.utils.images import save_images
 
 
@@ -64,7 +65,7 @@ class Generated(NamedTuple):
     paths: Sequence[str] = ()     # the PNG tree's files, one an image in order
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Generated:
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("config")
     ap.add_argument("--weights", default=None,
@@ -78,7 +79,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Generated:
                     help="guidance scale (default: the config's)")
     ap.add_argument("--ema", action=argparse.BooleanOptionalAction, default=True,
                     help="the EMA weights (default) or, with --no-ema, the raw ones")
-    ap.add_argument("--device", default="cuda")
+    add_device_args(ap)
     ap.add_argument("--out", default=None,
                     help="output .npy (default: <results>/samples_torch.npy)")
     ap.add_argument("--sampler", choices=SAMPLERS + (CONSISTENCY,), default="ddpm",
@@ -88,7 +89,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Generated:
     ap.add_argument("--eta", type=float, default=0.0, help="DDIM stochasticity")
     ap.add_argument("--eager", action="store_true",
                     help="the Python loop instead of the replayed CUDA graph")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Generated:
+    args = parse_args(argv)
 
     device = torch.device(args.device)
     config = load_config(args.config)

@@ -18,7 +18,7 @@ and ``train_latent`` (``ae_checkpoint``) read the same files.
 
     python -m ldm_tpu_torch.import_torch_checkpoint ckpt.pt config.yaml \\
         [--kind auto|unet|autoencoder|classifier] [--out PATH] \\
-        [--bottleneck-time-emb | --no-bottleneck-time-emb] [--device cuda]
+        [--bottleneck-time-emb | --no-bottleneck-time-emb] [--device cuda | --cpu]
 
 The UNet's channels come from the config's ``model`` block (a latent-space
 UNet's ``in_channels`` is the VAE's ``z_channels``), the classifier's from
@@ -36,6 +36,7 @@ import torch
 
 from ldm_tpu_torch.factory import build_classifier, build_model, load_config
 from ldm_tpu_torch.training.checkpoint import atomic_save
+from ldm_tpu_torch.utils.cli import add_device_args
 from ldm_tpu_torch.utils.torch_import import (
     KINDS,
     check_against_model,
@@ -47,7 +48,7 @@ DEFAULT_FILES = {"unet": "diffusion_model.pt", "autoencoder": "autoencoder.pt",
                  "classifier": "classifier.pt"}
 
 
-def main(argv: Optional[Sequence[str]] = None) -> str:
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("checkpoint", help="reference .pt state_dict file")
     ap.add_argument("config", help="config YAML describing the model")
@@ -60,8 +61,12 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
                     help="UNet only: keep the reference's (untrained) bottleneck time-MLP "
                          "weights instead of zeroing them. Default: follow the config "
                          "model's bottleneck_time_emb")
-    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    args = ap.parse_args(argv)
+    add_device_args(ap)
+    return ap.parse_args(argv)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> str:
+    args = parse_args(argv)
 
     sd = torch.load(args.checkpoint, map_location="cpu", weights_only=True)
     if not isinstance(sd, dict):

@@ -9,8 +9,8 @@ pixel- and classifier-feature FIDs, as the JSON the root main.py prints
     python -m ldm_tpu_torch.main configs/pixel_diffusion_model_cifar10.yaml \\
         [--per-class N] [--classifier-epochs N] [--sampler ddpm|ddim|dpmpp] \\
         [--ddim-steps N] [--negative-control] [--diffusion-checkpoint PATH] \\
-        [--generator-config LATENT.yaml] [--save-png] [--device cuda|cpu] \\
-        [--eager] [--strict-data]
+        [--generator-config LATENT.yaml] [--save-png] [--device cuda | --cpu] \\
+        [--wandb] [--eager] [--strict-data] [--mesh | --distributed]
 
 Three generator families: the pixel DDPM (``GaussianDiffusion``), the
 rectified flow (``RectifiedFlow``, e.g. ``configs/protocol_flow_hard.yaml``)
@@ -52,7 +52,7 @@ def result_json(result: AugmentationResult) -> dict:
     return out
 
 
-def main(argv: Optional[Sequence[str]] = None) -> AugmentationResult:
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("config")
     add_runtime_args(ap)
@@ -74,10 +74,13 @@ def main(argv: Optional[Sequence[str]] = None) -> AugmentationResult:
                     help="a latent config: its family generates (Phases A and C)")
     ap.add_argument("--eager", action="store_true",
                     help="launch every kernel from Python instead of replaying CUDA graphs")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
-    device, mesh = runtime_setup(args)
+
+def main(argv: Optional[Sequence[str]] = None) -> AugmentationResult:
+    args = parse_args(argv)
     config = load_config(args.config)
+    device, mesh, logger = runtime_setup(args, config)
     set_seed(config.seed)
     apply_runtime_flags(config)
     result = run_augmentation_experiment(
@@ -85,6 +88,7 @@ def main(argv: Optional[Sequence[str]] = None) -> AugmentationResult:
         n_per_class=args.per_class,
         save_png=args.save_png,
         classifier_epochs=args.classifier_epochs,
+        logger=logger,
         strict_data=args.strict_data,
         sampler=args.sampler,
         ddim_steps=args.ddim_steps,

@@ -58,6 +58,11 @@ class LatentDiffusionModel:
         """decode(z / scale), fp32 NHWC; ``scale`` defaults to the calibrated one."""
         return self.autoencoder.decode(z / (scale or self.latent_scaling_factor))
 
+    def apply_eps(self, x: torch.Tensor, t: torch.Tensor,
+                  y: Optional[torch.Tensor]) -> torch.Tensor:
+        """The eps model's prediction in latent space."""
+        return self.eps_model(x, t, y)
+
     def sample_images(self, classes: torch.Tensor, latent_shape: Tuple[int, int, int],
                       cfg_scale: float = 3.0, **kw) -> torch.Tensor:
         """Latents from the ancestral CFG sampler (``kw`` go to it), then

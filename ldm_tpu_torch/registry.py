@@ -2,7 +2,8 @@
 
 The YAML configs name the JAX package's classes; this map sends each to its
 PyTorch counterpart.  The reference's ``src.*`` names are aliases of them,
-as in ``ldm_tpu/registry.py``.
+as in ``ldm_tpu/registry.py``.  ``register`` adds a name to the map, and
+``resolve`` / ``instantiate_from_config`` read it as the JAX functions do.
 """
 
 from __future__ import annotations
@@ -33,12 +34,39 @@ TARGET_ALIASES: Dict[str, str] = {
     "src.LatentDiffusionModel.LatentDiffusionModel": "ldm_tpu.models.latent.LatentDiffusionModel",
 }
 
+# constructor keywords of the reference's configs that mean nothing here
+# (the torch-era ``device: cuda``; the caller passes the device)
+_IGNORED_PARAMS = ("device",)
+
+
+def register(name: str) -> Callable[[Callable[..., Any]], Callable[..., Any]]:
+    """Class or function decorator: add a component to ``TARGETS`` under
+    ``name``."""
+
+    def deco(obj: Callable[..., Any]) -> Callable[..., Any]:
+        TARGETS[name] = obj
+        return obj
+
+    return deco
+
+
+def resolve(target: str) -> Callable[..., Any]:
+    """The constructor of a target string (a JAX dotted name, or a
+    reference alias of one)."""
+    target = TARGET_ALIASES.get(target, target)
+    if target not in TARGETS:
+        raise KeyError(f"Unknown component target {target!r}; known: {sorted(TARGETS)}")
+    return TARGETS[target]
+
 
 def instantiate_from_config(cfg: Dict[str, Any], **extra: Any) -> Any:
-    """Build a component from a ``{"target": ..., "params": {...}}`` mapping."""
-    target = TARGET_ALIASES.get(cfg["target"], cfg["target"])
-    if target not in TARGETS:
-        raise KeyError(
-            f"target {target!r} has no PyTorch port yet; ported: {sorted(TARGETS)}"
-        )
-    return TARGETS[target](**(cfg.get("params") or {}), **extra)
+    """Build a component from a ``{"target": ..., "params": {...}}`` mapping:
+    the params without ``device``, then ``extra`` over them."""
+    if "target" not in cfg:
+        raise KeyError(f"config has no 'target': {cfg}")
+    ctor = resolve(cfg["target"])
+    params = dict(cfg.get("params") or {})
+    for bad in _IGNORED_PARAMS:
+        params.pop(bad, None)
+    params.update(extra)
+    return ctor(**params)

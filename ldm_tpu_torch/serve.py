@@ -6,7 +6,7 @@ configs, and a distilled consistency student (``--sampler consistency``).
     python -m ldm_tpu_torch.serve configs/pixel_diffusion_model_cifar10.yaml \\
         [--checkpoint unet.pt] [--no-ema] [--sampler ddim|ddpm|dpmpp|consistency] \\
         [--ddim-steps 50] [--eta 0] [--cfg-scale S] [--batch-size 64] \\
-        [--max-delay-ms 20] [--host 127.0.0.1] [--port 8080] [--device cuda] \\
+        [--max-delay-ms 20] [--host 127.0.0.1] [--port 8080] [--device cuda | --cpu] \\
         [--mesh]
     curl -X POST localhost:8080/generate -d '{"class_id": 3, "n": 4, "seed": 1}'
     curl -s -X POST localhost:8080/generate \\
@@ -36,6 +36,7 @@ from ldm_tpu_torch.factory import load_config
 from ldm_tpu_torch.serving import GenerationHTTPServer
 from ldm_tpu_torch.serving.builder import build_generation_service
 from ldm_tpu_torch.training.diffusion_trainer import CONSISTENCY, SAMPLERS
+from ldm_tpu_torch.utils.cli import add_device_args
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -55,7 +56,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="how long the batcher fills a batch before sampling it padded")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8080)
-    ap.add_argument("--device", default="cuda")
+    add_device_args(ap)
     ap.add_argument("--mesh", action="store_true",
                     help="one replica on every local card, each batch's slots split over "
                          "them (a slot's image is a one-card service's at batch-size / cards)")

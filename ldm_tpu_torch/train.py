@@ -3,8 +3,8 @@
 config -> data loaders -> UNet + diffusion -> DiffusionTrainer -> train().
 
     python -m ldm_tpu_torch.train configs/pixel_diffusion_model_cifar10.yaml \\
-        [--epochs N] [--resume] [--device cuda] [--strict-data] [--eager] \\
-        [--mesh | --distributed] [--profile DIR]
+        [--epochs N] [--resume] [--device cuda | --cpu] [--wandb] [--strict-data] \\
+        [--eager] [--mesh | --distributed] [--profile DIR]
 
 Data parallel on a machine with several cards (one process a card, over
 NCCL; ``param_sharding: fsdp`` in the config for ZeRO-3):
@@ -31,8 +31,9 @@ loaders, resized without JAX): when the dataset's files are not under the
 config's ``data_path`` they fall back to seeded synthetic images at the
 config's shape, unless ``--strict-data``.
 The UNet's initial weights are a seeded random init (the config's seed).
-Metrics go to ``<workdir>/<type>/<project>/metrics.jsonl``, checkpoints to
-its ``checkpoints/`` and sample grids to its ``results/``.
+Metrics go to ``<workdir>/<type>/<project>/metrics.jsonl`` (and, with
+``--wandb``, to wandb), checkpoints to its ``checkpoints/`` and sample grids
+to its ``results/``.
 """
 
 from __future__ import annotations
@@ -58,7 +59,7 @@ class Run(NamedTuple):
 
 
 def build_trainer(config: Config, device, strict_data: bool = False,
-                  eager: bool = False, mesh=None) -> DiffusionTrainer:
+                  eager: bool = False, mesh=None, logger=None) -> DiffusionTrainer:
     train_loader, val_loader, _test_loader, classes = create_dataloaders(
         config, allow_synthetic_fallback=not strict_data
     )
@@ -68,18 +69,19 @@ def build_trainer(config: Config, device, strict_data: bool = False,
     model.to(device)
     return DiffusionTrainer(config, model, build_diffusion(config, device),
                             train_loader, val_loader, classes, device=device,
-                            graphs=False if eager else None, mesh=mesh)
+                            logger=logger, graphs=False if eager else None, mesh=mesh)
 
 
 def run(config: Config, device="cuda", resume: bool = False,
         strict_data: bool = False, eager: bool = False, mesh=None,
-        profile: Optional[str] = None) -> Run:
+        profile: Optional[str] = None, logger=None) -> Run:
     """Build the trainer for ``config`` on ``device``, resume from the latest
     checkpoint if asked and one exists, and train ``config.epochs`` epochs;
     ``eager``: without CUDA graphs; ``mesh``: data parallel over it;
-    ``profile``: a directory for the training's trace."""
+    ``profile``: a directory for the training's trace; ``logger``: the
+    trainer's ``MetricsLogger`` (default: the run directory's)."""
     device = torch.device(device)
-    trainer = build_trainer(config, device, strict_data, eager, mesh)
+    trainer = build_trainer(config, device, strict_data, eager, mesh, logger)
     resumed = None
     if resume and trainer.resume_latest():
         resumed = trainer.state.step
@@ -89,7 +91,7 @@ def run(config: Config, device="cuda", resume: bool = False,
     return Run(trainer, history, resumed)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Run:
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("config")
     ap.add_argument("--epochs", type=int, default=None,
@@ -101,13 +103,17 @@ def main(argv: Optional[Sequence[str]] = None) -> Run:
                     help="launch every kernel from Python instead of replaying CUDA graphs")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of the training under DIR")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Run:
+    args = parse_args(argv)
     config = load_config(args.config)
     if args.epochs is not None:
         config = dataclasses.replace(config, epochs=args.epochs)
-    device, mesh = runtime_setup(args)
+    device, mesh, logger = runtime_setup(args, config)
     return run(config, device, resume=args.resume, strict_data=args.strict_data,
-               eager=args.eager, mesh=mesh, profile=args.profile)
+               eager=args.eager, mesh=mesh, profile=args.profile, logger=logger)
 
 
 if __name__ == "__main__":

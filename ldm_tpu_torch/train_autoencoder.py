@@ -4,7 +4,8 @@ config -> data loaders -> Autoencoder (the ``model:`` block) ->
 AutoencoderTrainer -> train().
 
     python -m ldm_tpu_torch.train_autoencoder configs/autoencoder_hard.yaml \\
-        [--epochs N] [--device cuda] [--eager] [--strict-data]
+        [--epochs N] [--device cuda | --cpu] [--wandb] [--eager] [--strict-data] \\
+        [--mesh | --distributed]
 
 The weights start from a seeded random init (the config's seed).  Writes
 ``<workdir>/autoencoder/<project>/checkpoints/autoencoder.pt`` (the best
@@ -36,9 +37,10 @@ class Run(NamedTuple):
 
 
 def run(config: Config, device="cuda", strict_data: bool = False, eager: bool = False,
-        mesh=None) -> Run:
+        mesh=None, logger=None) -> Run:
     """Build the trainer for ``config`` on ``device`` and train ``config.epochs``
-    epochs (``mesh``: data parallel over it)."""
+    epochs (``mesh``: data parallel over it; ``logger``: the trainer's
+    ``MetricsLogger``)."""
     device = torch.device(device)
     set_seed(config.seed)
     apply_runtime_flags(config)
@@ -48,23 +50,29 @@ def run(config: Config, device="cuda", strict_data: bool = False, eager: bool = 
         torch.manual_seed(config.seed)
         model = build_model(config)
     trainer = AutoencoderTrainer(config, model.to(device), train_loader, val_loader,
-                                 device=device, graphs=False if eager else None, mesh=mesh)
+                                 device=device, logger=logger,
+                                 graphs=False if eager else None, mesh=mesh)
     return Run(trainer, trainer.train())
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Run:
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("config")
     ap.add_argument("--epochs", type=int, default=None, help="override the config's epoch count")
     ap.add_argument("--eager", action="store_true",
                     help="launch every kernel from Python instead of replaying CUDA graphs")
     add_runtime_args(ap)
-    args = ap.parse_args(argv)
-    device, mesh = runtime_setup(args)
+    return ap.parse_args(argv)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Run:
+    args = parse_args(argv)
     config = load_config(args.config)
     if args.epochs is not None:
         config = dataclasses.replace(config, epochs=args.epochs)
-    return run(config, device, strict_data=args.strict_data, eager=args.eager, mesh=mesh)
+    device, mesh, logger = runtime_setup(args, config)
+    return run(config, device, strict_data=args.strict_data, eager=args.eager, mesh=mesh,
+               logger=logger)
 
 
 if __name__ == "__main__":

@@ -6,7 +6,8 @@ config -> data loaders -> ResNet-18 (``factory.build_classifier``) ->
 ResNetTrainer -> [pretrain on ``--pretrain-dir``] -> train() -> test().
 
     python -m ldm_tpu_torch.train_classifier configs/pixel_diffusion_model_cifar10.yaml \\
-        [--pretrain-dir DIR] [--device cuda] [--strict-data] [--mesh | --distributed]
+        [--pretrain-dir DIR] [--device cuda | --cpu] [--wandb] [--strict-data] \\
+        [--mesh | --distributed]
 
 ``--pretrain-dir`` names a class-per-subdirectory image tree (torchvision's
 ImageFolder layout), as ``python -m ldm_tpu_torch.generate`` writes it
@@ -47,11 +48,11 @@ class Run(NamedTuple):
 
 
 def run(config: Config, device="cuda", pretrain_dir: Optional[str] = None,
-        strict_data: bool = False, mesh=None) -> Run:
+        strict_data: bool = False, mesh=None, logger=None) -> Run:
     """Build the classifier and its trainer for ``config`` on ``device``,
     pretrain on the image tree ``pretrain_dir`` if given, train
     ``config.epochs`` epochs and test the best weights (``mesh``: data
-    parallel over it)."""
+    parallel over it; ``logger``: the trainer's ``MetricsLogger``)."""
     if config.loss_fn == "mse":
         config = dataclasses.replace(config, loss_fn="cross-entropy")
     device = torch.device(device)
@@ -61,7 +62,7 @@ def run(config: Config, device="cuda", pretrain_dir: Optional[str] = None,
         config, allow_synthetic_fallback=not strict_data)
     model = build_classifier(config, config.data.image_channels, len(classes), device)
     trainer = ResNetTrainer(config, model, train_loader, val_loader, classes,
-                            test_loader=test_loader, device=device, mesh=mesh)
+                            test_loader=test_loader, logger=logger, device=device, mesh=mesh)
     pretrain, t0 = None, time.perf_counter()
     if pretrain_dir:
         pre = load_image_folder(pretrain_dir, config.data.image_size,
@@ -77,16 +78,21 @@ def run(config: Config, device="cuda", pretrain_dir: Optional[str] = None,
     return Run(trainer, pretrain, history, stats, seconds)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Run:
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("config")
     ap.add_argument("--pretrain-dir", default=None,
                     help="class-per-subdirectory image tree to pretrain on")
     add_runtime_args(ap)
-    args = ap.parse_args(argv)
-    device, mesh = runtime_setup(args)
-    return run(load_config(args.config), device, pretrain_dir=args.pretrain_dir,
-               strict_data=args.strict_data, mesh=mesh)
+    return ap.parse_args(argv)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Run:
+    args = parse_args(argv)
+    config = load_config(args.config)
+    device, mesh, logger = runtime_setup(args, config)
+    return run(config, device, pretrain_dir=args.pretrain_dir,
+               strict_data=args.strict_data, mesh=mesh, logger=logger)
 
 
 if __name__ == "__main__":

@@ -6,7 +6,8 @@ LatentDiffusionModel (the ``model:`` block is the latent UNet) ->
 LatentDiffusionTrainer -> train().
 
     python -m ldm_tpu_torch.train_latent configs/latent_diffusion_hard.yaml \\
-        [--epochs N] [--device cuda] [--eager] [--strict-data]
+        [--epochs N] [--device cuda | --cpu] [--wandb] [--eager] [--strict-data] \\
+        [--mesh | --distributed]
 
 ``ae_checkpoint`` is the ``autoencoder.pt`` that ``python -m
 ldm_tpu_torch.train_autoencoder`` writes; where it names a ``.msgpack`` (the
@@ -44,7 +45,7 @@ class Run(NamedTuple):
 
 
 def build_trainer(config: Config, device, strict_data: bool = False,
-                  eager: bool = False, mesh=None) -> LatentDiffusionTrainer:
+                  eager: bool = False, mesh=None, logger=None) -> LatentDiffusionTrainer:
     device = torch.device(device)
     ae = load_autoencoder(config, device)
     train_loader, val_loader, _test, classes = create_dataloaders(
@@ -57,32 +58,39 @@ def build_trainer(config: Config, device, strict_data: bool = False,
         unet = build_model(config)
     ldm = build_ldm(config, unet.to(device), ae, scaling, device)
     return LatentDiffusionTrainer(config, ldm, train_loader, val_loader, classes,
-                                  device=device, graphs=False if eager else None, mesh=mesh)
+                                  device=device, logger=logger,
+                                  graphs=False if eager else None, mesh=mesh)
 
 
 def run(config: Config, device="cuda", strict_data: bool = False, eager: bool = False,
-        mesh=None) -> Run:
+        mesh=None, logger=None) -> Run:
     """Build the trainer for ``config`` on ``device`` and train ``config.epochs``
-    epochs (``mesh``: data parallel over it)."""
+    epochs (``mesh``: data parallel over it; ``logger``: the trainer's
+    ``MetricsLogger``)."""
     set_seed(config.seed)
     apply_runtime_flags(config)
-    trainer = build_trainer(config, device, strict_data, eager, mesh)
+    trainer = build_trainer(config, device, strict_data, eager, mesh, logger)
     return Run(trainer, trainer.train())
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Run:
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("config")
     ap.add_argument("--epochs", type=int, default=None, help="override the config's epoch count")
     ap.add_argument("--eager", action="store_true",
                     help="launch every kernel from Python instead of replaying CUDA graphs")
     add_runtime_args(ap)
-    args = ap.parse_args(argv)
-    device, mesh = runtime_setup(args)
+    return ap.parse_args(argv)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Run:
+    args = parse_args(argv)
     config = load_config(args.config)
     if args.epochs is not None:
         config = dataclasses.replace(config, epochs=args.epochs)
-    return run(config, device, strict_data=args.strict_data, eager=args.eager, mesh=mesh)
+    device, mesh, logger = runtime_setup(args, config)
+    return run(config, device, strict_data=args.strict_data, eager=args.eager, mesh=mesh,
+               logger=logger)
 
 
 if __name__ == "__main__":

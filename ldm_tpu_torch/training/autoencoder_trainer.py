@@ -88,7 +88,7 @@ class AutoencoderTrainer:
             model.parameters()).device
         self.train_loader = train_loader
         self.val_loader = val_loader
-        self.logger = logger or MetricsLogger(config.dirpath)
+        self.logger = logger or MetricsLogger(config.dirpath, config.project_name)
         config.create_dirs()
         self.latent_shape = latent_shape_of(model, config.data.image_size)
         self.state = TrainState(model, config.lr, ema=False, mesh=mesh)

@@ -84,7 +84,7 @@ class ConsistencyDistillTrainer:
         self.diffusion = diffusion
         self.train_loader = train_loader
         self.classes = np.asarray(classes, np.int64)
-        self.logger = logger or MetricsLogger(config.dirpath)
+        self.logger = logger or MetricsLogger(config.dirpath, config.project_name)
         config.create_dirs()
         self.cfg_scale = config.diffusion.cfg_scale if cfg_scale is None else float(cfg_scale)
         self.huber_c = float(huber_c)

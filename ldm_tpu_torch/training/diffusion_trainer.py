@@ -151,7 +151,7 @@ class DiffusionTrainer:
         self.val_loader = val_loader
         self.classes = np.asarray(classes, np.int64)
         self.cfg_scale = config.diffusion.cfg_scale if cfg_scale is None else cfg_scale
-        self.logger = logger or MetricsLogger(config.dirpath)
+        self.logger = logger or MetricsLogger(config.dirpath, config.project_name)
         config.create_dirs()
         d = config.data
         self.image_shape = tuple(input_shape or (d.image_size, d.image_size, d.image_channels))

@@ -96,7 +96,7 @@ class ResNetTrainer:
         self.test_loader = test_loader
         self.num_classes = len(classes)
         self.name = name
-        self.logger = logger or MetricsLogger(config.dirpath)
+        self.logger = logger or MetricsLogger(config.dirpath, config.project_name)
         config.create_dirs()
         sync_batch_norm(model, mesh)
         self.state = TrainState(model, config.lr, config.ema_decay, ema=False, mesh=mesh)

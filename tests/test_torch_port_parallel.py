@@ -258,7 +258,8 @@ def test_model_axis_and_spatial_raise_naming_item_12b(tmp_path):
 
 def test_distributed_flag_needs_the_environment(monkeypatch):
     """``--distributed`` with none of the variables raises, as JAX's does;
-    without ``--mesh`` / ``--distributed`` there is no mesh."""
+    without ``--mesh`` / ``--distributed`` there is no mesh (and without
+    ``--wandb`` no logger)."""
     for var in ("LDM_TPU_COORDINATOR", "LDM_TPU_NUM_PROCESSES", "LDM_TPU_PROCESS_ID",
                 "LDM_TPU_DISTRIBUTED"):
         monkeypatch.delenv(var, raising=False)
@@ -266,7 +267,8 @@ def test_distributed_flag_needs_the_environment(monkeypatch):
     cli.add_runtime_args(ap)
     with pytest.raises(RuntimeError, match="LDM_TPU_COORDINATOR"):
         cli.runtime_setup(ap.parse_args(["--device", "cpu", "--distributed"]))
-    assert cli.runtime_setup(ap.parse_args(["--device", "cpu"])) == (torch.device("cpu"), None)
+    assert cli.runtime_setup(ap.parse_args(["--device", "cpu"])) == (torch.device("cpu"), None,
+                                                                      None)
     assert not distributed.initialize(device="cpu")
     assert distributed.process_count() == 1 and distributed.is_primary()
 
