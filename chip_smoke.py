@@ -237,6 +237,26 @@ failure raises and exits nonzero:
    phase and Phase C's img/s; then the files removed and the same argv
    raises ``FileNotFoundError`` with no launch and no device memory taken;
    the phase within its budget.
+7k. the optimizer's one pass (``ops/fused_adam_ema.py``, the port of the
+   JAX package's ``fused_apply_gradients``: Adam and the EMA of every leaf
+   in one launch): its edges (more leaves than a launch takes, leaves of 1
+   to 9,000 elements, misaligned ones, ones without a gradient) bit for bit
+   against the plain version; at the flagship width, 200 leaves, 20,350,915
+   parameters: (a) the kernel against its plain version over 3 chained steps from the
+   gradients of real train steps at B=64, with and without the EMA, p, m,
+   v and ema within 1e-6; a rerun bit-identical, and bit-identical to the
+   trainer's own 3 updates; (b) a trainer replaying its captured step
+   against an eager one from the same weights, batches and draws (cuDNN
+   deterministic; 3 eager and 3 replayed steps): p, m, v, ema, Adam's step
+   counts and the step counter bit for bit; (c) by CUDA-graph replay the
+   kernel (with and without the EMA), its bound (36 and 28 bytes a
+   parameter at 3.35 TB/s), the plain version, and two yardsticks on the
+   same tensors that the port never calls: torch's capturable foreach Adam
+   with a per-leaf EMA (the update before this kernel) and
+   ``torch.optim.Adam(fused=True)`` with ``torch._foreach_lerp_``; (d) the
+   train step's device ms a replay with this pass and with the foreach
+   update, two trainers read in turns.  Every train step of every phase
+   launches the kernel once (the counts of phases 7-7j and 12 hold it).
 8. the fused ResNet-block kernel (``ops/resnet_block.py``) vs plain: at
    the 11 ResNet sites of the 32px flagship UNet at 2B=20 and 2B=128, at
    probe 13's four sites at 2B=256, at the 64px (4096, 64->64) site at
@@ -327,6 +347,7 @@ from ldm_tpu_torch.experiments import augmentation as aug
 from ldm_tpu_torch.factory import build_classifier, build_diffusion, build_model, load_config
 from ldm_tpu_torch.models import unet as unet_module
 from ldm_tpu_torch.ops import build
+from ldm_tpu_torch.ops import fused_adam_ema as fa
 from ldm_tpu_torch.ops import linear_attention as la
 from ldm_tpu_torch.ops import resnet_block as rb
 from ldm_tpu_torch.perf import compare_parent, flops, probe7, probe13, probe13b
@@ -338,7 +359,7 @@ from ldm_tpu_torch.training.consistency_trainer import ConsistencyDistillTrainer
 from ldm_tpu_torch.training.diffusion_trainer import DiffusionTrainer
 from ldm_tpu_torch.training.latent_trainer import build_ldm, load_latent_scaling
 from ldm_tpu_torch.training.resnet_trainer import ResNetTrainer
-from ldm_tpu_torch.training.state import step_generator
+from ldm_tpu_torch.training.state import ema_decay_tensor, step_generator
 from ldm_tpu_torch.utils.graphs import WARMUP_STEPS
 from ldm_tpu_torch.utils.images import load_image_folder
 from ldm_tpu_torch.utils.logging import global_norm
@@ -416,7 +437,8 @@ COUNTED = {"linear_attention_fwd": la.linear_attention_block,
            "linear_attention_bwd": la.linear_attention_block_bwd,
            "resnet_block_fwd": rb.resnet_block,
            "resnet_block_probe": probe13b.probe_block,
-           "linear_attention_fwd_stage": probe7.stage_block}
+           "linear_attention_fwd_stage": probe7.stage_block,
+           "fused_adam_ema": fa.fused_adam_ema}
 # the kernels neither main path runs (the ResNet block is wired into no UNet)
 OFF_PATH = ("resnet_block_fwd", "resnet_block_probe", "linear_attention_fwd_stage")
 
@@ -837,6 +859,7 @@ def check_smoke_config(tag: str) -> None:
           f"{res.history['train_loss']}, steps {res.trainer.step_counts}, backward launches "
           f"{counts['linear_attention_bwd']} (want {blocks * steps})")
     if (steps != 16 or counts["linear_attention_bwd"] != blocks * steps
+            or counts["fused_adam_ema"] != steps
             or res.trainer.step_counts != {"graphed": 16 - WARMUP_STEPS, "eager": WARMUP_STEPS}
             or not np.isfinite(res.history["train_loss"]).all()):
         raise AssertionError(f"smoke training: {steps} steps, {counts}")
@@ -868,7 +891,8 @@ def check_training(config, tag: str) -> dict:
         print(f"train.run took the device-resident epoch: {scan.n} images of "
               f"{scan.image_shape} uint8 on the card, {scan.n_batches} steps an epoch, the "
               f"batch gathered inside the replayed step")
-        if steps != 27 or bwd_launches != 8 * steps or any(run_counts[k] for k in OFF_PATH):
+        if (steps != 27 or bwd_launches != 8 * steps or run_counts["fused_adam_ema"] != steps
+                or any(run_counts[k] for k in OFF_PATH)):
             raise AssertionError(f"{steps} steps, launches {run_counts}")
         if step_counts != {"graphed": 27 - WARMUP_STEPS, "eager": WARMUP_STEPS}:
             raise AssertionError(f"step counts {step_counts}")
@@ -917,7 +941,8 @@ def check_training(config, tag: str) -> dict:
         per_step = read_counts()
         print(f"one replayed train step launches: {per_step}")
         if per_step != dict.fromkeys(OFF_PATH, 0) | {"linear_attention_fwd": 8,
-                                                     "linear_attention_bwd": 8}:
+                                                     "linear_attention_bwd": 8,
+                                                     "fused_adam_ema": 1}:
             raise AssertionError(f"a train step launched the kernels {per_step} times")
 
         def ten_steps():
@@ -1634,14 +1659,24 @@ def protocol_config(family: str, workdir: str) -> str:
                         data={"synthetic_size": PROTOCOL_SIZE})
 
 
+def classifier_steps(n_real: int, n_synth: int, batch: int) -> dict:
+    """The optimizer steps of each classifier experiment, from the size of
+    its real / synthetic mix (the loaders drop the last batch): epochs x
+    (size // batch); the broken control trains on a synthetic-sized set."""
+    sizes = {name: int(fr * n_real) + int(fs * n_synth) for name, fr, fs in aug.EXPERIMENTS}
+    sizes["exp2_broken"] = n_synth
+    return {k: PROTOCOL_CLF_EPOCHS * (v // batch) for k, v in sizes.items()}
+
+
 def protocol_launches(family: str, config, ddim_steps=None, negative_control=True) -> dict:
     """The launches each phase must make, from the shapes: Phase A's train
-    steps (8 forward and 8 backward launches each) and validation batches
-    (two forwards: CFG's lerp), Phase C's sampler steps over the chunks plus
-    the warm-up steps before each capture (a Heun step is two forwards;
-    ``ddim_steps``: the pixel DDPM's Phase C by DDIM at that many steps),
-    the classifier phases none; the negative control's phases only with
-    ``negative_control``."""
+    steps (8 forward and 8 backward launches and one optimizer pass each)
+    and validation batches (two forwards: CFG's lerp), Phase C's sampler
+    steps over the chunks plus the warm-up steps before each capture (a Heun
+    step is two forwards; ``ddim_steps``: the pixel DDPM's Phase C by DDIM at
+    that many steps), the classifier phases no attention kernel and one
+    optimizer pass a step (``classifier_steps``); the negative control's
+    phases only with ``negative_control``."""
     n_train = int(0.9 * (PROTOCOL_SIZE // 2))
     steps = n_train // config.batch_size
     val_batches = (PROTOCOL_SIZE // 2 - n_train) // config.batch_size
@@ -1653,14 +1688,17 @@ def protocol_launches(family: str, config, ddim_steps=None, negative_control=Tru
         # ancestral T=400 (or DDIM); broken: DDIM-5, cfg 0
         c_steps, c_broken, per = ddim_steps or T_STEPS, 5, 8
     want = {"A": {"linear_attention_block": 8 * steps + 16 * val_batches,
-                  "linear_attention_block_bwd": 8 * steps},
+                  "linear_attention_block_bwd": 8 * steps, "fused_adam_ema": steps},
             "C": {"linear_attention_block": per * (chunks * c_steps + WARMUP_STEPS)},
             "C_broken": {"linear_attention_block": (per if family == "flow" else 8)
                          * (chunks * c_broken + WARMUP_STEPS)}}
     phases = ["A", "C", "C_broken"] + PROTOCOL_EXPS if negative_control else \
         ["A", "C"] + [name for name, _, _ in aug.EXPERIMENTS]
+    for name, n in classifier_steps(n_train, 10 * PROTOCOL_PER_CLASS,
+                                    config.batch_size).items():
+        want[name] = {"fused_adam_ema": n}
     return {phase: {"linear_attention_block": 0, "linear_attention_block_bwd": 0,
-                    "resnet_block": 0} | want.get(phase, {})
+                    "resnet_block": 0, "fused_adam_ema": 0} | want.get(phase, {})
             for phase in phases}
 
 
@@ -2184,7 +2222,7 @@ def check_consistency(tag: str) -> dict:
         grid_steps = 2  # the grid's --sample-steps, B=80: a captured sampler step
         want = dict.fromkeys(COUNTED, 0) | {
             "linear_attention_fwd": DISTILL_FWD * steps + 8 * (grid_steps + WARMUP_STEPS),
-            "linear_attention_bwd": DISTILL_BWD * steps}
+            "linear_attention_bwd": DISTILL_BWD * steps, "fused_adam_ema": steps}
         print(f"distill.main: {steps} steps at B={TRAIN_B} bf16 in {seconds:.1f} s (builds, "
               f"warm-up and captures included), losses {res.result['history']}, steps "
               f"{tr.step_counts}; kernel launches {counts} (want {want}: {DISTILL_FWD} / "
@@ -2205,7 +2243,8 @@ def check_consistency(tag: str) -> dict:
         tr.scan_step(scan)
         per_step = read_counts()
         if per_step != dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": DISTILL_FWD,
-                                                    "linear_attention_bwd": DISTILL_BWD}:
+                                                    "linear_attention_bwd": DISTILL_BWD,
+                                                    "fused_adam_ema": 1}:
             raise AssertionError(f"a replayed distill step launched {per_step}")
         print(f"one replayed distill step launches: {per_step}")
 
@@ -2305,9 +2344,10 @@ def check_latent(tag: str, keep_dir: str) -> dict:
         print(f"train_autoencoder: {AE_CONFIG} ({n_ae} parameters), {at.state.step} steps in 2 "
               f"epochs at B={TRAIN_B} bf16 in {ae_s:.1f} s, steps {at.step_counts}; train loss "
               f"{hist['train_loss']}, val loss {hist['val_loss']}; launches {counts} (the VAE "
-              f"runs no kernel of its own) [{tag}]")
+              f"runs no attention kernel; one optimizer pass a step) [{tag}]")
         if (at.state.step != 18 or not np.isfinite(hist["train_loss"] + hist["val_loss"]).all()
-                or not os.path.isfile(ae_pt) or any(counts.values())
+                or not os.path.isfile(ae_pt)
+                or counts != dict.fromkeys(COUNTED, 0) | {"fused_adam_ema": 18}
                 or at.step_counts != {"graphed": 18 - WARMUP_STEPS, "eager": WARMUP_STEPS}):
             raise AssertionError(f"train_autoencoder: {at.step_counts}, {hist}, {counts}")
         shutil.copy(ae_pt, os.path.join(keep_dir, "autoencoder.pt"))
@@ -2331,7 +2371,7 @@ def check_latent(tag: str, keep_dir: str) -> dict:
         blocks = len(tr.model.lin_attn_blocks())
         want = dict.fromkeys(COUNTED, 0) | {
             "linear_attention_fwd": blocks * steps + 2 * blocks * val_batches * 2,
-            "linear_attention_bwd": blocks * steps}
+            "linear_attention_bwd": blocks * steps, "fused_adam_ema": steps}
         factor = load_latent_scaling(ldm_cfg)
         print(f"train_latent: {LATENT_CONFIG} (latent UNet {sum(p.numel() for p in tr.model.parameters())}"
               f" parameters, {blocks} attention blocks at (16, 128), latents {tr.image_shape}), "
@@ -2350,7 +2390,8 @@ def check_latent(tag: str, keep_dir: str) -> dict:
         tr.scan_step(scan)
         per_step = read_counts()
         if per_step != dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": 2,
-                                                    "linear_attention_bwd": 2}:
+                                                    "linear_attention_bwd": 2,
+                                                    "fused_adam_ema": 1}:
             raise AssertionError(f"a replayed latent train step launched {per_step}")
 
         def epoch():
@@ -2482,10 +2523,14 @@ def run_latent_protocol(workdir: str, ae_ckpt: str, tag: str) -> dict:
     steps = n_train // config.batch_size
     val_batches = (PROTOCOL_SIZE // 2 - n_train) // config.batch_size  # the last one dropped
     chunks = -(-10 * PROTOCOL_PER_CLASS // SAMPLE_B)
-    zero = {"linear_attention_block": 0, "linear_attention_block_bwd": 0, "resnet_block": 0}
+    zero = {"linear_attention_block": 0, "linear_attention_block_bwd": 0, "resnet_block": 0,
+            "fused_adam_ema": 0}
     want = {phase: dict(zero) for phase in ["A", "C", "C_broken"] + PROTOCOL_EXPS}
     want["A"].update(linear_attention_block=2 * steps + 4 * val_batches,
-                     linear_attention_block_bwd=2 * steps)
+                     linear_attention_block_bwd=2 * steps, fused_adam_ema=steps)
+    for name, n in classifier_steps(n_train, 10 * PROTOCOL_PER_CLASS,
+                                    config.batch_size).items():
+        want[name]["fused_adam_ema"] = n
     want["C"]["linear_attention_block"] = 2 * (chunks * t_steps + WARMUP_STEPS)
     want["C_broken"]["linear_attention_block"] = 2 * chunks * t_steps
     print(f"latent protocol: {type(dt).__name__} over {dt.image_shape} latents, Phase C "
@@ -2636,7 +2681,8 @@ def graphed_fp32_runs(cfg, variants, out: dict) -> dict:
               f"{tr.step_counts}; one replayed step's launches {counts}; sharded leaves "
               f"{len(runs[name][3])}")
         if counts != dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": 8,
-                                                  "linear_attention_bwd": 8}:
+                                                  "linear_attention_bwd": 8,
+                                                  "fused_adam_ema": 1}:
             raise AssertionError(f"{name}: a replayed step launched {counts}")
         if tr.step_counts != {"graphed": MESH_STEPS - WARMUP_STEPS, "eager": WARMUP_STEPS}:
             raise AssertionError(f"{name}: step counts {tr.step_counts}")
@@ -2802,7 +2848,8 @@ def check_mesh_gloo(tag: str) -> dict:
         if loss_rel > 1e-5 or param_abs > 5e-3 or stat_abs > 1e-6:
             raise AssertionError(f"gloo rank {r} left the one-process run")
         if o["counts"] != dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": 8 * GLOO_STEPS,
-                                                       "linear_attention_bwd": 8 * GLOO_STEPS}:
+                                                       "linear_attention_bwd": 8 * GLOO_STEPS,
+                                                       "fused_adam_ema": GLOO_STEPS}:
             raise AssertionError(f"gloo rank {r} launched {o['counts']}")
         out[f"rank{r}"] = {"loss_rel": loss_rel, "param_abs": param_abs, "stat_abs": stat_abs,
                            "step_ms": o["ms"], "launches": o["counts"]}
@@ -2897,6 +2944,7 @@ def check_mesh_cli(config, tag: str) -> dict:
               f"{per_epoch}; files {files}")
         if (steps != 18 or per_epoch != [1, 1] or len(files) != 2
                 or counts["linear_attention_bwd"] != 8 * steps
+                or counts["fused_adam_ema"] != steps
                 or not res.trainer.mesh.is_primary):
             raise AssertionError("train --mesh did not run as asked")
     return {"steps": steps, "launches": counts, "step_counts": res.trainer.step_counts}
@@ -3080,7 +3128,8 @@ def check_axis_gloo(tag: str, gloo_dp_ms: float) -> dict:
                   f"{whole:,}); host ms a step {' '.join(f'{v:.1f}' for v in m['ms'])} [{tag}]")
             if loss_rel > 1e-5 or gnorm_rel > 1e-5 or param_abs > 5e-3:
                 raise AssertionError(f"{mode} rank {r} left the one-process run")
-            if m["counts"] != none or m["impls"] != ["torch"]:
+            # no attention kernel at model 2; the optimizer's pass a step
+            if m["counts"] != none | {"fused_adam_ema": AXIS_STEPS} or m["impls"] != ["torch"]:
                 raise AssertionError(f"{mode} rank {r} launched {m['counts']}")
             if m["bytes"] != expect:
                 raise AssertionError(f"{mode} rank {r} holds {m['bytes']} bytes, not {expect}")
@@ -3462,7 +3511,8 @@ def check_workflow(tag: str, vae_pt: str) -> dict:
               + "; ".join(f"{e['name'][:70]} {e['dur']}" for e in events[:5])
               + "; the 5 largest kernels (us): "
               + "; ".join(f"{e['name'][:70]} {e['dur']}" for e in kernels[:5]) + f" [{tag}]")
-        if (steps != 18 or counts["linear_attention_bwd"] != 8 * steps or not events
+        if (steps != 18 or counts["linear_attention_bwd"] != 8 * steps
+                or counts["fused_adam_ema"] != steps or not events
                 or not np.isfinite(run.history["train_loss"]).all()):
             raise AssertionError(f"train --profile: {steps} steps, {counts}, {len(events)} "
                                  "device events")
@@ -3533,7 +3583,8 @@ def check_workflow(tag: str, vae_pt: str) -> dict:
               f"{clf.test['f1_macro']:.4f}; wall s pretrain {clf.seconds['pretrain']:.3f}, train "
               f"{clf.seconds['train']:.3f}, test {clf.seconds['test']:.3f}; launches {counts} "
               f"[{tag}]")
-        if (pre_steps != 320 // TRAIN_B or any(counts.values())
+        if (pre_steps != 320 // TRAIN_B
+                or counts != dict.fromkeys(COUNTED, 0) | {"fused_adam_ema": ct.state.step}
                 or sum(ct.step_counts.values()) != ct.state.step
                 or not np.isfinite(clf.test["loss"])):
             raise AssertionError(f"train_classifier: {pre_steps} pretrain steps, {counts}")
@@ -3593,6 +3644,298 @@ BENCH_TOL = 0.10
 BENCH_BUDGET_S = 60
 
 
+# phase 7k: the optimizer's one pass (ops/fused_adam_ema.py) at the flagship width
+ADAM_STEPS = 3
+# kernel vs plain: both round at the same points (the kernel contracts no
+# FMA), so an ulp or two at most
+ADAM_TOL = 1e-6
+PEAK_FP32 = 67e12  # the H100's fp32 rate outside the tensor cores (SXM, 700 W)
+# bytes an element: p, g, m, v, e read and p, m, v, e written (fp32); no EMA:
+# 28; fp32 operations an element: m 3, v 4, p 6, the EMA 3
+ADAM_BYTES, ADAM_BYTES_NO_EMA = 36, 28
+ADAM_FLOPS, ADAM_FLOPS_NO_EMA = 16, 13
+
+
+@dataclasses.dataclass
+class AdamStreams:
+    """A train state's leaves as the pass takes them."""
+
+    p: list
+    m: list
+    v: list
+    e: list
+    count: list
+    step_t: torch.Tensor
+
+    @classmethod
+    def of(cls, state) -> "AdamStreams":
+        adam = state._adam_state()
+        return cls([p.detach() for p in state.params()], [st["exp_avg"] for st in adam],
+                   [st["exp_avg_sq"] for st in adam], [e.detach() for e in state.ema.parameters()],
+                   [st["step"] for st in adam], state.step_t)
+
+    def clone(self) -> "AdamStreams":
+        return AdamStreams(*([t.clone() for t in ts] for ts in (self.p, self.m, self.v, self.e,
+                                                                 self.count)),
+                           self.step_t.clone())
+
+    def step(self, fn, grads: list, ema: bool, decay: float, lr: float) -> None:
+        """One update by ``fn`` (the wrapper or the plain version), then the
+        counts += 1, as ``TrainState.update`` does."""
+        d = ema_decay_tensor(decay, self.step_t)
+        fn(self.p, grads, self.m, self.v, self.e if ema else None, self.count, d,
+           lr, 0.9, 0.999, 1e-8)
+        torch._foreach_add_(self.count, 1.0)
+        self.step_t += 1
+
+    def max_abs_err(self, other: "AdamStreams", ema: bool) -> dict:
+        names = ("p", "m", "v") + (("e",) if ema else ())
+        return {k: max(float((a - b).abs().max()) for a, b in zip(getattr(self, k),
+                                                                     getattr(other, k)))
+                for k in names}
+
+    def equal(self, other: "AdamStreams") -> bool:
+        return all(torch.equal(a, b) for k in ("p", "m", "v", "e", "count")
+                   for a, b in zip(getattr(self, k), getattr(other, k))) and torch.equal(
+            self.step_t, other.step_t)
+
+
+def foreach_update(state) -> None:
+    """The train state's update before the one pass (the yardstick): torch's
+    capturable foreach Adam, then the EMA with one ``addcmul_`` a leaf."""
+    with torch.no_grad():
+        state.optimizer.step()
+        d = ema_decay_tensor(state.ema_decay, state.step_t)
+        ema = list(state.ema.parameters())
+        torch._foreach_mul_(ema, d)
+        rest = 1.0 - d
+        for e, p in zip(ema, state.params()):
+            e.addcmul_(p, rest)
+        state.step_t += 1
+
+
+def adam_trainer(cfg, graphs) -> DiffusionTrainer:
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.seed)
+        model = build_model(cfg, DEV)
+    return DiffusionTrainer(cfg, model, build_diffusion(cfg, DEV), None, None,
+                            list(range(10)), device=DEV, graphs=graphs)
+
+
+def adam_batches(n: int, seed: int) -> list:
+    """``n`` batches at B=64 with their injected draws (t, eps, drop)."""
+    g = torch.Generator().manual_seed(seed)
+    return [({"image": torch.rand(TRAIN_B, 32, 32, 3, generator=g) * 2 - 1,
+              "label": torch.randint(0, 10, (TRAIN_B,), generator=g)},
+             {"t": torch.randint(0, T_STEPS, (TRAIN_B,), generator=g),
+              "eps": torch.randn(TRAIN_B, 32, 32, 3, generator=g),
+              "drop": torch.tensor(i % 3 == 0)}) for i in range(n)]
+
+
+def adam_bound(n: int, ema: bool) -> dict:
+    nbytes = n * (ADAM_BYTES if ema else ADAM_BYTES_NO_EMA)
+    flops = n * (ADAM_FLOPS if ema else ADAM_FLOPS_NO_EMA)
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else
+            "operations", "bound_bytes": nbytes, "bound_flops": flops}
+
+
+def check_fused_edges(tag: str) -> None:
+    """Phase 7k: the kernel's edges against its plain version: more leaves
+    than one launch takes (the table in groups), leaves of 1 to 9,000
+    elements (scalar tails), every third one at an address 4 bytes off 16
+    (the scalar path), every fifth one without a gradient, with and without
+    the EMA; bit for bit and launches as the groups give them."""
+    per_launch = build.load().ldm_fused_adam_ema_leaves()
+    n_leaves = per_launch + 52
+    g = torch.Generator(device=DEV).manual_seed(44)
+    sizes = torch.randint(1, 9000, (n_leaves,), generator=torch.Generator().manual_seed(45))
+    sizes[:3] = torch.tensor([1, 3, 4097])
+
+    def stream(positive=False):
+        out = []
+        for i, k in enumerate(sizes.tolist()):
+            off = 1 if i % 3 == 0 else 0
+            t = torch.randn(k + off, generator=g, device=DEV)[off:]
+            out.append(t.abs() * 1e-4 if positive else t)
+        return out
+
+    for ema in (True, False):
+        base = [stream(), stream(), stream(), stream(positive=True), stream()]
+        base[1] = [None if i % 5 == 0 else t for i, t in enumerate(base[1])]
+        count = [torch.full((), float(i % 7), device=DEV) for i in range(n_leaves)]
+        d = torch.full((), 0.7, device=DEV)
+        runs = []
+        for fn in (fa.fused_adam_ema, fa.fused_adam_ema_torch):
+            p, grads, m, v, e = ([None if t is None else t.clone() for t in ts] for ts in base)
+            before = fa.fused_adam_ema.launches
+            fn(p, grads, m, v, e if ema else None, count, d, 1e-3, 0.9, 0.999, 1e-8)
+            runs.append((p, m, v, e, fa.fused_adam_ema.launches - before))
+        torch.cuda.synchronize()
+        (kp, km, kv, ke, launches), (pp, pm, pv, pe, _) = runs
+        same = all(torch.equal(a, b) for xs, ys in ((kp, pp), (km, pm), (kv, pv), (ke, pe))
+                   for a, b in zip(xs, ys))
+        # the table holds the leaves with a gradient or an EMA
+        listed = n_leaves if ema else sum(t is not None for t in base[1])
+        want = -(-listed // per_launch)
+        print(f"fused Adam{' + EMA' if ema else ''} edges: {n_leaves} leaves of 1-9,000 "
+              f"elements ({per_launch} a launch), a third 4 bytes off 16-byte alignment, a fifth "
+              f"without a gradient, {listed} in the table: {launches} launches (want {want}); "
+              f"kernel == plain bit for bit {same} [{tag}]")
+        if launches != want or not same:
+            raise AssertionError(f"fused Adam edges: {launches} launches, equal {same}")
+
+
+def check_fused_update(config, tag: str, train_device_ms: float) -> dict:
+    """Phase 7k: the kernel against its plain version over chained steps from
+    real train-step gradients, a replayed train step against the eager one,
+    and the times (see the module's docstring)."""
+    out = {}
+    decay = config.ema_decay
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        check_fused_edges(tag)
+        with tempfile.TemporaryDirectory() as workdir:
+            cfg = dataclasses.replace(config, workdir=workdir)
+            # (a) real gradients: a step, the state taken, then ADAM_STEPS steps
+            # whose gradients are kept (the trainer's own updates: the kernel)
+            tr = adam_trainer(cfg, False)
+            batches = adam_batches(1 + ADAM_STEPS, 41)
+            tr.train_step(batches[0][0], **batches[0][1])
+            start = AdamStreams.of(tr.state).clone()
+            grads = []
+            for b, draws in batches[1:]:
+                tr.train_step(b, **draws)
+                grads.append([p.grad.clone() for p in tr.state.params()])
+            n = sum(t.numel() for t in start.p)
+            if n != N_PARAMS or len(start.p) != 200:
+                raise AssertionError(f"{len(start.p)} leaves of {n} parameters")
+            trained = AdamStreams.of(tr.state).clone()
+            del tr
+            errs = {}
+            for ema in (True, False):
+                runs = {}
+                for how, fn in (("kernel", fa.fused_adam_ema), ("rerun", fa.fused_adam_ema),
+                                ("plain", fa.fused_adam_ema_torch)):
+                    runs[how] = start.clone()
+                    for g in grads:
+                        runs[how].step(fn, g, ema, decay, cfg.lr)
+                torch.cuda.synchronize()
+                errs[ema] = runs["kernel"].max_abs_err(runs["plain"], ema)
+                rerun = runs["kernel"].equal(runs["rerun"])
+                mine = ema and runs["kernel"].equal(trained)
+                print(f"fused Adam{' + EMA' if ema else ''} kernel vs plain, {ADAM_STEPS} chained "
+                      f"steps from B={TRAIN_B} train-step gradients, 200 leaves, {n:,} parameters: "
+                      f"max_abs_err {errs[ema]} (limit {ADAM_TOL}); rerun bit-identical {rerun}"
+                      + (f"; the trainer's own {ADAM_STEPS} updates bit-identical {mine}"
+                         if ema else "") + f" [{tag}]")
+                if max(errs[ema].values()) > ADAM_TOL or not rerun or (ema and not mine):
+                    raise AssertionError(f"fused Adam + EMA: {errs[ema]}, rerun {rerun}, "
+                                         f"trainer {mine}")
+            out["max_abs_err"] = max(max(e.values()) for e in errs.values())
+            out["max_abs_err_by_stream"] = {("ema" if k else "no_ema"): v for k, v in errs.items()}
+
+            # (b) a replayed train step against the eager one: the same state,
+            # batches and draws; WARMUP_STEPS eager steps, then ADAM_STEPS replays
+            steps = adam_batches(WARMUP_STEPS + ADAM_STEPS, 42)
+            runs = {}
+            for graphs in (True, False):
+                t = adam_trainer(cfg, graphs)
+                losses = [t.train_step(b, **draws)["loss"].item() for b, draws in steps]
+                runs[graphs] = (t, losses)
+            (tg, lg), (te, le) = runs[True], runs[False]
+            same = AdamStreams.of(tg.state).equal(AdamStreams.of(te.state))
+            print(f"replayed vs eager train step, B={TRAIN_B} bf16, cuDNN deterministic, "
+                  f"{WARMUP_STEPS} eager + {ADAM_STEPS} replayed steps {tg.step_counts}: losses "
+                  f"{lg} / {le}; p, m, v, ema, Adam's counts and the step counter bit-identical "
+                  f"{same}")
+            if tg.step_counts != {"graphed": ADAM_STEPS, "eager": WARMUP_STEPS} or not same:
+                raise AssertionError(f"a replayed train step left the eager one: {lg} vs {le}")
+            del runs, te, t
+
+            # (c) the times: the kernel, the plain version and two PyTorch
+            # yardsticks on the same tensors, each by CUDA-graph replay
+            live, g0 = start.clone(), grads[0]
+            d = ema_decay_tensor(decay, live.step_t)
+
+            def kernel(ema: bool):
+                return lambda: fa.fused_adam_ema(live.p, g0, live.m, live.v,
+                                                 live.e if ema else None, live.count, d,
+                                                 cfg.lr, 0.9, 0.999, 1e-8)
+
+            out["ms"] = cuda_graph_ms(kernel(True))
+            out["ms_no_ema"] = cuda_graph_ms(kernel(False))
+            out["plain_ms"] = cuda_graph_ms(
+                lambda: fa.fused_adam_ema_torch(live.p, g0, live.m, live.v, live.e, live.count, d,
+                                                cfg.lr, 0.9, 0.999, 1e-8), iters=5)
+            params = [torch.nn.Parameter(t.clone()) for t in start.p]
+            for p, g in zip(params, g0):
+                p.grad = g.clone()
+            ema = [t.clone() for t in start.e]
+
+            def adam(**kind):
+                opt = torch.optim.Adam(params, lr=cfg.lr, capturable=True, **kind)
+                for p, m, v, c in zip(params, live.m, live.v, live.count):
+                    opt.state[p] = {"step": c.clone(), "exp_avg": m.clone(),
+                                    "exp_avg_sq": v.clone()}
+                return opt
+
+            foreach, fused = adam(foreach=True), adam(fused=True)
+            rest = 1.0 - d
+
+            def foreach_step():
+                foreach.step()
+                torch._foreach_mul_(ema, d)
+                for e, p in zip(ema, params):
+                    e.addcmul_(p.detach(), rest)
+
+            weight = 1.0 - float(d)  # a host number: frozen in the graph, as a yardstick may
+
+            def fused_step():
+                fused.step()
+                torch._foreach_lerp_(ema, [p.detach() for p in params], weight)
+
+            with torch.no_grad():
+                out["foreach_ms"] = cuda_graph_ms(foreach_step)
+                out["fused_lerp_ms"] = cuda_graph_ms(fused_step)
+            out |= adam_bound(n, True)
+            out["bound_ms_no_ema"] = adam_bound(n, False)["bound_ms"]
+            del params, ema, foreach, fused, live
+
+            # (d) the train step's device ms a replay, this pass (b's graphed
+            # trainer) against the update it replaced, in turns (A B B A)
+            pair = {"fused": tg, "foreach": adam_trainer(cfg, True)}
+            pair["foreach"].state.update = types.MethodType(foreach_update,
+                                                            pair["foreach"].state)
+            for b, draws in steps:
+                pair["foreach"].train_step(b, **draws)
+            order = ["fused", "foreach", "foreach", "fused"]
+            readings = {k: [] for k in pair}
+            for k in order:
+                readings[k].append(pair[k].train_graph.device_ms(10))
+            step_ms = {k: float(np.mean(v)) for k, v in readings.items()}
+            del pair, tg
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    torch.cuda.empty_cache()
+    out["train_step_device_ms"] = step_ms
+    out["train_step_device_ms_runs"] = readings
+    out["train_step_device_ms_phase7"] = train_device_ms
+    print(f"fused Adam + EMA at {n:,} parameters, 200 leaves (device ms by CUDA-graph replay): "
+          f"kernel {out['ms']:.4f} (no EMA {out['ms_no_ema']:.4f}), bound {out['bound_ms']:.4f} "
+          f"(36 B a parameter at 3.35 TB/s; no EMA {out['bound_ms_no_ema']:.4f}, 28 B), kernel / "
+          f"bound {out['ms'] / out['bound_ms']:.2f}; plain version {out['plain_ms']:.4f}; "
+          f"yardsticks on the same tensors: foreach Adam + a per-leaf EMA (the update before "
+          f"this pass) {out['foreach_ms']:.4f}, torch.optim.Adam(fused=True) + "
+          f"_foreach_lerp_ {out['fused_lerp_ms']:.4f} [{tag}]")
+    print(f"train step B={TRAIN_B} bf16, device ms a replay, in turns {order}: this pass "
+          f"{step_ms['fused']:.4f} (runs {readings['fused']}), the foreach update "
+          f"{step_ms['foreach']:.4f} (runs {readings['foreach']}); phase 7's replay "
+          f"{train_device_ms:.4f} [{tag}]")
+    return out
+
+
 def check_bench(config, sampler_device_ms: float, train_graphed_ms: float, tag: str) -> dict:
     """Phase 12: ``bench.main(["--quick"])`` in this process on cuda:0 (it
     prints its line), held against phase 6's device ms a B=64 sampler replay
@@ -3611,7 +3954,8 @@ def check_bench(config, sampler_device_ms: float, train_graphed_ms: float, tag: 
     zero = dict.fromkeys(bench.LAUNCH_NAMES, 0.0)
     want_launches = {"sampler_b64": zero | {"linear_attention_fwd": 8.0 * bench.T},
                      "train_step": zero | {"linear_attention_fwd": 8.0,
-                                           "linear_attention_bwd": 8.0}}
+                                           "linear_attention_bwd": 8.0,
+                                           "fused_adam_ema": 1.0}}
     out = {"seconds": seconds, "value": line["value"], "value_want": want_value,
            "train_steps_per_sec": line["train_steps_per_sec"], "train_want": want_train,
            "mfu": line["mfu"], "mfu_want": want_mfu, "train_mfu": line["train_mfu"],
@@ -3802,6 +4146,12 @@ def main(argv=None) -> None:
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
 
+    phase("7k the optimizer's one pass at the flagship width: the fused Adam + EMA kernel vs "
+          "plain over chained steps, a replayed train step vs the eager one, the times")
+    t_phase = time.perf_counter()
+    fused = check_fused_update(config, tag, paths["train_b64"]["device_ms"])
+    print(f"phase 7k wall time {time.perf_counter() - t_phase:.1f} s")
+
     phase("8 the ResNet-block kernel vs plain, and ResNetBlockFn")
     t_rb = time.perf_counter()
     resnet = check_resnet_block(tag)
@@ -3982,6 +4332,51 @@ def main(argv=None) -> None:
         "ms_by_stage": {r["stage"]: r["ms"] for r in rows7},
         "timed": "stage 6 (the whole block), (1024, 64), 2B=128, bf16; kernel and plain "
                  "version both by CUDA-graph replay",
+    }, {
+        "name": "fused_adam_ema",
+        "route": "cuda",
+        "source": "ldm_tpu_torch/csrc/fused_adam_ema.cu",
+        "replaces": "ldm_tpu/training/state.py:78",
+        "replaces_kind": "no pl.pallas_call: fused_apply_gradients, the JAX package's one-pass "
+                         "Adam + EMA, which XLA compiles",
+        "launches": train_counts["fused_adam_ema"],
+        "launches_by_path": {"sample": sample_counts["fused_adam_ema"],
+                             "train": train_counts["fused_adam_ema"],
+                             "protocol_pixel": protocol["pixel"]["counts"]["fused_adam_ema"],
+                             "protocol_flow": protocol["flow"]["counts"]["fused_adam_ema"],
+                             "distill": consistency["run_counts"]["fused_adam_ema"],
+                             "train_latent": latent["train_counts"]["fused_adam_ema"],
+                             "protocol_latent": latent["protocol"]["counts"]["fused_adam_ema"],
+                             "train_mesh_cli": mesh["cli"]["launches"]["fused_adam_ema"],
+                             "train_gloo_rank0":
+                                 mesh["gloo"]["rank0"]["launches"]["fused_adam_ema"],
+                             "workflow_train_profiled":
+                                 workflow["train"]["launches"]["fused_adam_ema"],
+                             **{k: v["fused_adam_ema"] for k, v in axis_launches.items()},
+                             "drill_mnist": drill["counts"]["fused_adam_ema"]},
+        "launches_per_step": {**per_step("fused_adam_ema"),
+                              "train_dp_per_rank":
+                                  mesh["world1"]["launches"]["dp"]["fused_adam_ema"],
+                              "train_fsdp_per_rank":
+                                  mesh["world1"]["launches"]["fsdp"]["fused_adam_ema"],
+                              "distill": consistency["per_step"]["fused_adam_ema"],
+                              "latent_train": latent["train_per_step"]["fused_adam_ema"]},
+        "max_abs_err": fused["max_abs_err"],
+        "max_abs_err_by_stream": fused["max_abs_err_by_stream"],
+        **{k: fused[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_bytes",
+                                 "bound_flops", "ms_no_ema", "bound_ms_no_ema", "foreach_ms",
+                                 "fused_lerp_ms", "train_step_device_ms",
+                                 "train_step_device_ms_runs")},
+        "bound_peaks": "3.35 TB/s, 67 TFLOP/s fp32 (H100 SXM at 700 W)",
+        "library_ms": None,
+        "library": "no single PyTorch call computes Adam and the EMA; foreach_ms (torch's "
+                   "capturable foreach Adam + a per-leaf EMA, the update before this kernel) "
+                   "and fused_lerp_ms (torch.optim.Adam(fused=True) + torch._foreach_lerp_) "
+                   "are yardsticks on the same tensors, never called by the port",
+        "timed": "the flagship's 200 leaves, 20,350,915 parameters, fp32, with the EMA "
+                 "(ms_no_ema: without); kernel, plain version and yardsticks by CUDA-graph "
+                 "replay; train_step_device_ms: a replayed train step at B=64 bf16 with this "
+                 "pass and with the foreach update, in turns",
     }], "train_step_ms": training["step_ms"], "paths": paths,
         "paths_unit": "host ms/step (median of 5 runs) as a replayed CUDA graph and eager, and "
                       "the device's ms for one replay; bf16; request_b10 is the B=10 request's "

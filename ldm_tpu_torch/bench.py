@@ -99,7 +99,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASELINE_FILE = os.path.join(ROOT, "runs", "bench_torch_baseline.json")
 REFERENCE_ENV = "LDM_REFERENCE_DIR"
 # the kernel wrappers' launch counts (utils/graphs.py::COUNTED), by kernel
-LAUNCH_NAMES = ("linear_attention_fwd", "linear_attention_bwd", "resnet_block_fwd")
+LAUNCH_NAMES = ("linear_attention_fwd", "linear_attention_bwd", "resnet_block_fwd",
+                "fused_adam_ema")
 
 
 class Reading(NamedTuple):

@@ -158,6 +158,17 @@ def load() -> types.SimpleNamespace:
     rb_probe = libs["resnet_block_probe.cu"].ldm_resnet_block_probe
     rb_probe.argtypes = [i] + rb.argtypes  # mode, then the block's arguments
     rb_probe.restype = i
+    adam = libs["fused_adam_ema.cu"].ldm_fused_adam_ema
+    # leaves, the leaf table (7 rows of 64-bit words), d, lr, b1, b2, 1 - b1,
+    # 1 - b2, eps, stream, launches made (out)
+    adam.argtypes = [i, ctypes.POINTER(ctypes.c_longlong), p, f, f, f, f, f, f, p,
+                     ctypes.POINTER(ctypes.c_int)]
+    adam.restype = i
+    adam_leaves = libs["fused_adam_ema.cu"].ldm_fused_adam_ema_leaves
+    adam_leaves.argtypes = []
+    adam_leaves.restype = i
     return types.SimpleNamespace(ldm_lin_attn_fwd=fwd, ldm_lin_attn_fwd_stage=stage,
                                  ldm_lin_attn_bwd=bwd, ldm_lin_attn_bwd_splits=splits,
-                                 ldm_resnet_block_fwd=rb, ldm_resnet_block_probe=rb_probe)
+                                 ldm_resnet_block_fwd=rb, ldm_resnet_block_probe=rb_probe,
+                                 ldm_fused_adam_ema=adam,
+                                 ldm_fused_adam_ema_leaves=adam_leaves)

@@ -17,7 +17,8 @@ For each it prints:
   device-busy time (the sum of the device kernels' times; one stream, so
   kernels do not overlap), the busy share, and the device kernels per step;
 * the device time per step of the linear-attention kernels (forward, and
-  the backward's three launches) and of everything else;
+  the backward's three launches), of the optimizer's one pass (Adam + EMA)
+  and of everything else;
 * the ten device kernels with the most time, per step.
 
 On a CUDA device every line carries the card's name and power limit.
@@ -112,7 +113,8 @@ def _profile_step(args, trainer, batch, name: str, tag: str, device: torch.devic
           f"busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}% busy), device kernels "
           f"{n_kernels} ({n_kernels / args.steps:.1f}/step){tag}", flush=True)
     groups = {"linear-attention forward kernel": "lin_attn_fwd",
-              "linear-attention backward kernels": "lin_attn_bwd"}
+              "linear-attention backward kernels": "lin_attn_bwd",
+              "Adam + EMA kernel": "fused_adam_ema"}
     split = {name: sum(e.device_time_total for e in kernels if key in e.key) / 1e3 / args.steps
              for name, key in groups.items()}
     split["everything else"] = busy_ms / args.steps - sum(split.values())

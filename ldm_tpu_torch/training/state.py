@@ -6,20 +6,27 @@ the EMA is ``ema = d*ema + (1-d)*params`` after each update, with the warmup
 ``d = min(decay, (1+step)/(10+step))`` taken at the step BEFORE the
 increment, as ``TrainState.apply_gradients`` does.
 
-Updates are in place, on the device.  Adam is torch's multi-tensor
-(``foreach``) implementation: its in-place updates bump each parameter's
-version counter, which ``LinAttnBlock.kernel_weights`` keys its cached
-kernel-layout copies on (the ``fused`` implementation does not bump it).
+Updates are in place, on the device, as one pass over every leaf: the JAX
+package's ``fused_apply_gradients`` (:func:`fused_apply_gradients` here),
+Adam and the EMA together with optax's association, which
+:meth:`TrainState.update` runs at every step (``ops/fused_adam_ema.py``: one
+launch of a Hopper kernel on a card, the plain version on the CPU).
+``torch.optim.Adam`` only holds the state (``exp_avg``, ``exp_avg_sq`` and
+``step`` a leaf, the hyperparameters), so checkpoints keep its layout; its
+``step()`` is never called.  The kernel bumps the version counters of what
+it wrote, which ``LinAttnBlock.kernel_weights`` keys its cached
+kernel-layout copies on.
 
 The update is a function of device tensors alone, so that a CUDA graph can
 replay it: the step counter that the EMA warmup reads is a device tensor
 that the update increments itself (beside the host's ``step``, which the
 per-step generator and the checkpoints use), the EMA weight is computed from
-it on the device, and on a CUDA device Adam is ``capturable`` (its own step
-counts are device tensors).  :meth:`TrainState.update` is that part;
-:meth:`TrainState.count_step` is what the host does a step, and after a
-replayed step :meth:`TrainState.count_replayed_step` also tells both models
-that their weights changed without a version counter moving.
+it on the device, and on a CUDA device Adam's step counts are device
+tensors (``capturable``), which the pass reads and then increments.
+:meth:`TrainState.update` is that part; :meth:`TrainState.count_step` is
+what the host does a step, and after a replayed step
+:meth:`TrainState.count_replayed_step` also tells both models that their
+weights changed without a version counter moving.
 The per-step random stream is :func:`step_generator`, the counterpart of
 ``fold_in(key, step)``: a generator seeded from (seed, step), so a resumed
 run continues the stream without saving generator state.
@@ -68,6 +75,7 @@ from torch import nn
 
 import torch.distributed as dist
 
+from ldm_tpu_torch.ops.fused_adam_ema import fused_adam_ema
 from ldm_tpu_torch.parallel import fsdp, tp
 from ldm_tpu_torch.utils.logging import global_norm
 
@@ -125,13 +133,15 @@ class TrainState:
         self.lr = float(lr)
         self.ema_decay = float(ema_decay)
         device = next(model.parameters()).device
-        # capturable Adam keeps its step counts on the device, so a CUDA graph
-        # can replay it; on CPU parameters some PyTorch versions refuse it
+        # Adam's state as a capturable Adam keeps it (its step counts on the
+        # device), so a CUDA graph can replay the pass; on CPU parameters some
+        # PyTorch versions refuse the flag
         self.capturable = device.type == "cuda"
         self.optimizer = torch.optim.Adam(
             fsdp.param_groups(list(model.parameters())), lr=self.lr, betas=(0.9, 0.999),
-            eps=1e-8, foreach=True, capturable=self.capturable,
+            eps=1e-8, capturable=self.capturable,
         )
+        self._adam_state()
         self.step = 0
         self.step_t = torch.zeros((), dtype=torch.int64, device=device)  # step, on the device
         names = {id(p): n for n, p in model.named_parameters()}
@@ -195,21 +205,51 @@ class TrainState:
             sq = sq + global_norm(plain).square()
         return sq.sqrt()
 
+    def hparams(self) -> tuple:
+        """Adam's ``(lr, b1, b2, eps)``: the one set its parameter groups hold."""
+        found = {(float(g["lr"]), *map(float, g["betas"]), float(g["eps"]))
+                 for g in self.optimizer.param_groups}
+        if len(found) != 1:
+            raise ValueError(f"Adam's parameter groups differ in their hyperparameters: {found}")
+        return found.pop()
+
+    def _adam_state(self) -> list[dict]:
+        """Adam's state of each parameter, made as ``torch.optim.Adam`` makes it
+        where it is missing (zero moments, step 0 on the device when
+        capturable, on the CPU otherwise)."""
+        out = []
+        for p in self.params():
+            st = self.optimizer.state[p]
+            if not st:
+                where = p.device if self.capturable else torch.device("cpu")
+                st["step"] = torch.zeros((), dtype=torch.float32, device=where)
+                st["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                st["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            out.append(st)
+        return out
+
     @torch.no_grad()
     def update(self) -> None:
-        """The device's part of a step: Adam on the parameters' ``.grad``, the
-        EMA with the weight of the device step counter, that counter += 1.
-        Under FSDP each process moves its own shards."""
-        self.optimizer.step()
-        if self.ema is not None:
-            d = ema_decay_tensor(self.ema_decay, self.step_t)
-            ema = [fsdp.local(e) for e in self.ema.parameters()]
-            torch._foreach_mul_(ema, d)
-            # ema += (1 - d) * p with one rounding, as ``add_(p, alpha=1 - d)``
-            # has it (which takes no tensor for alpha); a kernel a leaf
-            rest = 1.0 - d
-            for e, p in zip(ema, self.params()):
-                e.addcmul_(fsdp.local(p), rest)
+        """The device's part of a step: Adam on the parameters' ``.grad`` and
+        the EMA with the weight of the device step counter, in one pass over
+        every leaf (:func:`fused_apply_gradients`'s arithmetic); then Adam's
+        step counts of the leaves with a gradient, and the device step
+        counter, += 1.  Under FSDP each process moves its own shards."""
+        lr, b1, b2, eps = self.hparams()
+        params = self.params()
+        adam = self._adam_state()
+        d = ema_decay_tensor(self.ema_decay, self.step_t) if self.ema is not None else None
+        fused_adam_ema(
+            [fsdp.local(p) for p in params],
+            [None if p.grad is None else fsdp.local(p.grad) for p in params],
+            [fsdp.local(st["exp_avg"]) for st in adam],
+            [fsdp.local(st["exp_avg_sq"]) for st in adam],
+            None if self.ema is None else [fsdp.local(e) for e in self.ema.parameters()],
+            [st["step"] for st in adam], d, lr, b1, b2, eps)
+        # after the pass, never in it: the kernel's CTAs all read the counts
+        counts = [st["step"] for st, p in zip(adam, params) if p.grad is not None]
+        if counts:
+            torch._foreach_add_(counts, 1.0)
         self.step_t += 1
 
     def count_step(self) -> None:
@@ -310,5 +350,24 @@ class TrainState:
                                 for k, v in st.items()}
                             for i, st in opt["state"].items()}
         self.optimizer.load_state_dict(opt)
+        self._adam_state()  # a state written before the first step holds none
         self.step = int(sd["step"])
         self.step_t.fill_(self.step)
+
+
+def fused_apply_gradients(state: TrainState, lr: float, b1: float = 0.9, b2: float = 0.999,
+                          eps: float = 1e-8) -> None:
+    """``state.apply_gradients()`` stated as the JAX package's
+    ``fused_apply_gradients``: Adam and the EMA in one explicit pass over
+    every leaf (p, g, m, v and ema read, p, m, v and ema written: 36 bytes a
+    parameter), on the gradients in ``.grad``, then step += 1; in place.
+
+    ``lr``, ``b1``, ``b2`` and ``eps`` must be the hyperparameters Adam's state
+    holds (the drift guard of the JAX function): the moments belong to them,
+    and a pass with others, a wrong ``lr`` the likeliest, would move the
+    parameters silently.  Any mismatch raises ``AssertionError``."""
+    known = state.hparams()
+    if known != (float(lr), b1, b2, eps):
+        raise AssertionError(f"state.optimizer is Adam{known} but the fused pass was given "
+                             f"({lr}, {b1}, {b2}, {eps})")
+    state.apply_gradients()

@@ -30,9 +30,11 @@ import torch
 
 from ldm_tpu_torch.ops import linear_attention as la
 from ldm_tpu_torch.ops import resnet_block as rb
+from ldm_tpu_torch.ops.fused_adam_ema import fused_adam_ema
 
 # every kernel wrapper that counts its launches in a ``launches`` attribute
-COUNTED = (la.linear_attention_block, la.linear_attention_block_bwd, rb.resnet_block)
+COUNTED = (la.linear_attention_block, la.linear_attention_block_bwd, rb.resnet_block,
+           fused_adam_ema)
 WARMUP_STEPS = 3
 
 

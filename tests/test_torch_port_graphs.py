@@ -33,9 +33,9 @@ def test_ema_decay_tensor_is_the_scalar_formula(step):
 
 def test_tensor_form_ema_matches_scalar_form_over_20_steps():
     """20 updates: the state's tensor form (the weight from the device step
-    counter, ``ema*d`` then ``addcmul_(params, 1-d)`` with 0-d tensors) against the scalar
-    form it replaced (Python floats, ``_foreach_add_(alpha=)``), each leaf
-    within 1e-7 of its largest entry."""
+    counter, ``d*ema + (1-d)*params`` with 0-d tensors, as the fused pass
+    has it) against the scalar form (Python floats, the same association),
+    each leaf within 1e-7 of its largest entry."""
     torch.manual_seed(0)
     model = UNet(**MODEL)
     state = TrainState(model, lr=1e-3, ema_decay=0.9999)
@@ -48,7 +48,8 @@ def test_tensor_form_ema_matches_scalar_form_over_20_steps():
         state.apply_gradients()
         d = ema_decay_at(0.9999, step)
         torch._foreach_mul_(ref, d)
-        torch._foreach_add_(ref, [p.detach() for p in model.parameters()], alpha=1.0 - d)
+        torch._foreach_add_(ref, torch._foreach_mul([p.detach() for p in model.parameters()],
+                                                    1.0 - d))
     assert state.step == 20 and int(state.step_t) == 20
     for (name, got), want in zip(state.ema.named_parameters(), ref):
         err = (got - want).abs().max().item()
@@ -161,9 +162,10 @@ def test_graph_wrapper_counts_every_kernel_wrapper():
     """The launches a capture makes are added at every replay for each
     wrapper that counts launches: the list names them all."""
     from ldm_tpu_torch.ops import resnet_block as rb
+    from ldm_tpu_torch.ops.fused_adam_ema import fused_adam_ema
 
     assert set(graphs.COUNTED) == {la.linear_attention_block, la.linear_attention_block_bwd,
-                                   rb.resnet_block}
+                                   rb.resnet_block, fused_adam_ema}
     assert all(isinstance(f.launches, int) for f in graphs.COUNTED)
 
 
