@@ -10,8 +10,9 @@ with classifier-free guidance (``ldm_tpu_torch.generate.main``: ancestral
 DDPM, DDIM, DPM-Solver++(2M)) and the diffusion trainer
 (``ldm_tpu_torch.train.run``); then serving, the protocol, consistency
 distillation, the latent family, data parallelism, the reference's own
-workflow with the checkpoint bridge, the model axis, the pipeline and the
-real-data drill on the MNIST flagship (phases 7b-7j).  Both run as they do
+workflow with the checkpoint bridge, the model axis, the pipeline, the
+real-data drill on the MNIST flagship, the optimizer's one pass and the
+resolution axis at 64 and 128 px (phases 7b-7l).  Both run as they do
 by default on a card: one sampler step and one train step captured into
 CUDA graphs and replayed; the eager loops are timed beside them.  Phases, each printing its own lines; any
 failure raises and exits nonzero:
@@ -27,15 +28,23 @@ failure raises and exits nonzero:
    2B=20 and 2B=128, at the 64px and 128px sites at 2B=4, and at the two
    narrow sites of configs/smoke_synthetic.yaml ((256, 8) and (64, 16), the
    first zero-padded to 16 columns by the wrapper) at 2B=20, and the latent
-   UNet's sites (16, 128) and (16, 64) at 2B=128 and 2B=256; fp32 (<= 1e-4)
+   UNet's sites (16, 128) and (16, 64) at 2B=128 and 2B=256, and at the
+   batches phase 7l runs: the 128px UNet's four sites ((16384, 64), (4096,
+   128), (1024, 256), (256, 512)) at B=8 and 128, the 64px sites at B=64
+   and 2B=128; fp32 (<= 1e-4)
    and bf16 (<= 3e-2 + one bf16 spacing of the output); each line names
    the path its plan took (cluster: the item kept in shared memory; tiled:
    through global scratch) and the CTAs an item; timed at 2B=128 bf16, the
    kernel and the plain version alike by CUDA-graph replay (device time, no
-   host in it); the bound from the shapes.
+   host in it); the bound from the shapes; (16384, 64) alone at B=8 and
+   128.
 4. backward kernels vs plain: the 8 sites at B=64, the 64px sites at
-   B=4, the two narrow sites at B=8 and the latent sites at B=64, fp32 and bf16, each of the 8 grads within its stated tolerance, two
-   launches bit-identical; timed at B=64 bf16 as the forward.
+   B=4 and B=64 (probe 39's train step), the 128px site (16384, 64) at B=2
+   (the tiled path, 8 CTAs of 2,048 rows), the 128px UNet's four sites at
+   B=8 and 128 (the ends of probe 43's sweep), the two narrow sites at B=8 and the latent sites at B=64, fp32 and bf16, each of the 8 grads within its stated tolerance, two
+   launches bit-identical; timed at B=64 bf16 as the forward, and (16384,
+   64) alone at B=2 (a correctness-check size), 8 and 128 bf16 beside its
+   bound and the plain version.
 5. full-width UNet: 20,350,915 parameters; kernel-path vs plain-path
    forward (fp32 <= 1e-3; the bf16 difference is printed) and loss
    gradients at B=8 (fp32: every grad within 1e-3 x its leaf's max; every
@@ -257,6 +266,31 @@ failure raises and exits nonzero:
    train step's device ms a replay with this pass and with the foreach
    update, two trainers read in turns.  Every train step of every phase
    launches the kernel once (the counts of phases 7-7j and 12 hold it).
+7l. the resolution axis (``perf/probe43_128px_device.py``,
+   ``probe39_res64.py``, ``probe39b_res64_resume.py``,
+   ``probe41_sp_resolution.py``, the ports of the JAX probes) at the
+   flagship width, bf16, seed 0, the counts set to 0 before each and read
+   after: (a) probe 43's sweep, the 128 px train step (T=1000, the replayed
+   graph with the one-pass update) at B = 8, 16, 32, 64, 128 until one does
+   not fit, then that B with ``torch.utils.checkpoint`` around the UNet's
+   forward: every row printed (peak allocated and reserved bytes, cold and
+   warm step, the device's ms a replay, loss, launches), B = 8-64 fitting
+   without the recompute, finite losses, exactly 8 forward + 8 backward
+   attention launches and one Adam + EMA pass a step (16 forward with the
+   recompute); the recompute against the plain step at B=8 under cuDNN's
+   deterministic algorithms, 5 steps (the last replayed): losses and every
+   gradient within 1e-3 x the leaf's max, whether bit for bit printed; (b)
+   probe 39 at 64 px on configs/protocol_hard_64.yaml cut to 2,560 images, 1
+   diffusion and 1 classifier epoch, 128 images a sampler: launches by phase
+   exact (Phase A 8 + 8 a train step and 16 a validation batch, the
+   classifier none, Phase C 8 x (steps x batches + 3 warm-up)), the FIDs
+   finite and printed, img/s of both samplers; (c) probe 39b on (b)'s run
+   directory: Phase C's DDPM-400 and DDIM-50 images (b)'s bit for bit; (d)
+   probe 41 over two gloo processes on cuda:0 at 32, 64 and 128 px
+   (dp2_B2, sp2_B2, sp2_B1): each process's peak bytes, the step's seconds
+   and the ratios printed, 8 + 8 attention launches a DP step and none an
+   SP step, and at 64 px in fp32 the dp2_B2 and sp2_B2 gradients within
+   rtol 2e-4 / atol 1e-6 (the plain attention on both sides).
 8. the fused ResNet-block kernel (``ops/resnet_block.py``) vs plain: at
    the 11 ResNet sites of the 32px flagship UNet at 2B=20 and 2B=128, at
    probe 13's four sites at 2B=256, at the 64px (4096, 64->64) site at
@@ -351,6 +385,10 @@ from ldm_tpu_torch.ops import fused_adam_ema as fa
 from ldm_tpu_torch.ops import linear_attention as la
 from ldm_tpu_torch.ops import resnet_block as rb
 from ldm_tpu_torch.perf import compare_parent, flops, probe7, probe13, probe13b
+from ldm_tpu_torch.perf import probe39_res64 as p39
+from ldm_tpu_torch.perf import probe39b_res64_resume as p39b
+from ldm_tpu_torch.perf import probe41_sp_resolution as p41
+from ldm_tpu_torch.perf import probe43_128px_device as p43
 from ldm_tpu_torch.perf.common import card, cuda_graph_ms
 from ldm_tpu_torch.serving import GenerationHTTPServer
 from ldm_tpu_torch.serving.builder import build_generation_service, checkpoint_path, load_sampler
@@ -360,7 +398,7 @@ from ldm_tpu_torch.training.diffusion_trainer import DiffusionTrainer
 from ldm_tpu_torch.training.latent_trainer import build_ldm, load_latent_scaling
 from ldm_tpu_torch.training.resnet_trainer import ResNetTrainer
 from ldm_tpu_torch.training.state import ema_decay_tensor, step_generator
-from ldm_tpu_torch.utils.graphs import WARMUP_STEPS
+from ldm_tpu_torch.utils.graphs import KERNELS, WARMUP_STEPS
 from ldm_tpu_torch.utils.images import load_image_folder
 from ldm_tpu_torch.utils.logging import global_norm
 
@@ -374,6 +412,16 @@ SITES = [("enc0", 1024, 64), ("enc1", 256, 128), ("enc2", 64, 256),
 # the 64px UNet's sites and the largest 128px one, checked at 2B=4
 LARGE_SITES = [("64px-l0", 4096, 64), ("64px-l1", 1024, 128), ("64px-l2", 256, 256),
                ("64px-l3", 64, 512), ("128px-l0", 16384, 64)]
+BWD_128PX_B = 2  # the backward at the 128px site at a correctness-check size
+# the batches phase 7l runs these sites at, checked and timed here too:
+# probe 43's 128px step and its recompute at B = 8 ... 128 (the forward and
+# the backward at B; the backward's split-K dWqkv and its scratch grow with
+# B*N), probe 39's 64px train step at B=64 and its samplers at 2B=128
+PATH_128PX_B = (8, 128)
+# the 128px UNet's four attention sites (l0 is LARGE_SITES' last)
+SITES_128PX = [LARGE_SITES[4], ("128px-l1", 4096, 128), ("128px-l2", 1024, 256),
+               ("128px-l3", 256, 512)]
+PATH_64PX_B = {"fwd": (64, 128), "bwd": (64,)}
 # the attention sites of configs/smoke_synthetic.yaml: narrower than the
 # kernels' 16-column step (the wrapper zero-pads the first) and at it
 NARROW_SITES = [("smoke-l0", 256, 8), ("smoke-l1", 64, 16)]
@@ -433,12 +481,8 @@ DISTILL_FWD, DISTILL_BWD = 24, 8  # a distill step: teacher 2B, EMA target, stud
 
 
 # every kernel wrapper's count of launches, by the kernel's name in the result
-COUNTED = {"linear_attention_fwd": la.linear_attention_block,
-           "linear_attention_bwd": la.linear_attention_block_bwd,
-           "resnet_block_fwd": rb.resnet_block,
-           "resnet_block_probe": probe13b.probe_block,
-           "linear_attention_fwd_stage": probe7.stage_block,
-           "fused_adam_ema": fa.fused_adam_ema}
+COUNTED = {**KERNELS, "resnet_block_probe": probe13b.probe_block,
+           "linear_attention_fwd_stage": probe7.stage_block}
 # the kernels neither main path runs (the ResNet block is wired into no UNet)
 OFF_PATH = ("resnet_block_fwd", "resnet_block_probe", "linear_attention_fwd_stage")
 
@@ -586,6 +630,8 @@ def check_kernel(tag: str) -> dict:
     cases = [(b, site) for b in (20, 128, 2 * SAMPLE_B) for site in SITES]
     cases += [(4, site) for site in LARGE_SITES] + [(20, site) for site in NARROW_SITES]
     cases += [(b, site) for b in (128, 2 * SAMPLE_B) for site in LATENT_SITES]
+    cases += [(b, site) for b in PATH_128PX_B for site in SITES_128PX]
+    cases += [(b, site) for b in PATH_64PX_B["fwd"] for site in LARGE_SITES[:4]]
     for dtype in (torch.float32, torch.bfloat16):
         for b, (site, n, c) in cases:
             x, p = site_inputs(b, n, c, dtype, seed=b + n + c)
@@ -633,16 +679,46 @@ def check_kernel(tag: str) -> dict:
     print(f"time all 8 sites 2B=128 bf16: kernel {ms:.4f} ms, bound {total['bound_ms']:.4f} ms, "
           f"plain {plain_ms:.4f} ms [{tag}]")
     return {"max_abs_err": worst[torch.bfloat16], "max_abs_err_fp32": worst[torch.float32],
-            "ms": ms, "plain_ms": plain_ms, **total}
+            "ms": ms, "plain_ms": plain_ms, **total,
+            "site_128px": {f"b{b}": time_128px_site(b, False, tag) for b in PATH_128PX_B}}
+
+
+def time_128px_site(b: int, backward: bool, tag: str) -> dict:
+    """The forward or the backward at the 128px site (16384, 64), B=b, bf16,
+    by CUDA-graph replay beside its bound and the plain version."""
+    site, n, c = LARGE_SITES[4]
+    x, p = site_inputs(b, n, c, torch.bfloat16, seed=n + b)
+    kw = dict(heads=4, dim_head=32, compute_dtype=torch.bfloat16)
+    if backward:
+        dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(c)).to(DEV, x.dtype)
+        k = cuda_graph_ms(lambda: la.linear_attention_block_bwd(x, dy, *p, **kw), iters=10)
+        t = cuda_graph_ms(lambda: la.linear_attention_block_bwd_torch(x, dy, *p, **kw),
+                          iters=10)
+    else:
+        with torch.inference_mode():
+            k = cuda_graph_ms(lambda: la.linear_attention_block(x, *p, **kw), iters=10)
+            t = cuda_graph_ms(lambda: la.linear_attention_block_torch(x, *p, **kw), iters=10)
+    bd = la_bound(b, n, c, backward=backward)
+    size = ("a correctness-check size, not one the path runs" if b == BWD_128PX_B
+            else "a batch of phase 7l's 128px step")
+    print(f"time {'bwd' if backward else 'fwd'} {site} (N={n}, C={c}) B={b} bf16 ({size}): "
+          f"kernel{'s' if backward else ''} {k:.4f} ms, bound {bd['bound_ms']:.4f} ms by "
+          f"{bd['bound_by']}, kernel/bound {k / bd['bound_ms']:.1f}, plain {t:.4f} ms, "
+          f"plain/kernel {t / k:.2f} [{tag}]")
+    return {"b": b, "n": n, "c": c, "ms": k, "plain_ms": t, **bd}
 
 
 def check_bwd_kernel(tag: str) -> dict:
-    """Phase 4: backward kernels vs plain at the 8 sites (B=64) and the 64px
-    sites (B=4); timings at B=64 bf16."""
+    """Phase 4: backward kernels vs plain at the 8 sites (B=64), the 64px
+    sites (B=4) and the 128px site (B=2: the tiled path over 8 CTAs of
+    2,048 rows); timings at B=64 bf16, and the 128px site's at B=2 bf16."""
     kw = dict(heads=4, dim_head=32)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     paths = {}
     cases = [(TRAIN_B, site) for site in SITES] + [(4, site) for site in LARGE_SITES[:4]]
+    cases += [(BWD_128PX_B, LARGE_SITES[4])]
+    cases += [(b, site) for b in PATH_128PX_B for site in SITES_128PX]
+    cases += [(b, site) for b in PATH_64PX_B["bwd"] for site in LARGE_SITES[:4]]
     cases += [(8, site) for site in NARROW_SITES] + [(TRAIN_B, site) for site in LATENT_SITES]
     for dtype in (torch.float32, torch.bfloat16):
         for b, (site, n, c) in cases:
@@ -696,7 +772,9 @@ def check_bwd_kernel(tag: str) -> dict:
     print(f"time bwd all 8 sites B={TRAIN_B} bf16: kernels {ms:.4f} ms, bound "
           f"{total['bound_ms']:.4f} ms, plain {plain_ms:.4f} ms [{tag}]")
     return {"max_rel_err": worst[torch.bfloat16], "max_rel_err_fp32": worst[torch.float32],
-            "ms": ms, "plain_ms": plain_ms, **total}
+            "ms": ms, "plain_ms": plain_ms, **total,
+            "site_128px": {f"b{b}": time_128px_site(b, True, tag)
+                           for b in (BWD_128PX_B, *PATH_128PX_B)}}
 
 
 def check_unet_grads(config) -> None:
@@ -3638,6 +3716,135 @@ def check_workflow(tag: str, vae_pt: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 7l
+RES64 = "configs/protocol_hard_64.yaml"
+RES64_SIZE, RES64_N_FID, RES64_VAL_BATCHES = 2560, 128, 4  # 256 validation images of 64
+RES_SP_SIZES, RES_SP_CHECK = (32, 64, 128), (64,)
+FWD_BWD_ADAM = {"linear_attention_fwd": 8, "linear_attention_bwd": 8, "resnet_block_fwd": 0,
+                "fused_adam_ema": 1}  # a train step's launches
+
+
+def res64_launches(steps: int, batches: int, warm: bool) -> dict:
+    """Probe 39's launches by phase from the shapes: Phase A 8 + 8 a train
+    step and 16 a validation batch (the CFG pair), one Adam + EMA pass a
+    step; the classifier no attention and one pass a step (an epoch of
+    ``RES64_SIZE // 64`` steps); Phase C 8 a sampler step over ``batches``
+    batches (one more with ``warm``) plus the 3 eager warm-up steps of the
+    one capture."""
+    zero = dict.fromkeys(FWD_BWD_ADAM, 0)
+    n = batches + int(warm)
+    c = {f"C_{name}": zero | {"linear_attention_fwd": 8 * (k * n + WARMUP_STEPS)}
+         for name, k in (("ddpm400", T_STEPS), ("ddim50", 50))}
+    if warm:
+        return c
+    return c | {"A": {"linear_attention_fwd": 8 * steps + 16 * RES64_VAL_BATCHES,
+                      "linear_attention_bwd": 8 * steps, "resnet_block_fwd": 0,
+                      "fused_adam_ema": steps},
+                "B": zero | {"fused_adam_ema": RES64_SIZE // 64}}
+
+
+def check_resolution(tag: str) -> dict:
+    """Phase 7l: the resolution axis through the four probes' functions at
+    the flagship width, bf16, seed 0: probe 43's sweep at 128 px and its
+    recompute against the plain step, probe 39 at 64 px (reduced), probe 39b
+    on its run directory, probe 41 at 32, 64 and 128 px over two gloo
+    processes on cuda:0."""
+    out = {}
+    t0 = time.perf_counter()
+    cfg = p43.probe_config()  # each attempt runs in a temporary directory of its own
+    zero_counts()
+    sweep = p43.sweep(cfg, DEV, tag=tag)
+    counts = read_counts()
+    rows = sweep["attempts"]
+    if sweep["n_params"] != N_PARAMS:
+        raise AssertionError(f"the 128px UNet has {sweep['n_params']} parameters")
+    fit = {r["batch"] for r in rows if r.get("fits") and not r["remat"]}
+    if not {8, 16, 32, 64} <= fit:
+        raise AssertionError(f"probe 43: only B in {sorted(fit)} fit without the recompute")
+    for r in rows:
+        want = FWD_BWD_ADAM | ({"linear_attention_fwd": 16} if r["remat"] else {})
+        if r.get("fits") and (r["launches_per_step"] != want or not np.isfinite(r["loss"])
+                              or not np.isfinite(r["loss_last"])):
+            raise AssertionError(f"probe 43 B={r['batch']} remat={r['remat']}: {r}")
+    print(f"probe 43 sweep launches, the counts set to 0 before it: {counts} [{tag}]")
+    remat = p43.compare_remat(cfg, 8, DEV)
+    print(f"probe 43 recompute vs plain, 128px B=8 bf16, {remat['steps']} steps from the "
+          f"same weights and draws (cuDNN deterministic), the last replayed "
+          f"(graphed {remat['graphed']} / {remat['graphed_remat']}): losses "
+          f"{remat['losses']} vs {remat['losses_remat']}, max |loss diff| "
+          f"{remat['loss_abs']:.3e}; worst grad max|diff| / max|grad| {remat['grad_rel']:.3e} "
+          f"({remat['worst_leaf']}; bar {UNET_FP32_TOL:g}); bit for bit: {remat['bitwise']}; "
+          f"launches a step {remat['launches']} vs {remat['launches_remat']} [{tag}]")
+    if (remat["grad_rel"] > UNET_FP32_TOL
+            or remat["loss_abs"] > UNET_FP32_TOL * abs(remat["losses"][-1])
+            or remat["launches"] != FWD_BWD_ADAM
+            or remat["launches_remat"] != FWD_BWD_ADAM | {"linear_attention_fwd": 16}):
+        raise AssertionError(f"probe 43: the recompute left the plain step: {remat}")
+    out["probe43"] = {**sweep, "remat_vs_plain_b8": remat, "launches": counts}
+    print(f"phase 7l probe 43 wall time {time.perf_counter() - t0:.1f} s")
+
+    t1 = time.perf_counter()
+    base = load_config(RES64)
+    with tempfile.TemporaryDirectory() as workdir, p43.deterministic():
+        cfg = dataclasses.replace(base, workdir=workdir,
+                                  data=dataclasses.replace(base.data, synthetic_size=RES64_SIZE))
+        zero_counts()
+        a = p39.run(cfg, epochs=1, n_fid=RES64_N_FID, clf_epochs=1, device=DEV, tag=tag)
+        counts_a = read_counts()
+        batches = RES64_N_FID // p39.B
+        want = res64_launches(a["train"]["steps"], batches, warm=False)
+        print(f"probe 39 (64px, {RES64_SIZE} images, 1 + 1 epochs, n_fid {RES64_N_FID}): "
+              f"{a['train']['steps']} train steps, launches by phase {a['launches']} (the counts "
+              f"set to 0 before it: {counts_a}); FIDs pixel / classifier: "
+              + "; ".join(f"{k} {a[k]['fid_pixel']:.4f} / {a[k]['fid_classifier']:.4f}, "
+                          f"{a[k]['img_per_sec']:.2f} img/s" for k in ("ddpm400", "ddim50"))
+              + f" [{tag}]")
+        if a["train"]["steps"] != (RES64_SIZE - RES64_VAL_BATCHES * 64) // 64:
+            raise AssertionError(f"probe 39 took {a['train']['steps']} train steps")
+        if a["launches"] != want:
+            raise AssertionError(f"probe 39 launches {a['launches']}, want {want}")
+        if not all(np.isfinite(a[k][m]) for k in ("ddpm400", "ddim50")
+                   for m in ("fid_pixel", "fid_classifier", "img_per_sec")):
+            raise AssertionError("probe 39: a FID is not finite")
+        zero_counts()
+        b = p39b.run(cfg, n_fid=RES64_N_FID, clf_epochs=1, device=DEV, tag=tag)
+        counts_b = read_counts()
+        want = res64_launches(0, batches, warm=True)
+        same = {k: bool(np.array_equal(a["images"][k], b["images"][k]))
+                for k in ("ddpm400", "ddim50")}
+        print(f"probe 39b on probe 39's run directory: train {b['train']} from metrics.jsonl; "
+              f"Phase C images bit for bit probe 39's: {same}; launches {b['launches']} (the "
+              f"counts set to 0 before it: {counts_b}) [{tag}]")
+        if not all(same.values()) or b["launches"] != want:
+            raise AssertionError(f"probe 39b: images equal {same}, launches {b['launches']}, "
+                                 f"want {want}")
+        if b["train"]["steps"] != a["train"]["steps"]:
+            raise AssertionError(f"probe 39b read {b['train']['steps']} steps from the metrics")
+        out["probe39"], out["probe39b"] = p39.json_rows(a), p39.json_rows(b)
+        out["probe39b"]["images_equal"] = same
+        del a, b
+    torch.cuda.empty_cache()
+    print(f"phase 7l probes 39 / 39b wall time {time.perf_counter() - t1:.1f} s")
+
+    t2 = time.perf_counter()
+    zero_counts()
+    sp = p41.run(RES_SP_SIZES, DEV, check=RES_SP_CHECK, tag=tag)
+    for size in RES_SP_SIZES:
+        row = sp[f"{size}px"]
+        for name, m, _ in p41.ROWS:
+            want = dict.fromkeys(KERNELS, 0) | (
+                {"linear_attention_fwd": 8, "linear_attention_bwd": 8} if m == 1 else {})
+            if row[name]["launches_per_step"] != want:
+                raise AssertionError(f"probe 41 {size}px {name}: {row[name]}")
+    for size, c in sp["grad_check"].items():
+        if not c["ok"]:
+            raise AssertionError(f"probe 41 {size}: the dp and sp gradients disagree: {c}")
+    out["probe41"] = sp
+    print(f"phase 7l probe 41 wall time {time.perf_counter() - t2:.1f} s")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 # ---------------------------------------------------------------- phase 12
 # the bench's readings against phases 6-7 of the same run
 BENCH_TOL = 0.10
@@ -3951,7 +4158,7 @@ def check_bench(config, sampler_device_ms: float, train_graphed_ms: float, tag: 
     want_train = 1e3 / train_graphed_ms
     count = flops.sampler_flops_per_img_step(build_model(config))
     want_mfu = count * bench.T * line["value"] / flops.H100_SXM_BF16_PEAK_FLOPS
-    zero = dict.fromkeys(bench.LAUNCH_NAMES, 0.0)
+    zero = dict.fromkeys(KERNELS, 0.0)
     want_launches = {"sampler_b64": zero | {"linear_attention_fwd": 8.0 * bench.T},
                      "train_step": zero | {"linear_attention_fwd": 8.0,
                                            "linear_attention_bwd": 8.0,
@@ -4152,6 +4359,27 @@ def main(argv=None) -> None:
     fused = check_fused_update(config, tag, paths["train_b64"]["device_ms"])
     print(f"phase 7k wall time {time.perf_counter() - t_phase:.1f} s")
 
+    phase("7l the resolution axis at the flagship width, bf16: probe 43's 128px train step "
+          "swept over B and its recompute, probes 39 / 39b at 64px, probe 41's DP against SP at "
+          "32, 64 and 128 px")
+    resolution = check_resolution(tag)
+    print(f"phase 7l wall time {resolution['seconds']:.1f} s")
+    res43, res39 = resolution["probe43"], resolution["probe39"]
+
+    def res_launches(name: str) -> dict:
+        """The resolution axis's launches of kernel ``name`` by path."""
+        return {"probe43_128px_sweep": res43["launches"][name],
+                **{f"probe39_64px_{k}": v[name] for k, v in res39["launches"].items()},
+                **{f"probe39b_64px_{k}": v[name]
+                   for k, v in resolution["probe39b"]["launches"].items()}}
+
+    def res_per_step(name: str) -> dict:
+        rows = {f"train_128px_b{r['batch']}{'_remat' if r['remat'] else ''}":
+                r["launches_per_step"][name] for r in res43["attempts"] if r.get("fits")}
+        return rows | {f"probe41_{size}_dp2_b2_per_rank":
+                       resolution["probe41"][size]["dp2_B2"]["launches_per_step"].get(name, 0)
+                       for size in (f"{v}px" for v in RES_SP_SIZES)}
+
     phase("8 the ResNet-block kernel vs plain, and ResNetBlockFn")
     t_rb = time.perf_counter()
     resnet = check_resnet_block(tag)
@@ -4222,7 +4450,8 @@ def main(argv=None) -> None:
                              "workflow_generate_ddim50_b320": workflow["generate"]["launches"],
                              **{k: v["linear_attention_fwd"] for k, v in axis_launches.items()},
                              **{k: v["linear_attention_fwd"] for k, v in pp_runs.items()},
-                             "drill_mnist": drill["counts"]["linear_attention_fwd"]},
+                             "drill_mnist": drill["counts"]["linear_attention_fwd"],
+                             **res_launches("linear_attention_fwd")},
         "launches_per_step": {**per_step("linear_attention_fwd"),
                               "train_dp_per_rank":
                                   mesh["world1"]["launches"]["dp"]["linear_attention_fwd"],
@@ -4236,12 +4465,14 @@ def main(argv=None) -> None:
                               "consistency_sample": consistency["sample_per_step"],
                               "latent_train": latent["train_per_step"]["linear_attention_fwd"],
                               "latent_sample": latent["sample_per_step"],
-                              **pp_per_step("linear_attention_fwd")},
+                              **pp_per_step("linear_attention_fwd"),
+                              **res_per_step("linear_attention_fwd")},
         "max_abs_err": kernel["max_abs_err"],
         "max_abs_err_fp32": kernel["max_abs_err_fp32"],
         **times(kernel),
         "timed": "sum over the 8 sites, one launch each, 2B=128, bf16; the kernel by "
                  "CUDA-graph replay, the plain version too",
+        "site_128px": kernel["site_128px"],
     }, {
         "name": "linear_attention_bwd",
         "route": "cuda",
@@ -4264,7 +4495,8 @@ def main(argv=None) -> None:
                                  workflow["train"]["launches"]["linear_attention_bwd"],
                              **{k: v["linear_attention_bwd"] for k, v in axis_launches.items()},
                              **{k: v["linear_attention_bwd"] for k, v in pp_runs.items()},
-                             "drill_mnist": drill["counts"]["linear_attention_bwd"]},
+                             "drill_mnist": drill["counts"]["linear_attention_bwd"],
+                             **res_launches("linear_attention_bwd")},
         "launches_per_step": {**per_step("linear_attention_bwd"),
                               "train_dp_per_rank":
                                   mesh["world1"]["launches"]["dp"]["linear_attention_bwd"],
@@ -4276,13 +4508,17 @@ def main(argv=None) -> None:
                                   v["linear_attention_bwd"] for v in axis_launches.values()) // AXIS_STEPS,
                               "distill": consistency["per_step"]["linear_attention_bwd"],
                               "latent_train": latent["train_per_step"]["linear_attention_bwd"],
-                              **pp_per_step("linear_attention_bwd")},
+                              **pp_per_step("linear_attention_bwd"),
+                              **res_per_step("linear_attention_bwd")},
         "max_abs_err": bwd["max_rel_err"],
         "max_abs_err_fp32": bwd["max_rel_err_fp32"],
         "err_unit": "max_abs_err / max|plain| of the worst of the 8 grads",
         **times(bwd),
         "timed": "sum over the 8 sites, one backward (3 kernels) each, B=64, bf16; the "
-                 "kernels by CUDA-graph replay, the plain version too",
+                 "kernels by CUDA-graph replay, the plain version too; site_128px: (16384, "
+                 "64) alone by batch, b2 a correctness-check size, b8 and b128 batches of "
+                 "phase 7l's 128px step",
+        "site_128px": bwd["site_128px"],
     }, {
         "name": "resnet_block_fwd",
         "route": "cuda",
@@ -4353,7 +4589,8 @@ def main(argv=None) -> None:
                              "workflow_train_profiled":
                                  workflow["train"]["launches"]["fused_adam_ema"],
                              **{k: v["fused_adam_ema"] for k, v in axis_launches.items()},
-                             "drill_mnist": drill["counts"]["fused_adam_ema"]},
+                             "drill_mnist": drill["counts"]["fused_adam_ema"],
+                             **res_launches("fused_adam_ema")},
         "launches_per_step": {**per_step("fused_adam_ema"),
                               "train_dp_per_rank":
                                   mesh["world1"]["launches"]["dp"]["fused_adam_ema"],
@@ -4413,6 +4650,13 @@ def main(argv=None) -> None:
                          "ms a step, launches) and the DDIM-50 request at B=10 (max abs vs one "
                          "process, seconds, launches); seconds: the phase's wall time",
         "protocol": protocol,
+        "resolution": resolution,
+        "resolution_unit": "phase 7l: probe43: the 128px flagship train step (bf16, T=1000, "
+                           "replayed graph) swept over B, bytes from max_memory_allocated / "
+                           "reserved, seconds host wall clock, device_ms a replay; probe39 / "
+                           "probe39b: 64px, 2,560 images, 1 + 1 epochs, n_fid 128, img/s host "
+                           "wall clock; probe41: 2 gloo processes on cuda:0, step_s host wall "
+                           "clock over 3 steps, peak_bytes a process",
         "drill": drill,
         "drill_unit": "phase 7j: ldm_tpu_torch.main --strict-data --wandb on "
                       "configs/pixel_diffusion_model_mnist.yaml at full width, bf16, CFG 3, from "

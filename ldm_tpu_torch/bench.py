@@ -83,7 +83,7 @@ from ldm_tpu_torch.perf.flops import (
 from ldm_tpu_torch.training.autoencoder_trainer import AutoencoderTrainer
 from ldm_tpu_torch.training.diffusion_trainer import DiffusionTrainer
 from ldm_tpu_torch.training.resnet_trainer import ResNetTrainer
-from ldm_tpu_torch.utils.graphs import COUNTED
+from ldm_tpu_torch.utils.graphs import launch_counts
 
 OUR_BATCHES = (64, 128, 256)
 QUICK_BATCHES = (64,)  # the best of OUR_BATCHES on the card (PERF.md)
@@ -98,9 +98,6 @@ CFG_SCALE = 3.0
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASELINE_FILE = os.path.join(ROOT, "runs", "bench_torch_baseline.json")
 REFERENCE_ENV = "LDM_REFERENCE_DIR"
-# the kernel wrappers' launch counts (utils/graphs.py::COUNTED), by kernel
-LAUNCH_NAMES = ("linear_attention_fwd", "linear_attention_bwd", "resnet_block_fwd",
-                "fused_adam_ema")
 
 
 class Reading(NamedTuple):
@@ -130,10 +127,6 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _launches() -> dict:
-    return {name: f.launches for name, f in zip(LAUNCH_NAMES, COUNTED)}
-
-
 def _best_seconds(run: Callable[[], object], device: torch.device,
                   repeats: int = REPEATS) -> Tuple[float, dict]:
     """One warm run of ``run()``, then ``repeats`` timed runs, each from a
@@ -141,13 +134,13 @@ def _best_seconds(run: Callable[[], object], device: torch.device,
     timed run launched."""
     run()
     _sync(device)
-    before, times = _launches(), []
+    before, times = launch_counts(), []
     for _ in range(repeats):
         t0 = time.perf_counter()
         run()
         _sync(device)
         times.append(time.perf_counter() - t0)
-    after = _launches()
+    after = launch_counts()
     return min(times), {k: (after[k] - before[k]) / repeats for k in after}
 
 

@@ -1,10 +1,14 @@
-"""What the probes share: the card check and CUDA-graph timing."""
+"""What the probes share: the card check, CUDA-graph timing and the
+kernels' launch counts."""
 
 from __future__ import annotations
 
+import contextlib
 import subprocess
 
 import torch
+
+from ldm_tpu_torch.utils.graphs import launch_counts
 
 
 def require_cuda(name: str) -> torch.device:
@@ -16,6 +20,23 @@ def require_cuda(name: str) -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def device_tag(device) -> str:
+    """What a probe's lines name: on a card its name and power limit (the
+    TF32 products off, as the kernels' plain versions assume), else the
+    device's type; a card asked for and absent exits."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return f"{device.type}, no card"
+    require_cuda(f"--device {device}")
+    return card()
+
+
+def sync(device) -> None:
+    """Wait for ``device`` (a card; nothing to wait for on the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def card() -> str:
@@ -50,3 +71,11 @@ def cuda_graph_ms(fn, iters: int = 20, warmup: int = 3, replays: int = 3) -> flo
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (iters * replays)
+
+
+@contextlib.contextmanager
+def counting(into: dict, key: str):
+    """``into[key]``: the launches the body made, by kernel name."""
+    before = launch_counts()
+    yield
+    into[key] = {k: v - before[k] for k, v in launch_counts().items()}

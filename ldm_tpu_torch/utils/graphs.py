@@ -32,10 +32,19 @@ from ldm_tpu_torch.ops import linear_attention as la
 from ldm_tpu_torch.ops import resnet_block as rb
 from ldm_tpu_torch.ops.fused_adam_ema import fused_adam_ema
 
-# every kernel wrapper that counts its launches in a ``launches`` attribute
-COUNTED = (la.linear_attention_block, la.linear_attention_block_bwd, rb.resnet_block,
-           fused_adam_ema)
+# every kernel wrapper that counts its launches in a ``launches`` attribute,
+# by the kernel's name in the results
+KERNELS = {"linear_attention_fwd": la.linear_attention_block,
+           "linear_attention_bwd": la.linear_attention_block_bwd,
+           "resnet_block_fwd": rb.resnet_block,
+           "fused_adam_ema": fused_adam_ema}
+COUNTED = tuple(KERNELS.values())
 WARMUP_STEPS = 3
+
+
+def launch_counts() -> dict:
+    """Every counted kernel's launches so far, by the kernel's name."""
+    return {name: f.launches for name, f in KERNELS.items()}
 
 
 def use_graphs(device, graph: Optional[bool], mesh=None) -> bool:

@@ -24,6 +24,7 @@ from ldm_tpu_torch.models.autoencoder import Autoencoder
 from ldm_tpu_torch.models.resnet import ResNetBase
 from ldm_tpu_torch.models.unet import UNet
 from ldm_tpu_torch.perf import flops
+from ldm_tpu_torch.utils.graphs import KERNELS
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPE = (32, 32, 3)
@@ -219,7 +220,7 @@ def test_quick_run_prints_one_line_with_the_jax_benchs_keys(tiny_bench, capsys):
     assert line["mfu"] == pytest.approx(want, rel=1e-12) and 0 < line["train_mfu"] < 1
     assert line["vs_reference_style_same_chip"] is None and line["vs_baseline"] is None
     # the CPU launches no kernel; the counts are read around the timed runs
-    assert res.launches == {row: dict.fromkeys(bench.LAUNCH_NAMES, 0.0)
+    assert res.launches == {row: dict.fromkeys(KERNELS, 0.0)
                             for row in ("sampler_b4", "train_step")}
     assert not (tiny_bench / "baseline.json").exists()  # quick mode writes nothing
 
@@ -242,7 +243,7 @@ def test_full_line_and_the_baseline_file(tiny_bench, capsys, monkeypatch):
     with errors naming the missing checkout, and the same-card baseline is
     written to the bench's own file, which a quick run then reads."""
     def reading(rate, mfu=None):
-        return bench.Reading(float(rate), mfu, dict.fromkeys(bench.LAUNCH_NAMES, 0.0))
+        return bench.Reading(float(rate), mfu, dict.fromkeys(KERNELS, 0.0))
 
     monkeypatch.setattr(bench, "bench_scan_sampler",
                         lambda m, d, b, flops_per_img_step=None, shape=None: reading(b, 0.5))

@@ -51,7 +51,10 @@ def test_port_modules_are_found():
                  "ldm_tpu_torch.export_torch_checkpoint", "ldm_tpu_torch.utils.viz",
                  "ldm_tpu_torch.utils.timing", "ldm_tpu_torch.utils.profiling",
                  "ldm_tpu_torch.utils.torch_import", "ldm_tpu_torch.utils.torch_export",
-                 "ldm_tpu_torch.bench", "ldm_tpu_torch.perf.flops"):
+                 "ldm_tpu_torch.bench", "ldm_tpu_torch.perf.flops",
+                 "ldm_tpu_torch.perf.probe43_128px_device", "ldm_tpu_torch.perf.probe39_res64",
+                 "ldm_tpu_torch.perf.probe39b_res64_resume",
+                 "ldm_tpu_torch.perf.probe41_sp_resolution"):
         assert want in mods
 
 
