@@ -18,16 +18,23 @@ per-step draws) can be given; what is not given is drawn from the
 ``torch.Generator`` the caller passes.  A step's noise is drawn eagerly into
 a fixed buffer just before the step (a generator made per request cannot be
 captured).
+
+Both loops go through :func:`_run_steps`, which records each call as one
+``sampler.run`` (``utils/profiling.py``: the host's time in the steps'
+launches and in their noise draws) and, while torch's profiler runs, marks
+each step's ``sampler.draw`` and ``sampler.launch`` on its host timeline.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from ldm_tpu_torch.utils import profiling
 from ldm_tpu_torch.utils.graphs import StepGraph, use_graphs
 
 # the model: (x, t, y) -> its prediction (eps, or a flow's velocity).  `y` is
@@ -42,6 +49,31 @@ PredictFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 # how many captured sampler steps a process keeps (each holds the
 # activations of one or two UNet forwards at its batch size)
 MAX_SAMPLER_GRAPHS = 4
+
+
+def _run_steps(ts: np.ndarray, draw: Optional[Callable[[int], None]],
+               launch: Callable[[int], None]) -> None:
+    """A sampler's loop: for step ``i`` from timestep ``t``, ``draw(t)`` (the
+    step's noise; None where the method draws none), then ``launch(i)``.
+    Records the call as one ``sampler.run``: the host's nanoseconds in the
+    launches and in the draws, summed over the steps."""
+    t_enter = time.perf_counter_ns()
+    draw_ns = launch_ns = 0
+    profiled = False
+    for i, t in enumerate(ts.tolist()):
+        on = profiling.profiler_on()
+        profiled |= on
+        if draw is not None:
+            a = time.perf_counter_ns()
+            with profiling.host_range("sampler.draw", on):
+                draw(t)
+            draw_ns += time.perf_counter_ns() - a
+        a = time.perf_counter_ns()
+        with profiling.host_range("sampler.launch", on):
+            launch(i)
+        launch_ns += time.perf_counter_ns() - a
+    profiling.record("sampler.run", t_enter, profiled, steps=len(ts), launch_ns=launch_ns,
+                     draw_ns=draw_ns)
 
 
 def _row(table: torch.Tensor, i: Union[int, torch.Tensor]) -> torch.Tensor:
@@ -164,13 +196,19 @@ class SamplingProcess:
                 xt, y_in, noise, generator)
 
         carry = (xt,) + tuple(torch.zeros_like(xt) for _ in range(method.n_carry - 1))
-        for i, t in enumerate(method.ts.tolist()):
-            z = None
-            if method.draws:
-                z = (torch.randn(shape, generator=generator, device=device) if noise is None
-                     else noise(t).to(device))
+        z = None
+
+        def draw(t: int) -> None:
+            nonlocal z
+            z = (torch.randn(shape, generator=generator, device=device) if noise is None
+                 else noise(t).to(device))
+
+        def launch(i: int) -> None:
+            nonlocal carry
             carry = self._step(model, method, method.tables, carry, i, z, y_in,
                                cfg_scale, use_cfg)
+
+        _run_steps(method.ts, draw if method.draws else None, launch)
         return carry[0]
 
     def _graph_for(self, model, method: Method, xt, y_in, cfg_scale, use_cfg
@@ -254,11 +292,13 @@ class SamplerGraph:
             extra.zero_()
         self.y.copy_(y_in)
         self.i.zero_()
-        for t in self.method.ts.tolist():
-            if self.z is not None:  # this step's draw, eagerly, into the fixed buffer
-                if noise is None:
-                    self.z.normal_(generator=generator)
-                else:
-                    self.z.copy_(noise(t))
-            self.graph.replay()
+
+        def draw(t: int) -> None:  # this step's draw, eagerly, into the fixed buffer
+            if noise is None:
+                self.z.normal_(generator=generator)
+            else:
+                self.z.copy_(noise(t))
+
+        _run_steps(self.method.ts, draw if self.z is not None else None,
+                   lambda i: self.graph.replay())
         return self.carry[0].clone()

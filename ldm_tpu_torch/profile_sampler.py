@@ -13,9 +13,9 @@ forward) and each of the two it prints:
 * ``ms/step``: ``--runs`` unprofiled runs of ``--steps`` sampler steps each,
   host clock from a device sync to a device sync;
 * ``profiled``: one more run under ``torch.profiler`` -- its wall time, the
-  device-busy time (the sum of the device kernels' times; one stream, so
-  kernels do not overlap), the busy share of the wall time, and the device
-  kernels per step;
+  device-busy time (the union of the device operations' intervals:
+  ``utils/profiling.py::device_busy_s``), the busy share of the wall time,
+  and the device kernels per step;
 * the ten device kernels with the most time, per step.
 
 The profiler adds host cost of its own, so the busy share under it is a
@@ -38,6 +38,7 @@ from torch.profiler import ProfilerActivity, profile
 from ldm_tpu_torch.diffusion.ddpm import GaussianDiffusion
 from ldm_tpu_torch.factory import build_model, load_config
 from ldm_tpu_torch.utils.graphs import use_graphs
+from ldm_tpu_torch.utils.profiling import device_busy_s
 
 FLAGSHIP = "configs/pixel_diffusion_model_cifar10.yaml"
 
@@ -123,7 +124,7 @@ def _profile_loop(args, config, model, diffusion, classes, shape, gen, graph: bo
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    busy_ms = device_busy_s(prof) * 1e3
     n_kernels = sum(e.count for e in kernels)
     print(f"{name} profiled: wall {wall_ms:.3f} ms for {args.steps} steps, device busy "
           f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}% busy), device kernels "

@@ -14,8 +14,9 @@ For each it prints:
 * ``ms/step``: ``--runs`` unprofiled runs of ``--steps`` train steps each,
   host clock from a device sync to a device sync;
 * ``profiled``: one more run under ``torch.profiler`` -- its wall time, the
-  device-busy time (the sum of the device kernels' times; one stream, so
-  kernels do not overlap), the busy share, and the device kernels per step;
+  device-busy time (the union of the device operations' intervals:
+  ``utils/profiling.py::device_busy_s``), the busy share, and the device
+  kernels per step;
 * the device time per step of the linear-attention kernels (forward, and
   the backward's three launches), of the optimizer's one pass (Adam + EMA)
   and of everything else;
@@ -37,6 +38,7 @@ from torch.profiler import ProfilerActivity, profile
 from ldm_tpu_torch.profile_sampler import FLAGSHIP, _sync, card_line
 from ldm_tpu_torch.train import build_trainer
 from ldm_tpu_torch.factory import load_config
+from ldm_tpu_torch.utils.profiling import device_busy_s
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -107,7 +109,7 @@ def _profile_step(args, trainer, batch, name: str, tag: str, device: torch.devic
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
-    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    busy_ms = device_busy_s(prof) * 1e3
     n_kernels = sum(e.count for e in kernels)
     print(f"{name} profiled: wall {wall_ms:.3f} ms for {args.steps} steps, device "
           f"busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}% busy), device kernels "

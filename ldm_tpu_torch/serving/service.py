@@ -37,6 +37,11 @@
   another thread during a capture would break it.  With ``warmup=False``
   the first batch captures on the batcher thread, while nothing is in
   flight on the fulfil thread.
+* **What it records.**  Each batch (``serve.batch``: its launch on the host,
+  its time on the card between CUDA timing events, when it landed) and each
+  completed request (``serve.request``: submitted, its batch launched and
+  landed, resolved) goes to the recorder of ``utils/profiling.py``, marked
+  ``profiled`` where torch's profiler ran meanwhile.
 """
 
 from __future__ import annotations
@@ -53,11 +58,17 @@ import numpy as np
 import torch
 
 from ldm_tpu_torch.training.state import step_generator
+from ldm_tpu_torch.utils import profiling
 
 # the pinned host buffers a CUDA service copies its batches into: the
 # fulfil queue's bound, plus the batch being scattered
 FULFIL_QUEUE = 3
 PINNED_BUFFERS = FULFIL_QUEUE + 1
+
+
+def _p50_p95(sorted_values: Sequence[float]) -> Tuple[float, float]:
+    n = len(sorted_values)
+    return sorted_values[n // 2], sorted_values[min(n - 1, int(n * 0.95))]
 
 
 def _try_resolve(future: Future, exc: Optional[BaseException] = None,
@@ -116,7 +127,13 @@ class ServiceStats:
     ``stats()``; ``host_ms_per_batch`` is the batcher thread's mean time to
     assemble and launch one batch (on a busy card its launches also wait
     for room in the stream's queue; the wait for a free pinned buffer is
-    not in it)."""
+    not in it).  ``queue_p50_s`` / ``queue_p95_s``: a completed request's
+    wait from submission to the launch of the batch that completed it (the
+    last 1,024); ``device_ms_per_batch``: the card's mean time a batch, from
+    its x_T upload to its copy out (0 on the CPU).  They are the figures of
+    the ``serve.request`` and ``serve.batch`` records, kept per service:
+    the recorder is process-wide, so its rings mix every service of the
+    process."""
 
     requests: int = 0
     images: int = 0
@@ -129,6 +146,9 @@ class ServiceStats:
     latency_p50_s: float = 0.0
     latency_p95_s: float = 0.0
     host_ms_per_batch: float = 0.0
+    queue_p50_s: float = 0.0
+    queue_p95_s: float = 0.0
+    device_ms_per_batch: float = 0.0
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -136,7 +156,7 @@ class ServiceStats:
 
 class _Request:
     __slots__ = ("class_ids", "seed", "images", "remaining", "t_submit",
-                 "future", "rejected")
+                 "profiled", "future", "rejected")
 
     def __init__(self, class_ids: np.ndarray, seed: int, image_shape):
         self.class_ids = class_ids
@@ -145,22 +165,35 @@ class _Request:
         self.rejected = False
         self.images = np.empty((len(class_ids),) + tuple(image_shape), np.uint8)
         self.remaining = len(class_ids)
-        self.t_submit = time.monotonic()
+        self.t_submit = time.perf_counter_ns()
+        self.profiled = profiling.profiler_on()
         self.future: Future = Future()
 
 
 class _Landing:
     """A batch's uint8 images on their way to the host: a pinned buffer and
     the events after the copies into it (CUDA, one a replica), or the images
-    themselves."""
+    themselves; the host times of its launch and landing (``perf_counter_ns``)
+    and, on a card, the timing events before each replica's x_T upload."""
 
-    def __init__(self, images: np.ndarray, events=(), release=None):
+    def __init__(self, images: np.ndarray, events=(), release=None, starts=()):
         self._images, self._events, self._release = images, list(events), release
+        self._starts = list(starts)
+        self.t_launch = self.t_landed = 0
+        self.profiled = False
 
     def wait(self) -> np.ndarray:
         for event in self._events:
             event.synchronize()
+        self.t_landed = time.perf_counter_ns()
         return self._images
+
+    def device_ms(self) -> Optional[float]:
+        """The longest replica's time on the card, from its x_T upload to its
+        copy out (after :meth:`wait`); None without a card."""
+        if not self._starts:
+            return None
+        return max(a.elapsed_time(b) for a, b in zip(self._starts, self._events))
 
     def release(self) -> None:
         """The buffer may be written again: its rows are scattered."""
@@ -273,8 +306,11 @@ class GenerationService:
         # and a failure injected from inside it re-enters for the sweep
         self._lock = threading.RLock()
         self._latencies: collections.deque = collections.deque(maxlen=1024)
+        self._queue_waits: collections.deque = collections.deque(maxlen=1024)
         self._stats = ServiceStats()
         self._host_seconds = 0.0  # the batcher's host time in _batched, summed
+        self._device_ms = 0.0     # the card's time of the landed batches, summed
+        self._device_batches = 0  # ... and their count
         self._t_start = time.monotonic()
         self._auto_seed = 0
         self._batch_counter = 0
@@ -432,15 +468,20 @@ class GenerationService:
         with self._lock:
             s = dataclasses.replace(self._stats)
             lat = sorted(self._latencies)
+            waits = sorted(self._queue_waits)
             host = self._host_seconds
+            device, timed = self._device_ms, self._device_batches
         s.uptime_s = time.monotonic() - self._t_start
         s.images_per_s = s.images / s.uptime_s if s.uptime_s > 0 else 0.0
         s.queue_depth = self._slotq.depth() if self._slotq is not None else self._queue.qsize()
         if lat:
-            s.latency_p50_s = lat[len(lat) // 2]
-            s.latency_p95_s = lat[min(len(lat) - 1, int(len(lat) * 0.95))]
+            s.latency_p50_s, s.latency_p95_s = _p50_p95(lat)
+        if waits:
+            s.queue_p50_s, s.queue_p95_s = _p50_p95(waits)
         if s.batches:
             s.host_ms_per_batch = host / s.batches * 1e3
+        if timed:
+            s.device_ms_per_batch = device / timed
         return s
 
     # ------------------------------------------------------------ one batch
@@ -454,14 +495,17 @@ class GenerationService:
         cuda = self.device.type == "cuda"
         k = self._free.get() if cuda else None
         try:
-            t0 = time.perf_counter()
+            profiled = profiling.profiler_on()
+            t0 = time.perf_counter_ns()
             landing = self._launch(seeds, idxs, classes, counter, k)
         except BaseException:
             if k is not None:
                 self._free.put(k)
             raise
+        t1 = time.perf_counter_ns()
+        landing.t_launch, landing.profiled = t0, profiled
         with self._lock:
-            self._host_seconds += time.perf_counter() - t0
+            self._host_seconds += (t1 - t0) * 1e-9
         return landing
 
     def _launch(self, seeds, idxs, classes, counter: int, k: Optional[int]) -> _Landing:
@@ -474,12 +518,15 @@ class GenerationService:
         labels = torch.from_numpy(classes.astype(np.int64))
         n = len(self.devices)
         m = self.batch_size // n  # each replica's block of slots
-        outs, events = [], []
+        outs, starts, events = [], [], []
         with torch.inference_mode():  # thread-local: this thread's own
             for i, (fn, dev) in enumerate(zip(self.sample_fns, self.devices)):
                 rows = slice(i * m, (i + 1) * m)
                 xi, li = x[rows], labels[rows]
                 if k is not None:  # from pinned memory: a pageable upload would wait
+                    with torch.cuda.device(dev):
+                        starts.append(torch.cuda.Event(enable_timing=True))
+                        starts[-1].record()
                     xi = xi.pin_memory().to(dev, non_blocking=True)
                     li = li.pin_memory().to(dev, non_blocking=True)
                 # the ancestral sampler's per-step noise: one stream a batch
@@ -492,12 +539,12 @@ class GenerationService:
                     continue
                 with torch.cuda.device(dev):
                     self._pinned[k][rows].copy_(images, non_blocking=True)
-                    event = torch.cuda.Event()
+                    event = torch.cuda.Event(enable_timing=True)
                     event.record()
                 events.append(event)
         if k is None:
             return _Landing(np.ascontiguousarray(np.concatenate(outs)))
-        return _Landing(self._pinned[k].numpy(), events, lambda: self._free.put(k))
+        return _Landing(self._pinned[k].numpy(), events, lambda: self._free.put(k), starts)
 
     # ---------------------------------------------------------------- worker
     def _next_counter(self, pads: int) -> int:
@@ -525,7 +572,6 @@ class GenerationService:
         """Wait for a finished batch on the host and resolve completed requests."""
         try:
             images = landing.wait()
-            now = time.monotonic()
             done = []
             for j, (req, i) in enumerate(slots):
                 req.images[i] = images[j]
@@ -534,11 +580,30 @@ class GenerationService:
                     done.append(req)
         finally:
             landing.release()
+        self._landed(landing, len(slots), done)
+
+    def _landed(self, landing: _Landing, count: int, done: Sequence[_Request]) -> None:
+        """Count, record and resolve a batch of ``count`` slots that is on
+        the host, and ``done``, the requests it completed: batches land in
+        launch order on one stream, so a request's wait in the queue ends
+        at the launch of the batch that carried its last slot."""
+        device_ms = landing.device_ms()
+        now = time.perf_counter_ns()
         with self._lock:
-            self._stats.images += len(slots)
+            self._stats.images += count
+            if device_ms is not None:
+                self._device_ms += device_ms
+                self._device_batches += 1
             for req in done:
-                self._latencies.append(now - req.t_submit)
+                self._latencies.append((now - req.t_submit) * 1e-9)
+                self._queue_waits.append((landing.t_launch - req.t_submit) * 1e-9)
+        profiled = landing.profiled or profiling.profiler_on()
+        profiling.record("serve.batch", landing.t_launch, profiled,
+                         t_landed=landing.t_landed, device_ms=device_ms)
         for req in done:
+            profiling.record("serve.request", req.t_submit, profiled or req.profiled,
+                             t_launch=landing.t_launch, t_landed=landing.t_landed,
+                             t_resolved=time.perf_counter_ns())
             _try_resolve(req.future, result=req.images)
 
     def _collect(self) -> list:
@@ -632,15 +697,9 @@ class GenerationService:
             done = self._slotq.scatter(landing.wait(), count, req_ids, slot_is)
         finally:
             landing.release()
-        now = time.monotonic()
         with self._lock:
-            self._stats.images += count
             reqs = [self._inflight.pop(r) for r in done if r in self._inflight]
-            for req in reqs:
-                self._latencies.append(now - req.t_submit)
-        for req in reqs:
-            if not req.rejected:
-                _try_resolve(req.future, result=req.images)
+        self._landed(landing, count, [req for req in reqs if not req.rejected])
 
     def _fail_native(self, exc: BaseException, batch_req_ids):
         # _fail's order: the death flags before _stop
