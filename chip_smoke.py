@@ -21,9 +21,9 @@ failure raises and exits nonzero:
 2. build: nvcc builds every kernel source of ldm_tpu_torch/csrc/, one
    compiler per source, started together; ptxas registers, shared memory
    and spills per kernel; from cuobjdump's SASS, the tensor-core (HMMA,
-   HGMMA) and atomic instructions of each linear-attention and ResNet-block
-   kernel: the bf16 kernels with a product must have the first, the fp32
-   kernels none, and no kernel the second.
+   HGMMA) and atomic instructions of each linear-attention, ResNet-block
+   and GroupNorm kernel: the bf16 kernels with a product must have the
+   first, the fp32 kernels none, and no kernel the second.
 3. forward kernel vs plain: at the 8 attention sites of the 32px UNet at
    2B=20 and 2B=128, at the 64px and 128px sites at 2B=4, and at the two
    narrow sites of configs/smoke_synthetic.yaml ((256, 8) and (64, 16), the
@@ -38,6 +38,15 @@ failure raises and exits nonzero:
    kernel and the plain version alike by CUDA-graph replay (device time, no
    host in it); the bound from the shapes; (16384, 64) alone at B=8 and
    128.
+3b. the GroupNorm (+ SiLU) pass vs plain at every norm site of the pixel
+   UNet, the latent UNet and the VAE (recorded from their forwards; 23 and
+   11 calls a UNet forward) at 2B = 256, 128, 20 and B = 1, and the 64px
+   UNet's two largest at B = 4 and 1: the norm within
+   one bf16 spacing of the plain chain's (the spacing taken at no less than
+   2^-6), the SiLU within one of F.silu of the kernel's own norm; reruns
+   bit-identical, an item the same bits at another batch slot and size;
+   timed at 2B=256 by CUDA-graph replay beside the bytes bound and the plain
+   chain, with the pixel UNet's sampler step summed.
 4. backward kernels vs plain: the 8 sites at B=64, the 64px sites at
    B=4 and B=64 (probe 39's train step), the 128px site (16384, 64) at B=2
    (the tiled path, 8 CTAs of 2,048 rows), the 128px UNet's four sites at
@@ -55,8 +64,9 @@ failure raises and exits nonzero:
    as a replayed graph, from the flagship's seeded weights written where the
    trainer leaves its EMA weights; every kernel's count is set to 0 just before and
    read just after: the forward kernel must launch exactly 8 x (400 replayed
-   steps + the 3 eager warm-up steps before the capture) times, the others
-   not at all; uint8 (10, 32, 32, 3) images from a finite x0; then a DDIM-50
+   steps + the 3 eager warm-up steps before the capture) times, the
+   GroupNorm pass 23 x as many steps (one a GroupNorm module), the others
+   not at all (a train step launches the GroupNorm pass never); uint8 (10, 32, 32, 3) images from a finite x0; then a DDIM-50
    and a DPM-Solver++-15 request at B=10 with the same count rule, and
    configs/smoke_synthetic.yaml (attention at C = 8 and C = 16) through
    generate.main, graphed against ``--eager``; fp32 10-step trajectories at
@@ -334,12 +344,14 @@ from __future__ import annotations
 
 import argparse
 import base64
+import collections
 import contextlib
 import dataclasses
 import glob
 import gzip
 import io
 import json
+import math
 import os
 import shutil
 import struct
@@ -382,6 +394,7 @@ from ldm_tpu_torch.factory import build_classifier, build_diffusion, build_model
 from ldm_tpu_torch.models import unet as unet_module
 from ldm_tpu_torch.ops import build
 from ldm_tpu_torch.ops import fused_adam_ema as fa
+from ldm_tpu_torch.ops import group_norm as gn
 from ldm_tpu_torch.ops import linear_attention as la
 from ldm_tpu_torch.ops import resnet_block as rb
 from ldm_tpu_torch.perf import compare_parent, flops, probe7, probe13, probe13b
@@ -425,6 +438,11 @@ PATH_64PX_B = {"fwd": (64, 128), "bwd": (64,)}
 # the attention sites of configs/smoke_synthetic.yaml: narrower than the
 # kernels' 16-column step (the wrapper zero-pads the first) and at it
 NARROW_SITES = [("smoke-l0", 256, 8), ("smoke-l1", 64, 16)]
+# GroupNorm calls a forward (models/unet.py::group_norm_calls; phase 3b
+# records them from the forwards): the flagship UNet's (at 32 and 64 px), a
+# latent UNet's, the VAE's encoder's and decoder's.  Outside autograd in bf16
+# each is one launch of the GroupNorm pass; a train step's own forward none
+GN_PIXEL, GN_LATENT, GN_VAE_ENC, GN_VAE_DEC = 23, 11, 22, 30
 # the latent UNet's sites: configs/latent_diffusion_hard.yaml's 4x4 latents
 # at its 128 channels (both blocks), and the same grid at 64 channels
 LATENT_SITES = [("latent-c128", 16, 128), ("latent-c64", 16, 64)]
@@ -595,7 +613,7 @@ def check_sass() -> None:
     """Phase 2: every bf16 kernel with a product has tensor-core
     instructions, no fp32 kernel has, no kernel has an atomic."""
     for name in ("linear_attention_fwd.cu", "linear_attention_bwd.cu", "resnet_block_fwd.cu",
-                 "resnet_block_probe.cu"):
+                 "resnet_block_probe.cu", "group_norm_silu.cu"):
         for kernel_name, n in sass_counts(str(build.build()[name][0])).items():
             bf16 = "bfloat16" in kernel_name
             # the kernels with products: the whole attention forward (STAGE 6;
@@ -775,6 +793,181 @@ def check_bwd_kernel(tag: str) -> dict:
             "ms": ms, "plain_ms": plain_ms, **total,
             "site_128px": {f"b{b}": time_128px_site(b, True, tag)
                            for b in (BWD_128PX_B, *PATH_128PX_B)}}
+
+
+# the three models whose norms take the GroupNorm pass, at the benchmark's
+# widths (benchmark/configs/cifar10-*.json): the pixel UNet, the latent UNet
+# over 4x4x8 latents, and the VAE (its encoder and decoder)
+GN_MODELS = {
+    "pixel": dict(in_channels=3, out_channels=3, channels=64, channel_multipliers=(1, 2, 4, 8),
+                  num_classes=10),
+    "latent": dict(in_channels=8, out_channels=8, channels=64, channel_multipliers=(1,),
+                   num_classes=10),
+}
+GN_VAE = dict(in_channels=3, out_channels=3, channels=64, channel_multipliers=(1, 2, 4, 8),
+              n_resnet_blocks=2, z_channels=8)
+GN_BATCHES = (2 * SAMPLE_B, SAMPLE_B, 20, 1)  # the samplers' 2B, a request's, one image
+# the 64px UNet's largest norms (probe 39's samplers), checked at a few items:
+# more chunks a thread than registers hold, so the kernel reads some again
+GN_64PX = [(4096, 64, 8, 1e-5, True), (4096, 128, 8, 1e-5, True)]
+# a value whose magnitude is below 2^-6 can come out of the fp32 affine
+# a x + b with another exponent in either version (its rounding is a few
+# 2^-24 of |a x| + |b|): one spacing is taken at no less than 2^-6 there
+GN_SPACING_FLOOR = 2.0 ** -6
+
+
+def norm_sites(model, run) -> collections.Counter:
+    """(H*W, C, G, eps, silu) of every GroupNorm call ``run()`` makes in
+    ``model``, with how often; ``run`` calls the model once."""
+    seen = collections.Counter()
+    norms = [m for m in model.modules() if isinstance(m, unet_module.GroupNorm)]
+    for m in norms:
+        def norm(x, silu, m=m, inner=m._norm):
+            seen[(x.shape[2] * x.shape[3], x.shape[1], m.num_groups, m.eps, silu)] += 1
+            return inner(x, silu)
+        m._norm = norm
+    try:
+        with torch.inference_mode():
+            run()
+    finally:
+        for m in norms:
+            del m._norm
+    return seen
+
+
+def bf16_spacings(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in bf16 spacings at the larger of |a|, |b| (and GN_SPACING_FLOOR)."""
+    mag = torch.maximum(a.float().abs(), b.float().abs()).clamp_min(GN_SPACING_FLOOR)
+    _, exp = torch.frexp(mag)
+    return (a.float() - b.float()).abs() / torch.ldexp(torch.ones_like(mag), exp - 8)
+
+
+def gn_inputs(b: int, hw: int, c: int, seed: int):
+    """x (B, C, H, W) bf16 channels_last, and the norm's fp32 weight and bias."""
+    g = torch.Generator().manual_seed(seed)
+    side = math.isqrt(hw)
+    x = torch.randn(b, side, side, c, generator=g) * 2 + 0.3 * torch.randn(c, generator=g)
+    weight = 1 + 0.3 * torch.randn(c, generator=g)
+    bias = 0.3 * torch.randn(c, generator=g)
+    return x.to(DEV, torch.bfloat16).permute(0, 3, 1, 2), weight.to(DEV), bias.to(DEV)
+
+
+def gn_sites() -> dict:
+    """The norm sites of the three models, recorded from a forward of each on
+    the card: {model: Counter of (H*W, C, G, eps, silu)}; each UNet's count
+    is its ``group_norm_calls``."""
+    from ldm_tpu_torch.models import autoencoder as ae_module
+
+    sites = {}
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        for name, kw in GN_MODELS.items():
+            model = unet_module.UNet(**kw, dtype=torch.bfloat16, device=DEV).eval()
+            side = 32 if name == "pixel" else 4
+            x = torch.zeros(1, side, side, kw["in_channels"], device=DEV)
+            t = torch.zeros(1, dtype=torch.long, device=DEV)
+            sites[name] = norm_sites(model, lambda: model(x, t, t + 1))
+            if sum(sites[name].values()) != unet_module.group_norm_calls(model):
+                raise AssertionError(f"{name}: {sites[name]} against "
+                                     f"{unet_module.group_norm_calls(model)} modules")
+        vae = ae_module.Autoencoder(**GN_VAE, dtype=torch.bfloat16, device=DEV).eval()
+        sites["vae"] = norm_sites(vae, lambda: vae(torch.zeros(1, 32, 32, 3, device=DEV),
+                                                   torch.zeros(1, 4, 4, 8, device=DEV)))
+        halves = (unet_module.group_norm_calls(vae.encoder),
+                  unet_module.group_norm_calls(vae.decoder))
+    if ((sum(sites["pixel"].values()), sum(sites["latent"].values()), *halves)
+            != (GN_PIXEL, GN_LATENT, GN_VAE_ENC, GN_VAE_DEC)
+            or sum(sites["vae"].values()) != sum(halves)):
+        raise AssertionError(f"norm calls a forward: {sites}, the VAE's halves {halves}")
+    return sites
+
+
+def check_group_norm(tag: str) -> dict:
+    """Phase 3b: the GroupNorm (+ SiLU) pass against its plain version at
+    every norm site of the pixel UNet, the latent UNet and the VAE (recorded
+    from their forwards), at 2B = 256, 128, 20 and B = 1: the norm within one
+    bf16 spacing of the plain chain's, the SiLU within one of ``F.silu`` of
+    the kernel's own norm (the plain SiLU of the same bf16 values); reruns
+    bit-identical, an item the same bits at another slot and batch size.
+    Times by CUDA-graph replay at 2B=256 beside the bytes bound and the plain
+    chain, and the pixel UNet's whole step."""
+    t0 = time.perf_counter()
+    sites = gn_sites()
+    print("norm calls a forward: " + "; ".join(f"{k} {sum(v.values())} at {len(v)} shapes"
+                                                for k, v in sites.items()))
+    shapes = sorted({s for v in sites.values() for s in v})
+    worst = {"norm": 0.0, "silu": 0.0, "silu_vs_plain": 0.0}
+    off = {"norm": 0, "silu_vs_plain": 0}
+    for (hw, c, groups, eps, silu), batches in ([(s, GN_BATCHES) for s in shapes]
+                                                 + [(s, (4, 1)) for s in GN_64PX]):
+        plan = gn.plan_group_norm(hw, c, groups)
+        for b in batches:
+            x, w, bias = gn_inputs(b, hw, c, seed=hw + c + groups + b)
+            norm_k = gn.group_norm_silu(x, w, bias, groups, eps, False)
+            norm_p = gn.group_norm_silu_torch(x, w, bias, groups, eps, False)
+            silu_k = gn.group_norm_silu(x, w, bias, groups, eps, True)
+            again = gn.group_norm_silu(x, w, bias, groups, eps, True)
+            torch.cuda.synchronize()
+            if not (norm_k.is_contiguous(memory_format=torch.channels_last)
+                    and norm_k.dtype == torch.bfloat16 and bool(torch.isfinite(norm_k).all())):
+                raise AssertionError(f"GroupNorm kernel output at {hw, c, groups} B={b}: "
+                                     f"{norm_k.dtype} {norm_k.stride()}")
+            d_norm = bf16_spacings(norm_k, norm_p)
+            d_silu = bf16_spacings(silu_k, F.silu(norm_k))
+            d_plain = bf16_spacings(silu_k, F.silu(norm_p))
+            worst["norm"] = max(worst["norm"], d_norm.max().item())
+            worst["silu"] = max(worst["silu"], d_silu.max().item())
+            worst["silu_vs_plain"] = max(worst["silu_vs_plain"], d_plain.max().item())
+            off["norm"] += int((d_norm > 0).sum())
+            off["silu_vs_plain"] += int((d_plain > 0).sum())
+            if d_norm.max() > 1 or d_silu.max() > 1:
+                raise AssertionError(f"GroupNorm kernel at {hw, c, groups, eps} B={b}: "
+                                     f"{d_norm.max().item()} spacings from the plain norm, "
+                                     f"{d_silu.max().item()} from F.silu of its own")
+            if not torch.equal(silu_k, again):
+                raise AssertionError(f"GroupNorm kernel at {hw, c, groups} B={b}: a rerun "
+                                     f"differs")
+            if b > 20:  # the same items at other slots, in a batch of 20 and alone
+                few = gn.group_norm_silu(x.roll(7, 0)[:20].contiguous(
+                    memory_format=torch.channels_last), w, bias, groups, eps, True)
+                one = gn.group_norm_silu(x[3:4], w, bias, groups, eps, True)
+                if not (torch.equal(few, silu_k.roll(7, 0)[:20])
+                        and torch.equal(one, silu_k[3:4])):
+                    raise AssertionError(f"GroupNorm kernel at {hw, c, groups} B={b}: an "
+                                         f"item's output depends on its slot or batch")
+        print(f"group_norm_silu vs plain (H*W={hw}, C={c}, G={groups}, eps={eps:g}, "
+              f"{'with' if silu else 'no'} SiLU after it in the models) at B "
+              f"{batches}: plan {plan._asdict()}; bit-identical rerun"
+              f"{', at another slot and batch size' if max(batches) > 20 else ''}")
+    print(f"group_norm_silu: the norm at most {worst['norm']:.3f} bf16 spacings from the plain "
+          f"chain's ({off['norm']} elements not equal), the SiLU at most {worst['silu']:.3f} "
+          f"from F.silu of the kernel's norm; from the plain chain's SiLU at most "
+          f"{worst['silu_vs_plain']:.3f} ({off['silu_vs_plain']} elements not equal); spacings "
+          f"taken at no less than {GN_SPACING_FLOOR:g}")
+
+    # times at 2B=256, and the pixel UNet's sampler step (each site x its calls)
+    b = 2 * SAMPLE_B
+    rows, step_ms, step_plain, bounds = [], 0.0, 0.0, []
+    pixel = sites["pixel"]
+    for hw, c, groups, eps, silu in shapes:
+        x, w, bias = gn_inputs(b, hw, c, seed=hw + c)
+        ms = cuda_graph_ms(lambda: gn.group_norm_silu(x, w, bias, groups, eps, silu))
+        plain = cuda_graph_ms(lambda: gn.group_norm_silu_torch(x, w, bias, groups, eps, silu))
+        bd = bound(4 * b * hw * c + 8 * c, 0.0)
+        n = pixel.get((hw, c, groups, eps, silu), 0)
+        step_ms, step_plain, bounds = step_ms + n * ms, step_plain + n * plain, bounds + [bd] * n
+        rows.append({"hw": hw, "c": c, "groups": groups, "eps": eps, "silu": silu, "ms": ms,
+                     "plain_ms": plain, "bound_ms": bd["bound_ms"], "pixel_calls": n})
+        print(f"time group_norm_silu (H*W={hw}, C={c}, G={groups}, silu={silu}) 2B={b}: "
+              f"kernel {ms:.4f} ms, bound {bd['bound_ms']:.4f} ms (4 B an element at 3.35 "
+              f"TB/s), kernel/bound {ms / bd['bound_ms']:.2f}, plain chain {plain:.4f} ms "
+              f"[{tag}]")
+    total = add_bounds(*bounds)
+    print(f"time group_norm_silu, the pixel UNet's {sum(pixel.values())} norms of a sampler "
+          f"step at 2B={b}: kernel {step_ms:.4f} ms, bound {total['bound_ms']:.4f} ms, plain "
+          f"chain {step_plain:.4f} ms [{tag}]; phase {time.perf_counter() - t0:.1f} s")
+    return {"ms": step_ms, "plain_ms": step_plain, **total, "rows": rows,
+            "max_spacings": worst, "calls": {k: sum(v.values()) for k, v in sites.items()}}
 
 
 def check_unet_grads(config) -> None:
@@ -1018,9 +1211,11 @@ def check_training(config, tag: str) -> dict:
         trainer.train_step(batch)
         per_step = read_counts()
         print(f"one replayed train step launches: {per_step}")
+        # the step's forward is in autograd: no GroupNorm pass
         if per_step != dict.fromkeys(OFF_PATH, 0) | {"linear_attention_fwd": 8,
                                                      "linear_attention_bwd": 8,
-                                                     "fused_adam_ema": 1}:
+                                                     "fused_adam_ema": 1,
+                                                     "group_norm_silu": 0}:
             raise AssertionError(f"a train step launched the kernels {per_step} times")
 
         def ten_steps():
@@ -1248,12 +1443,14 @@ def via_http(svc) -> np.ndarray:
 
 
 def serve(config, ckpt: str, sampler: str, sampler_steps: int, steps: int, tag: str,
-          checks: bool, blocks: int = 8) -> dict:
+          checks: bool, blocks: int = 8, norms: int = GN_PIXEL, decode_norms: int = 0) -> dict:
     """One service over ``ckpt`` at B=64; every count set to 0 before it is
     built and read after it stopped.  ``checks``: the reference request alone,
     under load and through HTTP, light load and the drain; always the
     saturated run.  ``blocks``: the UNet's attention blocks, each one launch
-    of the forward kernel a sampler step."""
+    of the forward kernel a sampler step; ``norms``: its GroupNorm calls, each
+    one launch of the GroupNorm pass a step; ``decode_norms``: the VAE
+    decoder's, once a batch."""
     zero_counts()
     svc = build_generation_service(config, ckpt, sampler=sampler, ddim_steps=sampler_steps,
                                    batch_size=SERVE_B)
@@ -1290,13 +1487,17 @@ def serve(config, ckpt: str, sampler: str, sampler_steps: int, steps: int, tag: 
     out["counts"], out["batches"] = read_counts(), svc.stats().batches
     if not all(f.done() and f.result(timeout=1).shape == (5, 32, 32, 3) for f in drained):
         raise AssertionError("stop() left a drained request unresolved")
-    want = blocks * (steps * out["batches"] + WARMUP_STEPS)
+    forwards = steps * out["batches"] + WARMUP_STEPS
+    want = blocks * forwards
+    want_gn = norms * forwards + decode_norms * out["batches"]
     print(f"serving {sampler}-{steps}: {out['batches']} batches of {SERVE_B} (the warm-up's "
           f"included); kernel launches {out['counts']} (want {want} of the forward kernel: "
           f"{blocks} x "
-          f"({steps} x {out['batches']} + {WARMUP_STEPS} warm-up steps), and no other)"
+          f"({steps} x {out['batches']} + {WARMUP_STEPS} warm-up steps), {want_gn} of the "
+          f"GroupNorm pass: {norms} a step, {decode_norms} a batch's decode, and no other)"
           f"{'; stop() resolved the 6 requests it drained' if drained else ''}")
-    if out["counts"] != dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": want}:
+    if out["counts"] != dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": want,
+                                                     "group_norm_silu": want_gn}:
         raise AssertionError(f"the {sampler} service launched {out['counts']}")
     return out
 
@@ -1371,6 +1572,7 @@ def check_serving(config, tag: str) -> dict:
         out[name] = {**sat, "steps": steps[name], "device_ms_per_replay": device_ms[name],
                      "device_ms_per_batch": dev_batch, "device_bound_img_s":
                      SERVE_B / dev_batch * 1e3, "launches": r["counts"]["linear_attention_fwd"],
+                     "gn_launches": r["counts"]["group_norm_silu"],
                      "batches_served": r["batches"], "start_s": r["start_s"]}
     x_init_ms = host_x_init_ms(shape)
     print(f"serving ddim-{steps['ddim']} light load, ten 1-image requests one at a time: latency p50 "
@@ -1501,10 +1703,12 @@ def check_requests(config, tag: str) -> dict:
                                  "--out", os.path.join(d, "x.npy"), *extra])
             counts = read_counts()
         want = 8 * (steps + WARMUP_STEPS)
+        want_gn = GN_PIXEL * (steps + WARMUP_STEPS)
         print(f"kernel launches in the {name} request of {steps} steps: {counts} (want {want} "
               f"of the forward kernel: 8 x ({steps} replayed + {WARMUP_STEPS} warm-up steps), "
-              f"and no other)")
-        if counts != dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": want}:
+              f"{want_gn} of the GroupNorm pass: one a GroupNorm module a step, and no other)")
+        if counts != dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": want,
+                                                  "group_norm_silu": want_gn}:
             raise AssertionError(f"the {name} request launched {counts}")
         if res.images.dtype != np.uint8 or res.images.shape != (10, 32, 32, 3):
             raise AssertionError(f"images {res.images.dtype} {res.images.shape}")
@@ -1754,7 +1958,8 @@ def protocol_launches(family: str, config, ddim_steps=None, negative_control=Tru
     step is two forwards; ``ddim_steps``: the pixel DDPM's Phase C by DDIM at
     that many steps), the classifier phases no attention kernel and one
     optimizer pass a step (``classifier_steps``); the negative control's
-    phases only with ``negative_control``."""
+    phases only with ``negative_control``.  The GroupNorm pass: GN_PIXEL a
+    forward outside autograd (validation and Phase C), none in a train step."""
     n_train = int(0.9 * (PROTOCOL_SIZE // 2))
     steps = n_train // config.batch_size
     val_batches = (PROTOCOL_SIZE // 2 - n_train) // config.batch_size
@@ -1765,10 +1970,15 @@ def protocol_launches(family: str, config, ddim_steps=None, negative_control=Tru
     else:
         # ancestral T=400 (or DDIM); broken: DDIM-5, cfg 0
         c_steps, c_broken, per = ddim_steps or T_STEPS, 5, 8
+    per_broken = per if family == "flow" else 8
     want = {"A": {"linear_attention_block": 8 * steps + 16 * val_batches,
-                  "linear_attention_block_bwd": 8 * steps, "fused_adam_ema": steps},
-            "C": {"linear_attention_block": per * (chunks * c_steps + WARMUP_STEPS)},
-            "C_broken": {"linear_attention_block": (per if family == "flow" else 8)
+                  "linear_attention_block_bwd": 8 * steps, "fused_adam_ema": steps,
+                  "group_norm_silu": GN_PIXEL * 2 * val_batches},
+            "C": {"linear_attention_block": per * (chunks * c_steps + WARMUP_STEPS),
+                  "group_norm_silu": GN_PIXEL * per // 8 * (chunks * c_steps + WARMUP_STEPS)},
+            "C_broken": {"linear_attention_block": per_broken * (chunks * c_broken
+                                                                 + WARMUP_STEPS),
+                         "group_norm_silu": GN_PIXEL * per_broken // 8
                          * (chunks * c_broken + WARMUP_STEPS)}}
     phases = ["A", "C", "C_broken"] + PROTOCOL_EXPS if negative_control else \
         ["A", "C"] + [name for name, _, _ in aug.EXPERIMENTS]
@@ -1776,8 +1986,8 @@ def protocol_launches(family: str, config, ddim_steps=None, negative_control=Tru
                                     config.batch_size).items():
         want[name] = {"fused_adam_ema": n}
     return {phase: {"linear_attention_block": 0, "linear_attention_block_bwd": 0,
-                    "resnet_block": 0, "fused_adam_ema": 0} | want.get(phase, {})
-            for phase in phases}
+                    "resnet_block": 0, "fused_adam_ema": 0, "group_norm_silu": 0}
+            | want.get(phase, {}) for phase in phases}
 
 
 def rerun_exp2(result, config) -> None:
@@ -2298,9 +2508,11 @@ def check_consistency(tag: str) -> dict:
         tr = res.trainer
         steps, scan = tr.state.step, tr.epoch_scan
         grid_steps = 2  # the grid's --sample-steps, B=80: a captured sampler step
+        # the teacher's and the EMA target's forwards run outside autograd
         want = dict.fromkeys(COUNTED, 0) | {
             "linear_attention_fwd": DISTILL_FWD * steps + 8 * (grid_steps + WARMUP_STEPS),
-            "linear_attention_bwd": DISTILL_BWD * steps, "fused_adam_ema": steps}
+            "linear_attention_bwd": DISTILL_BWD * steps, "fused_adam_ema": steps,
+            "group_norm_silu": 2 * GN_PIXEL * steps + GN_PIXEL * (grid_steps + WARMUP_STEPS)}
         print(f"distill.main: {steps} steps at B={TRAIN_B} bf16 in {seconds:.1f} s (builds, "
               f"warm-up and captures included), losses {res.result['history']}, steps "
               f"{tr.step_counts}; kernel launches {counts} (want {want}: {DISTILL_FWD} / "
@@ -2322,7 +2534,8 @@ def check_consistency(tag: str) -> dict:
         per_step = read_counts()
         if per_step != dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": DISTILL_FWD,
                                                     "linear_attention_bwd": DISTILL_BWD,
-                                                    "fused_adam_ema": 1}:
+                                                    "fused_adam_ema": 1,
+                                                    "group_norm_silu": 2 * GN_PIXEL}:
             raise AssertionError(f"a replayed distill step launched {per_step}")
         print(f"one replayed distill step launches: {per_step}")
 
@@ -2350,7 +2563,8 @@ def check_consistency(tag: str) -> dict:
                                    "--weights", student, "--device", "cuda",
                                    "--out", os.path.join(d, "x.npy")])
             counts_k = read_counts()
-            want_k = dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": 8 * (k + WARMUP_STEPS)}
+            want_k = dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": 8 * (k + WARMUP_STEPS),
+                                                  "group_norm_silu": GN_PIXEL * (k + WARMUP_STEPS)}
             print(f"generate --sampler consistency {k} steps B=10 bf16: {10 / g.seconds:.3f} "
                   f"img/s ({g.seconds:.3f} s, warm-up and capture {g.capture_seconds:.3f} s); "
                   f"launches {counts_k} (want {want_k}); the forward kernel saw batches "
@@ -2395,6 +2609,7 @@ def check_consistency(tag: str) -> dict:
         if not all(checks.values()):
             raise AssertionError(f"consistency serving checks failed: {checks}")
         out["serving"] = {**sat, "launches": served["counts"]["linear_attention_fwd"],
+                          "gn_launches": served["counts"]["group_norm_silu"],
                           "light_p50_s": served["light_p50_s"]}
         out["graphs_check"] = check_distill_graphs(cfg, teacher)
     return out
@@ -2423,9 +2638,13 @@ def check_latent(tag: str, keep_dir: str) -> dict:
               f"epochs at B={TRAIN_B} bf16 in {ae_s:.1f} s, steps {at.step_counts}; train loss "
               f"{hist['train_loss']}, val loss {hist['val_loss']}; launches {counts} (the VAE "
               f"runs no attention kernel; one optimizer pass a step) [{tag}]")
+        # the GroupNorm pass in the VAE's validation batches and the epoch-0
+        # reconstruction grid, each an encode and a decode; none in its steps
+        ae_gn = (GN_VAE_ENC + GN_VAE_DEC) * (2 * len(at.val_loader) + 1)
         if (at.state.step != 18 or not np.isfinite(hist["train_loss"] + hist["val_loss"]).all()
                 or not os.path.isfile(ae_pt)
-                or counts != dict.fromkeys(COUNTED, 0) | {"fused_adam_ema": 18}
+                or counts != dict.fromkeys(COUNTED, 0) | {"fused_adam_ema": 18,
+                                                          "group_norm_silu": ae_gn}
                 or at.step_counts != {"graphed": 18 - WARMUP_STEPS, "eager": WARMUP_STEPS}):
             raise AssertionError(f"train_autoencoder: {at.step_counts}, {hist}, {counts}")
         shutil.copy(ae_pt, os.path.join(keep_dir, "autoencoder.pt"))
@@ -2447,9 +2666,14 @@ def check_latent(tag: str, keep_dir: str) -> dict:
         steps = tr.state.step
         val_batches = len(tr.val_loader)
         blocks = len(tr.model.lin_attn_blocks())
+        # the GroupNorm pass: the VAE's encode in every step (outside autograd),
+        # the scale's calibration (one encode), and a validation batch's encode
+        # and two UNet forwards
         want = dict.fromkeys(COUNTED, 0) | {
             "linear_attention_fwd": blocks * steps + 2 * blocks * val_batches * 2,
-            "linear_attention_bwd": blocks * steps, "fused_adam_ema": steps}
+            "linear_attention_bwd": blocks * steps, "fused_adam_ema": steps,
+            "group_norm_silu": GN_VAE_ENC * (steps + 1)
+            + 2 * val_batches * (GN_VAE_ENC + 2 * GN_LATENT)}
         factor = load_latent_scaling(ldm_cfg)
         print(f"train_latent: {LATENT_CONFIG} (latent UNet {sum(p.numel() for p in tr.model.parameters())}"
               f" parameters, {blocks} attention blocks at (16, 128), latents {tr.image_shape}), "
@@ -2469,7 +2693,8 @@ def check_latent(tag: str, keep_dir: str) -> dict:
         per_step = read_counts()
         if per_step != dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": 2,
                                                     "linear_attention_bwd": 2,
-                                                    "fused_adam_ema": 1}:
+                                                    "fused_adam_ema": 1,
+                                                    "group_norm_silu": GN_VAE_ENC}:
             raise AssertionError(f"a replayed latent train step launched {per_step}")
 
         def epoch():
@@ -2490,12 +2715,13 @@ def check_latent(tag: str, keep_dir: str) -> dict:
         # the T=1000 ancestral CFG sample at B=10 through the trainer, graphed
         # and eager; then an fp32 trajectory graphed vs eager on injected draws
         classes = list(range(10))
-        sample_counts = {}
+        sample_counts, sample_gn = {}, {}
         for graphs in (True, False):
             tr.graphs = graphs
             zero_counts()
             images = tr.sample(classes, cfg_scale=3.0)
             sample_counts[graphs] = read_counts()["linear_attention_fwd"]
+            sample_gn[graphs] = read_counts()["group_norm_silu"]
             if images.shape != (10, 32, 32, 3) or images.dtype != np.uint8:
                 raise AssertionError(f"latent sample {images.shape} {images.dtype}")
         tr.graphs = True
@@ -2503,8 +2729,13 @@ def check_latent(tag: str, keep_dir: str) -> dict:
         print(f"latent T={t_steps} ancestral CFG sample B=10: forward launches graphed "
               f"{sample_counts[True]} (want {blocks} x ({t_steps} + {WARMUP_STEPS})), eager "
               f"{sample_counts[False]} (want {blocks} x {t_steps}); decoded images (10, 32, 32, 3)")
+        print(f"latent sampler GroupNorm pass launches graphed {sample_gn[True]}, eager "
+              f"{sample_gn[False]} (want {GN_LATENT} a step and {GN_VAE_DEC} for the decode)")
         if sample_counts != {True: blocks * (t_steps + WARMUP_STEPS), False: blocks * t_steps}:
             raise AssertionError(f"latent sampler launches {sample_counts}")
+        if sample_gn != {True: GN_LATENT * (t_steps + WARMUP_STEPS) + GN_VAE_DEC,
+                         False: GN_LATENT * t_steps + GN_VAE_DEC}:
+            raise AssertionError(f"latent sampler GroupNorm pass launches {sample_gn}")
         cfg32 = dataclasses.replace(ldm_cfg, use_amp=False)
         m32 = build_model(cfg32, DEV).eval()
         m32.load_state_dict(tr.state.ema.state_dict(), strict=True)
@@ -2536,6 +2767,7 @@ def check_latent(tag: str, keep_dir: str) -> dict:
               f"replay); decoder convolutions whose bf16 algorithm made an image depend on its "
               f"batch position, run in fp32 on their bf16 values: {fp32_convs} [{tag}]")
         out["sample_counts"] = {"graphed": sample_counts[True], "eager": sample_counts[False]}
+        out["sample_gn_counts"] = {"graphed": sample_gn[True], "eager": sample_gn[False]}
         out["sample_per_step"] = sample_counts[True] // (t_steps + WARMUP_STEPS)  # exact: above
 
         ckpt = os.path.join(ldm_cfg.checkpoints, "diffusion_model_ema.pt")
@@ -2545,7 +2777,7 @@ def check_latent(tag: str, keep_dir: str) -> dict:
         with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
                                         allow_tf32=True):
             served = serve(ldm_cfg, ckpt, "ddim", 50, steps_ddim, tag, checks=True,
-                           blocks=blocks)
+                           blocks=blocks, norms=GN_LATENT, decode_norms=GN_VAE_DEC)
         alone = served["alone"]
         checks = {"alone == under load": np.array_equal(alone, served["under_load"]),
                   "alone == POST /generate npy": np.array_equal(alone, served["http"])}
@@ -2562,7 +2794,8 @@ def check_latent(tag: str, keep_dir: str) -> dict:
               f"{sat['device_busy_share']:.4f} [{tag}]")
         if not all(checks.values()) or len(np.unique(alone)) < 50:
             raise AssertionError(f"latent serving checks failed: {checks}")
-        out["serving"] = {**sat, "launches": served["counts"]["linear_attention_fwd"]}
+        out["serving"] = {**sat, "launches": served["counts"]["linear_attention_fwd"],
+                          "gn_launches": served["counts"]["group_norm_silu"]}
 
         saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
         try:
@@ -2602,15 +2835,23 @@ def run_latent_protocol(workdir: str, ae_ckpt: str, tag: str) -> dict:
     val_batches = (PROTOCOL_SIZE // 2 - n_train) // config.batch_size  # the last one dropped
     chunks = -(-10 * PROTOCOL_PER_CLASS // SAMPLE_B)
     zero = {"linear_attention_block": 0, "linear_attention_block_bwd": 0, "resnet_block": 0,
-            "fused_adam_ema": 0}
+            "fused_adam_ema": 0, "group_norm_silu": 0}
     want = {phase: dict(zero) for phase in ["A", "C", "C_broken"] + PROTOCOL_EXPS}
+    # the GroupNorm pass: the VAE's encode in each train step and validation
+    # batch, a validation batch's two UNet forwards, Phase C's sampler steps
+    # and one decode a chunk
     want["A"].update(linear_attention_block=2 * steps + 4 * val_batches,
-                     linear_attention_block_bwd=2 * steps, fused_adam_ema=steps)
+                     linear_attention_block_bwd=2 * steps, fused_adam_ema=steps,
+                     group_norm_silu=GN_VAE_ENC * steps
+                     + val_batches * (GN_VAE_ENC + 2 * GN_LATENT))
     for name, n in classifier_steps(n_train, 10 * PROTOCOL_PER_CLASS,
                                     config.batch_size).items():
         want[name]["fused_adam_ema"] = n
     want["C"]["linear_attention_block"] = 2 * (chunks * t_steps + WARMUP_STEPS)
     want["C_broken"]["linear_attention_block"] = 2 * chunks * t_steps
+    want["C"]["group_norm_silu"] = (GN_LATENT * (chunks * t_steps + WARMUP_STEPS)
+                                    + GN_VAE_DEC * chunks)
+    want["C_broken"]["group_norm_silu"] = GN_LATENT * chunks * t_steps + GN_VAE_DEC * chunks
     print(f"latent protocol: {type(dt).__name__} over {dt.image_shape} latents, Phase C "
           f"ancestral-{t_steps}, {wall:.1f} s in all; kernel launches in the run: {counts}")
     print("latent wall seconds by phase: "
@@ -2974,11 +3215,13 @@ def check_mesh_serving(config, tag: str) -> dict:
             counts, batches = read_counts(), svc.stats().batches
             replicas = len(svc.devices)
             want = 8 * replicas * (steps * batches + WARMUP_STEPS)
+            want_gn = GN_PIXEL * replicas * (steps * batches + WARMUP_STEPS)
             images[name] = (alone, loaded)
             print(f"  {name}: {replicas} replica(s), {batches} batches of {b}; forward "
                   f"launches {counts['linear_attention_fwd']} (want {want}); 512 images from 16 "
                   f"requests of 32 at once: {img_s:.2f} img/s [{tag}]")
-            if counts != dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": want}:
+            if counts != dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": want,
+                                                      "group_norm_silu": want_gn}:
                 raise AssertionError(f"{name} service launched {counts}")
             out[name] = {"launches": counts["linear_attention_fwd"], "batches": batches,
                          "img_s_512": img_s}
@@ -3413,7 +3656,8 @@ def check_pp_payload(config) -> dict:
           f"{out['payload_equal']}; launches of the staged pass {counts}")
     if not (out["staged_equal"] and out["payload_equal"]):
         raise AssertionError("the staged UNet or the payload changed the bits")
-    if counts != dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": 2 * PP_SITES}:
+    if counts != dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": 2 * PP_SITES,
+                                              "group_norm_silu": GN_PIXEL}:
         raise AssertionError(f"the staged pass launched {counts}")
     return out
 
@@ -3605,8 +3849,9 @@ def check_workflow(tag: str, vae_pt: str) -> dict:
                            "32", "--out", os.path.join(workdir, "tree.npy")])
         seconds["generate"] = time.perf_counter() - t0
         counts = read_counts()
-        want = dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": 8 * (ddim_steps
-                                                                         + WARMUP_STEPS)}
+        want = dict.fromkeys(COUNTED, 0) | {
+            "linear_attention_fwd": 8 * (ddim_steps + WARMUP_STEPS),
+            "group_norm_silu": GN_PIXEL * (ddim_steps + WARMUP_STEPS)}
         back = load_image_folder(config.results, config.data.image_size)
         # the reader's order: class directories, then file names, as strings
         order = sorted(range(len(g.paths)), key=lambda i: g.paths[i].split(os.sep)[-2:])
@@ -3639,7 +3884,8 @@ def check_workflow(tag: str, vae_pt: str) -> dict:
         if not all(ok.values()):
             raise AssertionError(f"generate from the checkpoint: {ok}")
         out["generate"] = {"seconds": g.seconds, "capture_seconds": g.capture_seconds,
-                           "launches": counts["linear_attention_fwd"]}
+                           "launches": counts["linear_attention_fwd"],
+                           "gn_launches": counts["group_norm_silu"]}
 
         # (c) the classifier on the tree
         clf_path = write_config(os.path.join(workdir, "clf.json"), FLAGSHIP,
@@ -3721,7 +3967,7 @@ RES64 = "configs/protocol_hard_64.yaml"
 RES64_SIZE, RES64_N_FID, RES64_VAL_BATCHES = 2560, 128, 4  # 256 validation images of 64
 RES_SP_SIZES, RES_SP_CHECK = (32, 64, 128), (64,)
 FWD_BWD_ADAM = {"linear_attention_fwd": 8, "linear_attention_bwd": 8, "resnet_block_fwd": 0,
-                "fused_adam_ema": 1}  # a train step's launches
+                "fused_adam_ema": 1, "group_norm_silu": 0}  # a train step's launches
 
 
 def res64_launches(steps: int, batches: int, warm: bool) -> dict:
@@ -3730,16 +3976,18 @@ def res64_launches(steps: int, batches: int, warm: bool) -> dict:
     step; the classifier no attention and one pass a step (an epoch of
     ``RES64_SIZE // 64`` steps); Phase C 8 a sampler step over ``batches``
     batches (one more with ``warm``) plus the 3 eager warm-up steps of the
-    one capture."""
+    one capture; the GroupNorm pass GN_PIXEL a forward outside autograd."""
     zero = dict.fromkeys(FWD_BWD_ADAM, 0)
     n = batches + int(warm)
-    c = {f"C_{name}": zero | {"linear_attention_fwd": 8 * (k * n + WARMUP_STEPS)}
+    c = {f"C_{name}": zero | {"linear_attention_fwd": 8 * (k * n + WARMUP_STEPS),
+                              "group_norm_silu": GN_PIXEL * (k * n + WARMUP_STEPS)}
          for name, k in (("ddpm400", T_STEPS), ("ddim50", 50))}
     if warm:
         return c
     return c | {"A": {"linear_attention_fwd": 8 * steps + 16 * RES64_VAL_BATCHES,
                       "linear_attention_bwd": 8 * steps, "resnet_block_fwd": 0,
-                      "fused_adam_ema": steps},
+                      "fused_adam_ema": steps,
+                      "group_norm_silu": GN_PIXEL * 2 * RES64_VAL_BATCHES},
                 "B": zero | {"fused_adam_ema": RES64_SIZE // 64}}
 
 
@@ -4159,7 +4407,8 @@ def check_bench(config, sampler_device_ms: float, train_graphed_ms: float, tag: 
     count = flops.sampler_flops_per_img_step(build_model(config))
     want_mfu = count * bench.T * line["value"] / flops.H100_SXM_BF16_PEAK_FLOPS
     zero = dict.fromkeys(KERNELS, 0.0)
-    want_launches = {"sampler_b64": zero | {"linear_attention_fwd": 8.0 * bench.T},
+    want_launches = {"sampler_b64": zero | {"linear_attention_fwd": 8.0 * bench.T,
+                                            "group_norm_silu": float(GN_PIXEL * bench.T)},
                      "train_step": zero | {"linear_attention_fwd": 8.0,
                                            "linear_attention_bwd": 8.0,
                                            "fused_adam_ema": 1.0}}
@@ -4235,6 +4484,10 @@ def main(argv=None) -> None:
 
     phase("3 forward kernel vs plain")
     kernel = check_kernel(tag)
+
+    phase("3b the GroupNorm (+ SiLU) pass vs plain at every norm site of the pixel UNet, the "
+          "latent UNet and the VAE")
+    gnorm = check_group_norm(tag)
 
     phase("4 backward kernels vs plain")
     bwd = check_bwd_kernel(tag)
@@ -4568,6 +4821,48 @@ def main(argv=None) -> None:
         "ms_by_stage": {r["stage"]: r["ms"] for r in rows7},
         "timed": "stage 6 (the whole block), (1024, 64), 2B=128, bf16; kernel and plain "
                  "version both by CUDA-graph replay",
+    }, {
+        "name": "group_norm_silu",
+        "route": "cuda",
+        "source": "ldm_tpu_torch/csrc/group_norm_silu.cu",
+        "replaces": None,
+        "replaces_kind": "no pl.pallas_call: the JAX package leaves GroupNorm and SiLU to XLA",
+        "launches": sample_counts["group_norm_silu"],
+        "launches_by_path": {"sample": sample_counts["group_norm_silu"],
+                             "train": train_counts["group_norm_silu"],
+                             "sample_ddim": requests["ddim"]["counts"]["group_norm_silu"],
+                             "sample_dpmpp": requests["dpmpp"]["counts"]["group_norm_silu"],
+                             "serve_ddim": serving["ddim"]["gn_launches"],
+                             "serve_dpmpp": serving["dpmpp"]["gn_launches"],
+                             "protocol_pixel": protocol["pixel"]["counts"]["group_norm_silu"],
+                             "protocol_flow": protocol["flow"]["counts"]["group_norm_silu"],
+                             "distill": consistency["run_counts"]["group_norm_silu"],
+                             "serve_consistency_2": consistency["serving"]["gn_launches"],
+                             "train_latent": latent["train_counts"]["group_norm_silu"],
+                             "sample_latent": latent["sample_gn_counts"]["graphed"],
+                             "serve_latent_ddim": latent["serving"]["gn_launches"],
+                             "protocol_latent": latent["protocol"]["counts"]["group_norm_silu"],
+                             "workflow_generate_ddim50_b320":
+                                 workflow["generate"]["gn_launches"],
+                             "drill_mnist": drill["counts"]["group_norm_silu"],
+                             **res_launches("group_norm_silu")},
+        "launches_per_step": {**per_step("group_norm_silu"),
+                              "distill": consistency["per_step"]["group_norm_silu"],
+                              "latent_train": latent["train_per_step"]["group_norm_silu"],
+                              **res_per_step("group_norm_silu")},
+        "max_spacings": gnorm["max_spacings"],
+        "err_unit": "bf16 spacings at the larger magnitude (no less than 2^-6): the norm from "
+                    "the plain chain's, the SiLU from F.silu of the kernel's own norm, and from "
+                    "the plain chain's SiLU",
+        **{k: gnorm[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_bytes",
+                                 "bound_flops")},
+        "bound_peaks": "3.35 TB/s (H100 SXM at 700 W)",
+        "library_ms": None,
+        "library": "no single PyTorch call takes bf16 channels_last to bf16 channels_last with "
+                   "fp32 statistics; plain_ms is the model layer's chain before the pass",
+        "rows": gnorm["rows"],
+        "timed": "the pixel UNet's 23 norms of a sampler step at 2B=256, bf16, each site's "
+                 "time by CUDA-graph replay times its calls; the plain chain likewise",
     }, {
         "name": "fused_adam_ema",
         "route": "cuda",

@@ -18,8 +18,11 @@ NCHW tensor.  Parameters stay fp32 and are cast to the compute ``dtype`` at
 each use; GroupNorm(min(32, C), eps 1e-6) keeps its statistics in fp32; the
 attention's logits are scaled and put through softmax in fp32; the moments,
 the latents and the decoder's output are fp32, at the JAX package's points.
-Every convolution, norm and the attention are plain PyTorch (cuDNN and
-matmuls on a card), as they are plain XLA in the JAX package.  Outside
+Every convolution and the attention are plain PyTorch (cuDNN and matmuls
+on a card), as they are plain XLA in the JAX package; a norm, with the SiLU
+after it where one follows, is the model layer's (``models/unet.py::
+GroupNorm``: one hand-written pass for bf16 on a card outside autograd, the
+plain chain elsewhere).  Outside
 autograd a decoder convolution whose bf16 algorithm makes an image depend
 on its position in the batch runs in fp32 on its bf16 values, under cuDNN
 flags of its own (:class:`DecoderConv2d`).
@@ -108,8 +111,8 @@ class ResnetBlock(nn.Module):
                              if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv1(self.norm1.forward_silu(x))
+        h = self.conv2(self.norm2.forward_silu(h))
         if self.nin_shortcut is not None:
             x = self.nin_shortcut(x)
         return x + h
@@ -217,7 +220,7 @@ class Encoder(nn.Module):
         for level in self.down:
             x = _run_level(level, "downsample", x)
         x = self.mid(x)
-        return self.conv_out(F.silu(self.norm_out(x)))
+        return self.conv_out(self.norm_out.forward_silu(x))
 
 
 class Decoder(nn.Module):
@@ -246,7 +249,7 @@ class Decoder(nn.Module):
         x = self.mid(self.conv_in(z))
         for i in reversed(range(len(self.up))):
             x = _run_level(self.up[i], "upsample", x)
-        return self.conv_out(F.silu(self.norm_out(x))).to(torch.float32)
+        return self.conv_out(self.norm_out.forward_silu(x)).to(torch.float32)
 
 
 class Autoencoder(nn.Module):

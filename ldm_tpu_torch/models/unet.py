@@ -33,14 +33,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ldm_tpu_torch.ops.collectives import copy_to_model, reduce_from_model
+from ldm_tpu_torch.ops.group_norm import group_norm_silu, group_norm_silu_torch, takes_kernel
 from ldm_tpu_torch.ops.linear_attention import (
     KernelWeights,
     linear_attention_block,
     linear_attention_block_torch,
     make_kernel_weights,
 )
-
-_CL = torch.channels_last
 
 
 class Linear(nn.Linear):
@@ -70,11 +69,22 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
 class GroupNorm(nn.GroupNorm):
     """GroupNorm with fp32 statistics and affine, output in the input's dtype
-    and in channels_last (flax nn.GroupNorm with ``dtype=``)."""
+    and in channels_last (flax nn.GroupNorm with ``dtype=``).
+
+    A bf16 CUDA input outside autograd takes the one-pass kernel
+    (``ops/group_norm.py``), and :meth:`forward_silu` the SiLU after the norm
+    in the same pass; everything else the plain chain."""
+
+    def _norm(self, x: torch.Tensor, silu: bool) -> torch.Tensor:
+        op = group_norm_silu if takes_kernel(x) else group_norm_silu_torch
+        return op(x, self.weight, self.bias, self.num_groups, self.eps, silu)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
-        return y.to(x.dtype, memory_format=_CL)
+        return self._norm(x, silu=False)
+
+    def forward_silu(self, x: torch.Tensor) -> torch.Tensor:
+        """``F.silu(self(x))``."""
+        return self._norm(x, silu=True)
 
 
 class SinusoidalPosEmb(nn.Module):
@@ -120,7 +130,7 @@ class Block(nn.Module):
         self.conv2d = Conv2d(dim, dim_out, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv2d(F.silu(self.norm(x)))
+        return self.conv2d(self.norm.forward_silu(x))
 
 
 class ResNetBlock(nn.Module):
@@ -308,6 +318,15 @@ class LinAttnBlock(Residual):
             compute_dtype=x.dtype, **kw,
         )
         return y.view(b, hh, ww, c).permute(0, 3, 1, 2)
+
+
+def group_norm_calls(model: nn.Module) -> int:
+    """The GroupNorm modules one forward of ``model`` calls: every one but the
+    pre-norms of the linear-attention blocks, which the attention op
+    computes itself."""
+    inside = {id(m) for block in model.modules() if isinstance(block, LinAttnBlock)
+              for m in block.modules()}
+    return sum(isinstance(m, GroupNorm) and id(m) not in inside for m in model.modules())
 
 
 class UNet(nn.Module):

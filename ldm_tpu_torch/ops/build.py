@@ -167,8 +167,13 @@ def load() -> types.SimpleNamespace:
     adam_leaves = libs["fused_adam_ema.cu"].ldm_fused_adam_ema_leaves
     adam_leaves.argtypes = []
     adam_leaves.restype = i
+    gn = libs["group_norm_silu.cu"].ldm_group_norm_silu
+    # x, gamma, beta, y, B, H*W, C, G, eps, silu, plan (host ints), stream
+    gn.argtypes = [p] * 4 + [i] * 4 + [f, i, ctypes.POINTER(ctypes.c_int), p]
+    gn.restype = i
     return types.SimpleNamespace(ldm_lin_attn_fwd=fwd, ldm_lin_attn_fwd_stage=stage,
                                  ldm_lin_attn_bwd=bwd, ldm_lin_attn_bwd_splits=splits,
                                  ldm_resnet_block_fwd=rb, ldm_resnet_block_probe=rb_probe,
                                  ldm_fused_adam_ema=adam,
-                                 ldm_fused_adam_ema_leaves=adam_leaves)
+                                 ldm_fused_adam_ema_leaves=adam_leaves,
+                                 ldm_group_norm_silu=gn)

@@ -31,13 +31,15 @@ import torch
 from ldm_tpu_torch.ops import linear_attention as la
 from ldm_tpu_torch.ops import resnet_block as rb
 from ldm_tpu_torch.ops.fused_adam_ema import fused_adam_ema
+from ldm_tpu_torch.ops.group_norm import group_norm_silu
 
 # every kernel wrapper that counts its launches in a ``launches`` attribute,
 # by the kernel's name in the results
 KERNELS = {"linear_attention_fwd": la.linear_attention_block,
            "linear_attention_bwd": la.linear_attention_block_bwd,
            "resnet_block_fwd": rb.resnet_block,
-           "fused_adam_ema": fused_adam_ema}
+           "fused_adam_ema": fused_adam_ema,
+           "group_norm_silu": group_norm_silu}
 COUNTED = tuple(KERNELS.values())
 WARMUP_STEPS = 3
 

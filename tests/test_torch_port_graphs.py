@@ -163,9 +163,10 @@ def test_graph_wrapper_counts_every_kernel_wrapper():
     wrapper that counts launches: the list names them all."""
     from ldm_tpu_torch.ops import resnet_block as rb
     from ldm_tpu_torch.ops.fused_adam_ema import fused_adam_ema
+    from ldm_tpu_torch.ops.group_norm import group_norm_silu
 
     assert set(graphs.COUNTED) == {la.linear_attention_block, la.linear_attention_block_bwd,
-                                   rb.resnet_block, fused_adam_ema}
+                                   rb.resnet_block, fused_adam_ema, group_norm_silu}
     assert all(isinstance(f.launches, int) for f in graphs.COUNTED)
 
 
