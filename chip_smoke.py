@@ -46,7 +46,10 @@ failure raises and exits nonzero:
    2^-6), the SiLU within one of F.silu of the kernel's own norm; reruns
    bit-identical, an item the same bits at another batch slot and size;
    timed at 2B=256 by CUDA-graph replay beside the bytes bound and the plain
-   chain, with the pixel UNet's sampler step summed.
+   chain, with the pixel UNet's sampler step summed; then at every norm site
+   of Stable Diffusion 2.1's U-Net (2B = 16, 96x96 latents) and of its
+   decoder at 768 px (B = 8), each held against the plain chain and timed
+   beside the bound and the chain, naming any shape where the pass is slower.
 4. backward kernels vs plain: the 8 sites at B=64, the 64px sites at
    B=4 and B=64 (probe 39's train step), the 128px site (16384, 64) at B=2
    (the tiled path, 8 CTAs of 2,048 rows), the 128px UNet's four sites at
@@ -968,6 +971,86 @@ def check_group_norm(tag: str) -> dict:
           f"chain {step_plain:.4f} ms [{tag}]; phase {time.perf_counter() - t0:.1f} s")
     return {"ms": step_ms, "plain_ms": step_plain, **total, "rows": rows,
             "max_spacings": worst, "calls": {k: sum(v.values()) for k, v in sites.items()}}
+
+
+SD_CONFIG = "configs/sd21_v_768.yaml"
+SD_BATCHES = {"unet": 16, "decoder": 8}  # the text-to-image cell's 2B and its decode's B
+
+
+def gn_sd_sites() -> dict:
+    """The norm sites of Stable Diffusion 2.1's U-Net at its 96x96 latents
+    and of its VAE's decoder at 768 px, recorded from a forward of each on
+    the card at published widths."""
+    from ldm_tpu_torch.models import autoencoder as ae_module
+
+    config = load_config(SD_CONFIG)
+    p, ap = config.model.params, config.autoencoder.params
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = build_model(config, device=DEV).eval()
+        x = torch.zeros(1, 96, 96, p["in_channels"], device=DEV)
+        ctx = torch.zeros(1, 77, p["context_dim"], device=DEV)
+        t = torch.zeros(1, dtype=torch.long, device=DEV)
+        sites = {"unet": norm_sites(model, lambda: model(x, t, ctx))}
+        del model
+        vae = ae_module.Autoencoder(**ap, dtype=torch.bfloat16, device=DEV).eval()
+        z = torch.zeros(1, 96, 96, ap["z_channels"], device=DEV)
+        sites["decoder"] = norm_sites(vae, lambda: vae.decode(z))
+        del vae
+    torch.cuda.empty_cache()
+    return sites
+
+
+def check_group_norm_sd(tag: str) -> dict:
+    """Phase 3b at Stable Diffusion's shapes: at every norm site of its U-Net
+    (2B = 16) and of its decoder at 768 px (B = 8), the pass against the
+    plain chain (the norm within one bf16 spacing, the SiLU within one of
+    ``F.silu`` of its own norm) and both timed by CUDA-graph replay beside
+    the bytes bound; a shape where the pass is slower than the chain is
+    named.  The sums are a sampler step's and a decode's norms."""
+    t0 = time.perf_counter()
+    sites = gn_sd_sites()
+    out = {}
+    for model, seen in sites.items():
+        b = SD_BATCHES[model]
+        ms_sum = plain_sum = bound_sum = 0.0
+        loses = []
+        for (hw, c, groups, eps, silu), n in sorted(seen.items()):
+            plan = gn.plan_group_norm(hw, c, groups)
+            x, w, bias = gn_inputs(b, hw, c, seed=hw + c + groups)
+            got = gn.group_norm_silu(x, w, bias, groups, eps, silu)
+            norm_k = gn.group_norm_silu(x, w, bias, groups, eps, False)
+            norm_p = gn.group_norm_silu_torch(x, w, bias, groups, eps, False)
+            d_norm = bf16_spacings(norm_k, norm_p).max().item()
+            d_silu = bf16_spacings(got, F.silu(norm_k)).max().item() if silu else 0.0
+            del got, norm_k, norm_p
+            if d_norm > 1 or d_silu > 1:
+                raise AssertionError(f"GroupNorm kernel at {hw, c, groups, eps} B={b}: {d_norm} "
+                                     f"spacings from the plain norm, {d_silu} from F.silu")
+            iters = 5 if b * hw * c > 1 << 26 else 20
+            ms = cuda_graph_ms(lambda: gn.group_norm_silu(x, w, bias, groups, eps, silu),
+                               iters=iters)
+            plain = cuda_graph_ms(
+                lambda: gn.group_norm_silu_torch(x, w, bias, groups, eps, silu), iters=iters)
+            bd = bound(4 * b * hw * c + 8 * c, 0.0)["bound_ms"]
+            ms_sum, plain_sum, bound_sum = ms_sum + n * ms, plain_sum + n * plain, \
+                bound_sum + n * bd
+            if ms > plain:
+                loses.append((hw, c, groups))
+            print(f"time group_norm_silu SD {model} (H*W={hw}, C={c}, G={groups}, eps={eps:g}, "
+                  f"silu={silu}, {n} a forward) B={b}: kernel {ms:.4f} ms, bound {bd:.4f} ms, "
+                  f"kernel/bound {ms / bd:.2f}, plain chain {plain:.4f} ms"
+                  f"{' (the pass loses)' if ms > plain else ''}; plan {plan._asdict()}; "
+                  f"{d_norm:.3f} / {d_silu:.3f} spacings [{tag}]")
+            del x, w, bias
+            torch.cuda.empty_cache()
+        print(f"time group_norm_silu SD {model}, its {sum(seen.values())} norms at B={b}: "
+              f"kernel {ms_sum:.4f} ms, bound {bound_sum:.4f} ms, plain chain {plain_sum:.4f} ms; "
+              f"the pass loses at {loses or 'no shape'} [{tag}]")
+        out[model] = {"ms": ms_sum, "plain_ms": plain_sum, "bound_ms": bound_sum,
+                      "loses": loses, "calls": sum(seen.values())}
+    print(f"phase 3b SD {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def check_unet_grads(config) -> None:
@@ -4488,6 +4571,7 @@ def main(argv=None) -> None:
     phase("3b the GroupNorm (+ SiLU) pass vs plain at every norm site of the pixel UNet, the "
           "latent UNet and the VAE")
     gnorm = check_group_norm(tag)
+    gnorm_sd = check_group_norm_sd(tag)
 
     phase("4 backward kernels vs plain")
     bwd = check_bwd_kernel(tag)
@@ -4863,6 +4947,7 @@ def main(argv=None) -> None:
         "rows": gnorm["rows"],
         "timed": "the pixel UNet's 23 norms of a sampler step at 2B=256, bf16, each site's "
                  "time by CUDA-graph replay times its calls; the plain chain likewise",
+        "sd": gnorm_sd,
     }, {
         "name": "fused_adam_ema",
         "route": "cuda",

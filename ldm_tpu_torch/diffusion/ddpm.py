@@ -28,6 +28,7 @@ from ldm_tpu_torch.diffusion.sampling import (
     Method,
     ModelFn as EpsModelFn,
     NoiseFn,
+    NullCond,
     PredictFn,
     SamplingProcess,
 )
@@ -39,12 +40,27 @@ def gather(a: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return a[t].reshape(-1, 1, 1, 1)
 
 
+PARAMETERIZATIONS = ("eps", "v")
+
+
 class GaussianDiffusion(SamplingProcess):
-    """DDPM process with a linear (or sqrt-linear) beta schedule."""
+    """DDPM process with a linear (or sqrt-linear) beta schedule.
+
+    ``parameterization``: what the model predicts.  "eps" (the default) is
+    the noise; "v" is v = sqrt(abar) eps - sqrt(1 - abar) x_0 (Salimans and
+    Ho 2022, Stable Diffusion 2.x's 768-v models), from which a sampler
+    step takes eps = sqrt(abar) v + sqrt(1 - abar) x_t and
+    x_0 = sqrt(abar) x_t - sqrt(1 - abar) v, after the guidance; the
+    training target is then v."""
 
     def __init__(self, n_steps: int, n_samples: int = 1, schedule: str = "linear",
-                 beta_start: float = 1e-4, beta_end: float = 0.02, device=None):
+                 beta_start: float = 1e-4, beta_end: float = 0.02, device=None,
+                 parameterization: str = "eps"):
         super().__init__()
+        if parameterization not in PARAMETERIZATIONS:
+            raise ValueError(f"parameterization must be one of {PARAMETERIZATIONS}, "
+                             f"got {parameterization!r}")
+        self.parameterization = parameterization
         self.n_steps = int(n_steps)
         self.n_samples = int(n_samples)
         self.schedule = DiffusionSchedule.make(
@@ -78,9 +94,22 @@ class GaussianDiffusion(SamplingProcess):
 
     def noised(self, x0: torch.Tensor, t: torch.Tensor, eps: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """(target eps, x_t, the model's time input t) for drawn ``t`` and
-        ``eps``: the part of :meth:`noise_batch` after the draws."""
-        return eps, self.q_sample(x0, t, eps), t
+        """(the target, x_t, the model's time input t) for drawn ``t`` and
+        ``eps``: the part of :meth:`noise_batch` after the draws.  The target
+        is eps, or v under the "v" parameterization."""
+        xt = self.q_sample(x0, t, eps)
+        if self.parameterization == "eps":
+            return eps, xt, t
+        ab = gather(self.schedule.alpha_bars, t)
+        return torch.sqrt(ab) * eps.to(xt.dtype) - torch.sqrt(1.0 - ab) * x0, xt, t
+
+    def from_v(self, xt: torch.Tensor, t: torch.Tensor, v: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(eps, x_0) of a v prediction at x_t and t, fp32."""
+        ab = gather(self.schedule.alpha_bars, t)
+        a, s = torch.sqrt(ab), torch.sqrt(1.0 - ab)
+        v = v.to(torch.float32)
+        return a * v + s * xt, a * xt - s * v
 
     def draw_t_eps(self, x0: torch.Tensor, t: Optional[torch.Tensor] = None,
                    eps: Optional[torch.Tensor] = None,
@@ -114,18 +143,21 @@ class GaussianDiffusion(SamplingProcess):
 
     def ddim_step(self, xt: torch.Tensor, t: torch.Tensor, t_prev: torch.Tensor,
                   eps_theta: torch.Tensor, noise: Optional[torch.Tensor],
-                  eta: float = 0.0) -> torch.Tensor:
+                  eta: float = 0.0, x0_pred: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
         """One DDIM update x_t -> x_{t_prev} (Song et al. 2021, eq. 12).
         ``t`` and ``t_prev`` are int (B,); ``t_prev < 0`` means "to x_0"
         (alpha_bar_prev == 1, where the noise scale vanishes).  ``eta`` is
         static; with ``eta == 0`` the update is deterministic and ``noise``
-        may be None."""
+        may be None.  ``x0_pred``: the x_0 that goes with ``eps_theta``
+        where the model gave it (a v prediction); else taken from eps."""
         s = self.schedule
         ab_t = gather(s.alpha_bars, t)
         ab_prev = torch.where(t_prev.reshape(-1, 1, 1, 1) >= 0,
                               gather(s.alpha_bars, t_prev.clamp_min(0)), 1.0)
         eps = eps_theta.to(torch.float32)
-        x0_pred = (xt - torch.sqrt(1.0 - ab_t) * eps) * torch.rsqrt(ab_t)
+        if x0_pred is None:
+            x0_pred = (xt - torch.sqrt(1.0 - ab_t) * eps) * torch.rsqrt(ab_t)
         sigma = eta * torch.sqrt(
             ((1.0 - ab_prev) / (1.0 - ab_t)).clamp_min(0.0)
             * (1.0 - ab_t / ab_prev).clamp_min(0.0)
@@ -139,18 +171,22 @@ class GaussianDiffusion(SamplingProcess):
                 carry: Sequence[torch.Tensor], z: Optional[torch.Tensor],
                 predict: PredictFn) -> Tuple[torch.Tensor, ...]:
         """One step of the ancestral, DDIM or DPM-Solver++ sampler: one (CFG)
-        noise prediction at the step's t, then the method's update."""
+        prediction at the step's t (eps, or v turned into eps and x_0), then
+        the method's update."""
         xt, t_vec = carry[0], rows[0]
-        eps = predict(xt, t_vec)
+        eps, x0 = predict(xt, t_vec), None
+        if self.parameterization == "v":
+            eps, x0 = self.from_v(xt, t_vec, eps)
         if method.name == "ddpm":
             return (self.p_sample(xt, t_vec, eps, z),)
         if method.name == "ddim":
             return (self.ddim_step(xt, t_vec, rows[1].expand(xt.shape[0]), eps, z,
-                                   method.eta),)
+                                   method.eta, x0),)
         # DPM-Solver++(2M): the data prediction, extrapolated by the previous one
         _, c_x, c_d, c2 = rows
-        ab_t = gather(self.schedule.alpha_bars, t_vec)
-        x0 = (xt - torch.sqrt(1.0 - ab_t) * eps.to(torch.float32)) * torch.rsqrt(ab_t)
+        if x0 is None:
+            ab_t = gather(self.schedule.alpha_bars, t_vec)
+            x0 = (xt - torch.sqrt(1.0 - ab_t) * eps.to(torch.float32)) * torch.rsqrt(ab_t)
         d = x0 + c2 * (x0 - carry[1])
         return (c_x * xt + c_d * d, x0)
 
@@ -161,7 +197,7 @@ class GaussianDiffusion(SamplingProcess):
         classes: torch.Tensor,
         image_shape: Tuple[int, int, int],
         cfg_scale: float = 3.0,
-        null_label: Optional[int] = None,
+        null_label: Optional[NullCond] = None,
         x_init: Optional[torch.Tensor] = None,
         noise: Optional[NoiseFn] = None,
         generator: Optional[torch.Generator] = None,
@@ -171,11 +207,15 @@ class GaussianDiffusion(SamplingProcess):
 
         Args:
           eps_model: ``(x, t, y) -> eps``, e.g. the UNet.
-          classes: int (B,) class labels on the sampling device.
+          classes: the condition on the sampling device: int (B,) class
+            labels, or a (B, ...) tensor such as a text encoder's contexts.
           image_shape: (H, W, C) — NHWC without the batch dim.
           cfg_scale: classifier-free guidance scale; <= 0 disables the uncond
             pass (conditional sampling without guidance).
-          null_label: label id that embeds to zero; required if cfg_scale > 0.
+          null_label: the unconditional pass's condition, required if
+            cfg_scale > 0: the label id that embeds to zero, or a tensor of
+            one item's condition (the empty prompt's context), broadcast
+            over the batch.
           x_init: x_T, (B, H, W, C) float32; drawn from ``generator`` if None.
           noise: t -> that step's N(0, I) draw; drawn from ``generator`` if None.
           generator: the source of whatever of x_T and noise is not given.
@@ -210,7 +250,7 @@ class GaussianDiffusion(SamplingProcess):
         n_sample_steps: int = 50,
         eta: float = 0.0,
         cfg_scale: float = 3.0,
-        null_label: Optional[int] = None,
+        null_label: Optional[NullCond] = None,
         x_init: Optional[torch.Tensor] = None,
         noise: Optional[NoiseFn] = None,
         generator: Optional[torch.Generator] = None,
@@ -282,7 +322,7 @@ class GaussianDiffusion(SamplingProcess):
         image_shape: Tuple[int, int, int],
         n_sample_steps: int = 15,
         cfg_scale: float = 3.0,
-        null_label: Optional[int] = None,
+        null_label: Optional[NullCond] = None,
         x_init: Optional[torch.Tensor] = None,
         order: int = 2,
         generator: Optional[torch.Generator] = None,

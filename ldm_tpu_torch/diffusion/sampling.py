@@ -37,10 +37,13 @@ import torch
 from ldm_tpu_torch.utils import profiling
 from ldm_tpu_torch.utils.graphs import StepGraph, use_graphs
 
-# the model: (x, t, y) -> its prediction (eps, or a flow's velocity).  `y` is
-# int (B,); the unconditional pass uses the model's null label
-# (UNet.null_label), which embeds to zero.
+# the model: (x, t, y) -> its prediction (eps, v, or a flow's velocity).  `y`
+# is int (B,) labels, or a (B, ...) condition such as a text encoder's
+# contexts; the unconditional pass uses the null condition: the model's null
+# label (UNet.null_label), which embeds to zero, or one item's condition
+# tensor (the empty prompt's context).
 ModelFn = Callable[..., torch.Tensor]
+NullCond = Union[int, torch.Tensor]
 # per-step noise: t -> the (B, H, W, C) N(0, I) draw for the step from t
 NoiseFn = Callable[[int], torch.Tensor]
 # one CFG prediction at (x, the (B,) timestep input): what an update calls
@@ -164,7 +167,7 @@ class SamplingProcess:
 
     def _loop(self, model: ModelFn, method: Method, classes: torch.Tensor,
               image_shape: Tuple[int, int, int], cfg_scale: float,
-              null_label: Optional[int], x_init: Optional[torch.Tensor],
+              null_label: Optional[NullCond], x_init: Optional[torch.Tensor],
               noise: Optional[NoiseFn], generator: Optional[torch.Generator],
               graph: Optional[bool]) -> torch.Tensor:
         """x_T, the CFG labels, then ``method``'s steps: eagerly or as a
@@ -182,7 +185,9 @@ class SamplingProcess:
         if use_cfg:
             if null_label is None:
                 raise ValueError("null_label is required when cfg_scale > 0")
-            y_in = torch.cat([classes, torch.full_like(classes, null_label)])
+            null = (null_label.to(device, classes.dtype).expand_as(classes)
+                    if torch.is_tensor(null_label) else torch.full_like(classes, null_label))
+            y_in = torch.cat([classes, null])
         else:
             y_in = classes
 

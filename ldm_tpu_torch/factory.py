@@ -37,21 +37,20 @@ def build_model(config: Config, device=None, **overrides):
 def build_diffusion(config: Config, device=None) -> SamplingProcess:
     """Instantiate the diffusion process from the ``diffusion:`` block
     (``GaussianDiffusion`` or ``RectifiedFlow``), with its tables on
-    ``device``."""
+    ``device``.  A ``parameterization`` in the model's params (what the
+    network predicts, where Stable Diffusion's configs keep it) goes to the
+    process too."""
     dc = config.diffusion
-    return instantiate_from_config(
-        {
-            "target": dc.target,
-            "params": {
-                "n_steps": dc.n_steps,
-                "n_samples": dc.n_samples,
-                "schedule": dc.schedule,
-                "beta_start": dc.beta_start,
-                "beta_end": dc.beta_end,
-            },
-        },
-        device=device,
-    )
+    params = {
+        "n_steps": dc.n_steps,
+        "n_samples": dc.n_samples,
+        "schedule": dc.schedule,
+        "beta_start": dc.beta_start,
+        "beta_end": dc.beta_end,
+    }
+    if "parameterization" in config.model.params:
+        params["parameterization"] = config.model.params["parameterization"]
+    return instantiate_from_config({"target": dc.target, "params": params}, device=device)
 
 
 def build_classifier(config: Config, img_channels: int, num_classes: int = 10, device=None):

@@ -2,7 +2,9 @@
 
 The YAML configs name the JAX package's classes; this map sends each to its
 PyTorch counterpart.  The reference's ``src.*`` names are aliases of them,
-as in ``ldm_tpu/registry.py``.  ``register`` adds a name to the map, and
+as in ``ldm_tpu/registry.py``.  A model the JAX package does not have goes
+by the class name its source config gives (Stable Diffusion 2.x's U-Net:
+``ldm.modules.diffusionmodules.openaimodel.UNetModel``).  ``register`` adds a name to the map, and
 ``resolve`` / ``instantiate_from_config`` read it as the JAX functions do.
 """
 
@@ -15,6 +17,7 @@ from ldm_tpu_torch.diffusion.flow import RectifiedFlow
 from ldm_tpu_torch.models.autoencoder import Autoencoder
 from ldm_tpu_torch.models.latent import LatentDiffusionModel
 from ldm_tpu_torch.models.resnet import ResNetBase
+from ldm_tpu_torch.models.sd_unet import SDUNet
 from ldm_tpu_torch.models.unet import UNet
 
 TARGETS: Dict[str, Callable[..., Any]] = {
@@ -24,6 +27,7 @@ TARGETS: Dict[str, Callable[..., Any]] = {
     "ldm_tpu.models.latent.LatentDiffusionModel": LatentDiffusionModel,
     "ldm_tpu.diffusion.ddpm.GaussianDiffusion": GaussianDiffusion,
     "ldm_tpu.diffusion.flow.RectifiedFlow": RectifiedFlow,
+    "ldm.modules.diffusionmodules.openaimodel.UNetModel": SDUNet,
 }
 # the reference's target strings
 TARGET_ALIASES: Dict[str, str] = {

@@ -29,11 +29,15 @@ over ``torch.profiler`` where the JAX package uses ``jax.profiler``).
   sampler.run    ``t_ns`` entered; ``steps``; ``launch_ns`` the host time of
                  the steps' launches (a graph's replay, or the eager step);
                  ``draw_ns`` of the steps' noise draws
+  sampler.decode ``t_ns`` entered; ``images``; ``host_ns`` the host time of
+                 the latent sampler's decode; ``events`` the CUDA timing
+                 events before and after it (empty on the CPU), read by
+                 :func:`event_ms` once the card has passed them
   ============== =============================================================
 
 * Host-only ranges (:func:`host_range`): while the profiler runs, the
-  sampler marks each step's ``sampler.draw`` and ``sampler.launch`` on its
-  timeline as ``cpu_op`` events, which the profiler keeps on the host (a
+  sampler marks each step's ``sampler.draw`` and ``sampler.launch``, and
+  the latent sampler its ``sampler.decode``, on its timeline as ``cpu_op`` events, which the profiler keeps on the host (a
   ``record_function`` annotation is copied onto the card's timeline too,
   where it reads as device work).  A profiler records the ranges of the
   thread that started it: the caller's sampling loop, not a service's
@@ -91,6 +95,14 @@ class Recorder:
 RECORDER = Recorder()
 record = RECORDER.add
 records = RECORDER.records
+
+
+def event_ms(events) -> Optional[float]:
+    """The card's ms between a record's (start, end) CUDA timing events;
+    None without events or before the card has passed the end."""
+    if len(events) != 2 or not events[1].query():
+        return None
+    return events[0].elapsed_time(events[1])
 
 
 def set_enabled(on: bool) -> None:

@@ -314,3 +314,33 @@ def test_plan_holds_the_flagship_items_in_registers():
 def test_plan_refuses_what_the_kernel_does_not_take(c, groups):
     with pytest.raises(ValueError, match="GroupNorm kernel"):
         gn.plan_group_norm(16, c, groups)
+
+
+# the plans at every norm site of the benchmark's four earlier cells (the
+# pixel UNet, the latent UNet and the VAE at the cifar10 configurations'
+# shapes), as the pass was tuned for them: GnPlan(cs, items, pi, k, kr,
+# threads, smem)
+FROZEN_PLANS = {
+    (4, 64, 1): (1, 4, 4, 1, 1, 128, 7200), (4, 64, 8): (1, 4, 4, 1, 1, 128, 7424),
+    (4, 512, 1): (1, 1, 4, 1, 1, 256, 14344), (4, 512, 8): (1, 1, 4, 1, 1, 256, 14400),
+    (16, 64, 8): (1, 1, 16, 1, 1, 128, 4928), (16, 128, 8): (1, 1, 16, 1, 1, 256, 9792),
+    (16, 256, 8): (1, 1, 8, 2, 2, 256, 11328), (16, 256, 32): (1, 1, 8, 2, 2, 256, 11520),
+    (16, 512, 8): (1, 1, 4, 4, 4, 256, 14400), (16, 512, 32): (1, 1, 4, 4, 4, 256, 14592),
+    (16, 768, 8): (1, 1, 2, 8, 8, 192, 15424), (64, 128, 8): (1, 1, 16, 4, 4, 256, 9792),
+    (64, 128, 32): (1, 1, 16, 4, 4, 256, 9984), (64, 256, 8): (1, 1, 8, 8, 8, 256, 11328),
+    (64, 256, 32): (1, 1, 8, 8, 8, 256, 11520), (64, 384, 8): (2, 1, 4, 8, 8, 192, 13888),
+    (64, 512, 32): (2, 1, 4, 8, 8, 256, 18688), (256, 64, 8): (1, 1, 32, 8, 8, 256, 9024),
+    (256, 64, 32): (1, 1, 32, 8, 8, 256, 9216), (256, 128, 8): (2, 1, 16, 8, 8, 256, 10816),
+    (256, 128, 32): (2, 1, 16, 8, 8, 256, 11008), (256, 192, 8): (4, 1, 8, 8, 8, 192, 10048),
+    (256, 256, 32): (4, 1, 8, 8, 8, 256, 13568), (1024, 64, 8): (4, 1, 32, 8, 8, 256, 9536),
+    (1024, 64, 32): (4, 1, 32, 8, 8, 256, 9728), (1024, 128, 8): (8, 1, 16, 8, 8, 256, 10816),
+    (1024, 128, 32): (8, 1, 16, 8, 8, 256, 11008),
+}
+
+
+def test_plans_at_the_earlier_cells_sites_are_unchanged():
+    """A plan for larger items (Stable Diffusion's) leaves every site of the
+    pixel and latent cells as it was."""
+    assert {s[:3] for s in ALL_SITES} == set(FROZEN_PLANS)
+    for (hw, c, g), plan in FROZEN_PLANS.items():
+        assert tuple(gn.plan_group_norm(hw, c, g)) == plan, (hw, c, g)
