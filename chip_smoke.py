@@ -32,12 +32,17 @@ failure raises and exits nonzero:
    batches phase 7l runs: the 128px UNet's four sites ((16384, 64), (4096,
    128), (1024, 256), (256, 512)) at B=8 and 128, the 64px sites at B=64
    and 2B=128; fp32 (<= 1e-4)
-   and bf16 (<= 3e-2 + one bf16 spacing of the output); each line names
-   the path its plan took (cluster: the item kept in shared memory; tiled:
-   through global scratch) and the CTAs an item; timed at 2B=128 bf16, the
-   kernel and the plain version alike by CUDA-graph replay (device time, no
-   host in it); the bound from the shapes; (16384, 64) alone at B=8 and
-   128.
+   and bf16 (<= 3e-2 + one bf16 spacing of the output); then the edges at
+   2B=20 and 21: N=16 at small and odd batches, the odd N that plan_fwd
+   takes (96, 100, 384), true widths below the 16-column step (120, 56),
+   and (1024, 64) and (16384, 64) at B=64; every case twice, bit for bit;
+   each line names the path its plan took (persistent: teams walking work
+   units; cluster: the item kept in shared memory; tiled: through global
+   scratch) and the CTAs an item; timed at 2B=128 and 2B=256
+   (the 8 sites and the latent UNet's (16, 64)) and at B=64 ((1024, 64),
+   (16384, 64)) bf16, the kernel and the plain version alike by CUDA-graph
+   replay (device time, no host in it), beside the bound from the shapes;
+   (16384, 64) alone at B=8 and 128.
 3b. the GroupNorm (+ SiLU) pass vs plain at every norm site of the pixel
    UNet, the latent UNet and the VAE (recorded from their forwards; 23 and
    11 calls a UNet forward) at 2B = 256, 128, 20 and B = 1, and the 64px
@@ -449,6 +454,16 @@ GN_PIXEL, GN_LATENT, GN_VAE_ENC, GN_VAE_DEC = 23, 11, 22, 30
 # the latent UNet's sites: configs/latent_diffusion_hard.yaml's 4x4 latents
 # at its 128 channels (both blocks), and the same grid at 64 channels
 LATENT_SITES = [("latent-c128", 16, 128), ("latent-c64", 16, 64)]
+# the forward's edges, at 2B=20 and an odd batch: N that splits unevenly
+# into tiles (96, 100 rows a CTA; 384: 4 CTAs of 96) and true widths below
+# the kernels' 16-column step on the persistent path
+EDGE_SITES = [("odd-96", 96, 64), ("odd-100", 100, 64), ("odd-384", 384, 64),
+              ("ctrue-120", 64, 120), ("ctrue-56", 1024, 56)]
+EDGE_B = (20, 21)
+# the shapes the forward is timed at beside 2B=128: the samplers' 2B=256
+# (the 8 sites and the latent UNet's), and B=64 at (1024, 64) and (16384, 64)
+TIME_256 = SITES + [LATENT_SITES[1]]
+TIME_B64 = [SITES[0], LARGE_SITES[4]]
 # |kernel - plain| <= atol + rtol * |plain|.  fp32: summation order only.
 # bf16: 3e-2 as tests/test_linear_attention_op.py allows, plus one bf16
 # spacing of the output (2^-7 |y|): y itself is bf16, spaced 2^-5 = 3.1e-2
@@ -511,6 +526,25 @@ OFF_PATH = ("resnet_block_fwd", "resnet_block_probe", "linear_attention_fwd_stag
 def zero_counts() -> None:
     for f in COUNTED.values():
         f.launches = 0
+    la.linear_attention_block.persistent_launches = 0
+
+
+def check_persistent(launches: int, b: int, sites, what: str) -> dict:
+    """``linear_attention_block.persistent_launches`` since the last
+    :func:`zero_counts`, after ``launches`` bf16 forward launches of a UNet
+    whose attention sites are ``sites``, each at batch ``b``: as many as the
+    plan sends down the persistent path, those sites a step.  Names the
+    sites that keep the cluster or tiled path."""
+    plans = [(site, la.plan_fwd(n, c, torch.bfloat16, b)) for site, n, c in sites]
+    kept = [f"{site} {plan.path}" for site, plan in plans if plan.path != "persistent"]
+    want = launches // len(sites) * (len(sites) - len(kept))
+    got = la.linear_attention_block.persistent_launches
+    print(f"{what}: {got} of {launches} forward launches on the persistent path (want "
+          f"{want}: {len(sites) - len(kept)} of {len(sites)} a step; {', '.join(kept) or 'none'} "
+          f"on another path at batch {b})")
+    if launches % len(sites) or got != want:
+        raise AssertionError(f"{what}: {got} persistent of {launches} launches, want {want}")
+    return {"persistent": got, "launches": launches, "other_path": kept}
 
 
 def read_counts() -> dict:
@@ -653,6 +687,8 @@ def check_kernel(tag: str) -> dict:
     cases += [(b, site) for b in (128, 2 * SAMPLE_B) for site in LATENT_SITES]
     cases += [(b, site) for b in PATH_128PX_B for site in SITES_128PX]
     cases += [(b, site) for b in PATH_64PX_B["fwd"] for site in LARGE_SITES[:4]]
+    cases += [(b, site) for b in EDGE_B for site in EDGE_SITES + LATENT_SITES + SITES[3:5]]
+    cases += [(TRAIN_B, site) for site in TIME_B64]
     for dtype in (torch.float32, torch.bfloat16):
         for b, (site, n, c) in cases:
             x, p = site_inputs(b, n, c, dtype, seed=b + n + c)
@@ -665,12 +701,13 @@ def check_kernel(tag: str) -> dict:
             err = diff.max().item()
             atol, rtol = TOL[dtype]
             excess = (diff - atol - rtol * want.float().abs()).max().item()
-            plan = la.plan_fwd(n, la.pad_width(c), dtype)
+            plan = la.plan_fwd(n, la.pad_width(c), dtype, b)
             paths.setdefault(plan.path, set()).add((n, c, str(dtype)[6:], plan.cs))
+            unit = f", {plan.teams} units an SM" if plan.path == "persistent" else ""
             print(f"kernel vs plain {site} (N={n}, C={c}) 2B={b} "
-                  f"{str(dtype)[6:]} [{plan.path} path, {plan.cs} CTAs an item, "
+                  f"{str(dtype)[6:]} [{plan.path} path, {plan.cs} CTAs an item{unit}, "
                   f"{plan.smem_bytes} B shared]: max_abs_err {err:.3e} "
-                  f"(tol {atol:g} + {rtol:g}|y|, excess {excess:.3e})")
+                  f"(tol {atol:g} + {rtol:g}|y|, excess {excess:.3e}; bit-identical rerun)")
             if not (torch.isfinite(got).all() and excess <= 0):
                 raise AssertionError(f"{site} 2B={b} {dtype}: err {err}")
             if not torch.equal(got, again):
@@ -679,29 +716,48 @@ def check_kernel(tag: str) -> dict:
 
     for path, shapes in sorted(paths.items()):
         print(f"forward {path} path took (N, C, type, CTAs an item): {sorted(shapes)}")
-    if set(paths) != {"cluster", "tiled"}:
+    if set(paths) != {"persistent", "cluster", "tiled"}:
         raise AssertionError(f"the shapes took only the paths {sorted(paths)}")
 
     ms = plain_ms = 0.0
     bounds = []
     for i, (site, n, c) in enumerate(SITES):
-        x, p = site_inputs(128, n, c, torch.bfloat16, seed=i)
-        kw_b = dict(kw, compute_dtype=torch.bfloat16)
-        with torch.inference_mode():
-            k = cuda_graph_ms(lambda: la.linear_attention_block(x, *p, **kw_b))
-            t = cuda_graph_ms(lambda: la.linear_attention_block_torch(x, *p, **kw_b))
-        bd = la_bound(128, n, c, backward=False)
+        k, t, bd = time_fwd_site(site, 128, n, c, i, tag)
         bounds.append(bd)
         ms, plain_ms = ms + k, plain_ms + t
-        print(f"time {site} (N={n}, C={c}) 2B=128 bf16: kernel {k:.4f} ms, bound "
-              f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}, kernel/bound "
-              f"{k / bd['bound_ms']:.1f}, plain {t:.4f} ms [{tag}]")
     total = add_bounds(*bounds)
     print(f"time all 8 sites 2B=128 bf16: kernel {ms:.4f} ms, bound {total['bound_ms']:.4f} ms, "
           f"plain {plain_ms:.4f} ms [{tag}]")
+    at256 = [time_fwd_site(site, 2 * SAMPLE_B, n, c, i, tag) for i, (site, n, c) in
+             enumerate(TIME_256)]
+    ms256 = sum(k for k, _, _ in at256[:8])
+    bound256 = add_bounds(*(bd for _, _, bd in at256[:8]))
+    print(f"time all 8 sites 2B=256 bf16 (a pixel sampler step): kernel {ms256:.4f} ms, bound "
+          f"{bound256['bound_ms']:.4f} ms, kernel/bound {ms256 / bound256['bound_ms']:.1f} [{tag}]")
+    at64 = {site: time_fwd_site(site, TRAIN_B, n, c, i, tag)[0]
+            for i, (site, n, c) in enumerate(TIME_B64)}
     return {"max_abs_err": worst[torch.bfloat16], "max_abs_err_fp32": worst[torch.float32],
-            "ms": ms, "plain_ms": plain_ms, **total,
+            "ms": ms, "plain_ms": plain_ms, **total, "ms_2b256": ms256,
+            "bound_ms_2b256": bound256["bound_ms"], "latent_2b256_ms": at256[8][0],
+            "b64_ms": at64,
             "site_128px": {f"b{b}": time_128px_site(b, False, tag) for b in PATH_128PX_B}}
+
+
+def time_fwd_site(site: str, b: int, n: int, c: int, seed: int, tag: str):
+    """The forward kernel and the plain version at (B, N, C) bf16 by CUDA-graph
+    replay, beside the bound; returns (kernel ms, plain ms, bound)."""
+    x, p = site_inputs(b, n, c, torch.bfloat16, seed=seed)
+    kw = dict(heads=4, dim_head=32, compute_dtype=torch.bfloat16)
+    iters = 20 if b * n <= 256 * 1024 else 5
+    with torch.inference_mode():
+        k = cuda_graph_ms(lambda: la.linear_attention_block(x, *p, **kw), iters=iters)
+        t = cuda_graph_ms(lambda: la.linear_attention_block_torch(x, *p, **kw), iters=iters)
+    bd = la_bound(b, n, c, backward=False)
+    plan = la.plan_fwd(n, c, torch.bfloat16, b)
+    print(f"time {site} (N={n}, C={c}) 2B={b} bf16 [{plan.path} path]: kernel {k:.4f} ms, "
+          f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}, kernel/bound "
+          f"{k / bd['bound_ms']:.1f}, plain {t:.4f} ms [{tag}]")
+    return k, t, bd
 
 
 def time_128px_site(b: int, backward: bool, tag: str) -> dict:
@@ -1300,6 +1356,7 @@ def check_training(config, tag: str) -> dict:
                                                      "fused_adam_ema": 1,
                                                      "group_norm_silu": 0}:
             raise AssertionError(f"a train step launched the kernels {per_step} times")
+        persistent = check_persistent(8, TRAIN_B, SITES, f"a replayed train step B={TRAIN_B}")
 
         def ten_steps():
             for _ in range(10):
@@ -1317,7 +1374,7 @@ def check_training(config, tag: str) -> dict:
         path = path_line(f"train step B={TRAIN_B} bf16", graphed, eager, device_ms, tag)
         epochs = time_epoch_paths(trainer, cfg.seed, tag)
     return {"run_counts": run_counts, "step_ms": path["graphed_ms"], "per_step": per_step,
-            "path": path, "epochs": epochs}
+            "path": path, "epochs": epochs, "persistent": persistent}
 
 
 def time_epoch_paths(trainer, seed: int, tag: str) -> dict:
@@ -1526,14 +1583,16 @@ def via_http(svc) -> np.ndarray:
 
 
 def serve(config, ckpt: str, sampler: str, sampler_steps: int, steps: int, tag: str,
-          checks: bool, blocks: int = 8, norms: int = GN_PIXEL, decode_norms: int = 0) -> dict:
+          checks: bool, blocks: int = 8, norms: int = GN_PIXEL, decode_norms: int = 0,
+          sites=None) -> dict:
     """One service over ``ckpt`` at B=64; every count set to 0 before it is
     built and read after it stopped.  ``checks``: the reference request alone,
     under load and through HTTP, light load and the drain; always the
     saturated run.  ``blocks``: the UNet's attention blocks, each one launch
     of the forward kernel a sampler step; ``norms``: its GroupNorm calls, each
     one launch of the GroupNorm pass a step; ``decode_norms``: the VAE
-    decoder's, once a batch."""
+    decoder's, once a batch; ``sites``: the UNet's attention sites, whose
+    forward launches on the persistent path are checked at 2B (CFG)."""
     zero_counts()
     svc = build_generation_service(config, ckpt, sampler=sampler, ddim_steps=sampler_steps,
                                    batch_size=SERVE_B)
@@ -1582,6 +1641,9 @@ def serve(config, ckpt: str, sampler: str, sampler_steps: int, steps: int, tag: 
     if out["counts"] != dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": want,
                                                      "group_norm_silu": want_gn}:
         raise AssertionError(f"the {sampler} service launched {out['counts']}")
+    if sites is not None:
+        out["persistent"] = check_persistent(want, 2 * SERVE_B, sites,
+                                             f"serving {sampler}-{steps} at B={SERVE_B}")
     return out
 
 
@@ -1595,8 +1657,10 @@ def check_serving(config, tag: str) -> dict:
     shape = (32, 32, 3)
     with tempfile.TemporaryDirectory() as d:
         ckpt = seeded_checkpoint(config, os.path.join(d, "diffusion_model_ema.pt"))
-        runs = {"ddim": serve(config, ckpt, "ddim", 50, steps["ddim"], tag, checks=True),
-                "dpmpp": serve(config, ckpt, "dpmpp", 15, steps["dpmpp"], tag, checks=False)}
+        runs = {"ddim": serve(config, ckpt, "ddim", 50, steps["ddim"], tag, checks=True,
+                              sites=SITES),
+                "dpmpp": serve(config, ckpt, "dpmpp", 15, steps["dpmpp"], tag, checks=False,
+                               sites=SITES)}
         # the reference: sample_ddim at B=64 on the x_T the service gave the
         # request alone (slots 0-9; the pad slots' seed 0, index 0, class 0)
         model, diffusion = load_sampler(config, ckpt, device=DEV)
@@ -1656,6 +1720,7 @@ def check_serving(config, tag: str) -> dict:
                      "device_ms_per_batch": dev_batch, "device_bound_img_s":
                      SERVE_B / dev_batch * 1e3, "launches": r["counts"]["linear_attention_fwd"],
                      "gn_launches": r["counts"]["group_norm_silu"],
+                     "persistent": r["persistent"],
                      "batches_served": r["batches"], "start_s": r["start_s"]}
     x_init_ms = host_x_init_ms(shape)
     print(f"serving ddim-{steps['ddim']} light load, ten 1-image requests one at a time: latency p50 "
@@ -1793,6 +1858,7 @@ def check_requests(config, tag: str) -> dict:
         if counts != dict.fromkeys(COUNTED, 0) | {"linear_attention_fwd": want,
                                                   "group_norm_silu": want_gn}:
             raise AssertionError(f"the {name} request launched {counts}")
+        persistent = check_persistent(want, 20, SITES, f"the {name} request (2B=20)")
         if res.images.dtype != np.uint8 or res.images.shape != (10, 32, 32, 3):
             raise AssertionError(f"images {res.images.dtype} {res.images.shape}")
         if not np.isfinite(res.x0).all():
@@ -1801,8 +1867,26 @@ def check_requests(config, tag: str) -> dict:
               f"({res.seconds:.3f} s of which warm-up and capture {res.capture_seconds:.3f} s; "
               f"x0 in [{res.x0.min():.3f}, {res.x0.max():.3f}]) [{tag}]")
         out[name] = {"counts": counts, "steps": steps, "seconds": res.seconds,
-                     "capture_seconds": res.capture_seconds}
+                     "capture_seconds": res.capture_seconds, "persistent": persistent}
     return out
+
+
+def check_sampler_persistent(model, b: int, tag: str) -> dict:
+    """The pixel sampler at the benchmark's batch: 20 ancestral CFG steps
+    at batch ``b`` (2B in the UNet) as replayed graphs, bf16; its forward
+    launches, and those on the persistent path."""
+    diffusion = GaussianDiffusion(20, device=DEV)
+    classes = (torch.arange(b) % 10).to(DEV)
+    zero_counts()
+    diffusion.sample(model, classes, (32, 32, 3), cfg_scale=3.0, null_label=model.null_label,
+                     generator=torch.Generator(device=DEV).manual_seed(0), graph=True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = len(SITES) * (20 + WARMUP_STEPS)
+    if counts["linear_attention_fwd"] != want:
+        raise AssertionError(f"sampler B={b} launched {counts}, want {want} forwards")
+    return check_persistent(want, 2 * b, SITES, f"the pixel sampler B={b} (2B={2 * b}), "
+                            f"20 steps as replayed graphs [{tag}]")
 
 
 def check_sampler_speed(model, b: int, tag: str, shape=(32, 32, 3), schedule="linear",
@@ -2805,6 +2889,10 @@ def check_latent(tag: str, keep_dir: str) -> dict:
             images = tr.sample(classes, cfg_scale=3.0)
             sample_counts[graphs] = read_counts()["linear_attention_fwd"]
             sample_gn[graphs] = read_counts()["group_norm_silu"]
+            if graphs:  # the latent UNet's two sites at (16, 128), 2B=20
+                out["sampler_persistent"] = check_persistent(
+                    sample_counts[True], 2 * len(classes), [LATENT_SITES[0]] * blocks,
+                    f"the latent sampler B={len(classes)} as replayed graphs")
             if images.shape != (10, 32, 32, 3) or images.dtype != np.uint8:
                 raise AssertionError(f"latent sample {images.shape} {images.dtype}")
         tr.graphs = True
@@ -4595,6 +4683,7 @@ def main(argv=None) -> None:
         model = build_model(config, DEV).eval()
     paths = {"sampler_b64": check_sampler_speed(model, 64, tag),
              "request_b10": check_sampler_speed(model, 10, tag)}
+    sampler_persistent = check_sampler_persistent(model, SAMPLE_B, tag)
     for name in ("sampler_b64", "request_b10"):
         b = 64 if name == "sampler_b64" else 10
         print(f"{name}: {b / (paths[name]['graphed_ms'] * 1e-3 * T_STEPS):.3f} img/s at T=400 "
@@ -5000,6 +5089,11 @@ def main(argv=None) -> None:
                       "step, sampler_b64 the B=64 sampler's, train_b64 the train step",
         "requests": {k: {"steps": v["steps"], "seconds": v["seconds"],
                          "capture_seconds": v["capture_seconds"]} for k, v in requests.items()},
+        "persistent_launches": {
+            "sampler_2b256": sampler_persistent, "train_step_b64": training["persistent"],
+            "serve_ddim_2b128": serving["ddim"]["persistent"],
+            "latent_sampler_2b20": latent["sampler_persistent"],
+            **{f"request_{k}_2b20": v["persistent"] for k, v in requests.items()}},
         "epoch_paths": {**training["epochs"], **epoch_check},
         "epoch_paths_unit": "host ms/step of the device-resident epoch (scan) and the per-batch "
                             "loop (loop), graphed, median of 5 epochs of 9 steps at B=64 bf16, "

@@ -246,13 +246,15 @@ __device__ __forceinline__ void q_softmax_rows(const T* q, int ldq, int n0, int 
 // shared or global memory alike.  A is read as a 64-row tile (a tile in
 // shared memory has its 64 rows); without AS and with HEAD the rows past the
 // last valid one read that one instead, so A may then be a global matrix of
-// rows_valid rows.
-template <bool HEAD, bool AS, bool BS, typename Epi>
-__device__ __forceinline__ void product_nt_mma(const __nv_bfloat16* A, int lda,
+// rows_valid rows.  MB: the 16-row blocks multiplied (4, a whole tile; fewer
+// where the caller knows rows_valid <= 16 MB).  `warp`: the warp's index
+// among the 8 that share the product.
+template <bool HEAD, bool AS, bool BS, int MB, typename Epi>
+__device__ __forceinline__ void product_nt_mma(int warp, const __nv_bfloat16* A, int lda,
                                                const __nv_bfloat16* Bt, int ldb, int K,
                                                int ncols, int rows_valid, Epi epi) {
   using T = __nv_bfloat16;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int lane = threadIdx.x & 31;
   const int g = lane >> 2, tig = lane & 3;
   const int q = lane >> 3, rr = lane & 7;  // ldmatrix: matrix and row of this lane's address
   const int ntiles = ncols >> 3;
@@ -260,9 +262,9 @@ __device__ __forceinline__ void product_nt_mma(const __nv_bfloat16* A, int lda,
   for (int nt0 = warp; nt0 < ntiles; nt0 += 16) {
     const bool two = nt0 + 8 < ntiles;
     const int n0 = nt0 * 8, n1 = two ? n0 + 64 : n0;
-    float acc[4][2][4];
+    float acc[MB][2][4];
 #pragma unroll
-    for (int m = 0; m < 4; ++m)
+    for (int m = 0; m < MB; ++m)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -287,9 +289,9 @@ __device__ __forceinline__ void product_nt_mma(const __nv_bfloat16* A, int lda,
     };
     // A: with ldmatrix matrix q is rows (q % 2) * 8 .., k half q / 2
     const T* am = A + (size_t)((q & 1) * 8 + rr) * lda + (q >> 1) * 8;
-    int ra[4], rb[4];
+    int ra[MB], rb[MB];
 #pragma unroll
-    for (int m = 0; m < 4; ++m) {
+    for (int m = 0; m < MB; ++m) {
       ra[m] = HEAD ? min(m * 16 + g, rows_valid - 1) : m * 16 + g;
       rb[m] = HEAD ? min(m * 16 + g + 8, rows_valid - 1) : m * 16 + g + 8;
     }
@@ -299,11 +301,11 @@ __device__ __forceinline__ void product_nt_mma(const __nv_bfloat16* A, int lda,
     for (int k0 = 0; k0 < K; k0 += 16) {
       uint32_t bn[4];
       load_b(k0 + 16 < K ? k0 + 16 : k0, bn);  // the last step reloads its own
-      uint32_t a[NA][4][4];
+      uint32_t a[NA][MB][4];
 #pragma unroll
       for (int s = 0; s < NA; ++s)
 #pragma unroll
-        for (int m = 0; m < 4; ++m) {
+        for (int m = 0; m < MB; ++m) {
           if constexpr (AS) {
             ldmatrix_x4(a[s][m], am + (size_t)(m * 16) * lda + k0 + ak[s]);
           } else {
@@ -316,7 +318,7 @@ __device__ __forceinline__ void product_nt_mma(const __nv_bfloat16* A, int lda,
           }
         }
 #pragma unroll
-      for (int m = 0; m < 4; ++m) {
+      for (int m = 0; m < MB; ++m) {
         mma_bf16(acc[m][0], a[0][m], b[0], b[1]);
         mma_bf16(acc[m][1], a[NA - 1][m], b[2], b[3]);
       }
@@ -324,7 +326,7 @@ __device__ __forceinline__ void product_nt_mma(const __nv_bfloat16* A, int lda,
       for (int i = 0; i < 4; ++i) b[i] = bn[i];
     }
 #pragma unroll
-    for (int m = 0; m < 4; ++m) {
+    for (int m = 0; m < MB; ++m) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         if (h == 0 || two) {
@@ -354,10 +356,14 @@ template <typename T, bool HEAD, typename Epi>
 __device__ __forceinline__ void product_nt(const T* A, int lda, const T* Bt, int ldb, int K,
                                            int ncols, int rows_valid, Epi epi) {
   if constexpr (IS_BF16<T>) {
+    const int warp = threadIdx.x >> 5;
     const bool as = __isShared(A), bs = __isShared(Bt);
-    if (as && bs) product_nt_mma<HEAD, true, true>(A, lda, Bt, ldb, K, ncols, rows_valid, epi);
-    else if (as) product_nt_mma<HEAD, true, false>(A, lda, Bt, ldb, K, ncols, rows_valid, epi);
-    else product_nt_mma<HEAD, false, false>(A, lda, Bt, ldb, K, ncols, rows_valid, epi);
+    if (as && bs)
+      product_nt_mma<HEAD, true, true, 4>(warp, A, lda, Bt, ldb, K, ncols, rows_valid, epi);
+    else if (as)
+      product_nt_mma<HEAD, true, false, 4>(warp, A, lda, Bt, ldb, K, ncols, rows_valid, epi);
+    else
+      product_nt_mma<HEAD, false, false, 4>(warp, A, lda, Bt, ldb, K, ncols, rows_valid, epi);
   } else {
     const int cp = ncols >> 1;
     for (int w = threadIdx.x; w < (TILE_R / 4) * cp; w += NT) {

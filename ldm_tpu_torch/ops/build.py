@@ -139,6 +139,15 @@ def load() -> types.SimpleNamespace:
     stage = libs["linear_attention_fwd.cu"].ldm_lin_attn_fwd_stage
     stage.argtypes = [i] + fwd.argtypes  # stage, then the forward's arguments
     stage.restype = i
+    persistent = libs["linear_attention_fwd.cu"].ldm_lin_attn_fwd_persistent
+    # x, wqkv_t, wout_t, bout, g1s, g1b, g2s, g2b, y, ctx@Wout scratch, q
+    # scratch, their slots, B, N, C, the true C, eps, plan (host ints), smem
+    # bytes, stream
+    persistent.argtypes = [p] * 11 + [i, i, i, i, i, f, ctypes.POINTER(ctypes.c_int), i, p]
+    persistent.restype = i
+    persistent_stage = libs["linear_attention_fwd.cu"].ldm_lin_attn_fwd_persistent_stage
+    persistent_stage.argtypes = [i] + persistent.argtypes
+    persistent_stage.restype = i
     bwd_lib = libs["linear_attention_bwd.cu"]
     splits = bwd_lib.ldm_lin_attn_bwd_splits
     splits.argtypes = [i, i, i]  # B, N, C
@@ -172,6 +181,8 @@ def load() -> types.SimpleNamespace:
     gn.argtypes = [p] * 4 + [i] * 4 + [f, i, ctypes.POINTER(ctypes.c_int), p]
     gn.restype = i
     return types.SimpleNamespace(ldm_lin_attn_fwd=fwd, ldm_lin_attn_fwd_stage=stage,
+                                 ldm_lin_attn_fwd_persistent=persistent,
+                                 ldm_lin_attn_fwd_persistent_stage=persistent_stage,
                                  ldm_lin_attn_bwd=bwd, ldm_lin_attn_bwd_splits=splits,
                                  ldm_resnet_block_fwd=rb, ldm_resnet_block_probe=rb_probe,
                                  ldm_fused_adam_ema=adam,

@@ -28,10 +28,16 @@ block, Residual(PreNorm(LinearAttention)), runs as one op:
   CUDA tensor launches a kernel or raises: there is no fallback to the plain
   versions.  ``linear_attention_block.launches`` and
   ``linear_attention_block_bwd.launches`` count the kernels' launches.
-* :func:`plan_fwd` and :func:`plan_bwd` choose, from (N, C, dtype) alone, how
-  many CTAs share an item (a thread-block cluster), which of the kernels'
-  buffers stay in shared memory (the cluster path) or go through global
-  scratch (the tiled path), and where each lies; the kernels follow the plan.
+* :func:`plan_fwd` chooses the forward's schedule from (B, N, C, dtype):
+  in bf16, where two units fit in shared memory, the persistent path
+  (:func:`plan_persistent`: one block a SM, two teams of 8 warps each
+  walking its own work units, Wqkv^T staged once a block), but for the
+  shapes in :data:`CLUSTER_FASTER`; otherwise, and in fp32, the cluster path (a CTA cluster an item, the item kept in shared
+  memory) or the tiled path (through global scratch).  :func:`plan_bwd`
+  chooses the backward's from (N, C, dtype): the CTAs that share an item
+  (:func:`cluster_size`) and the same two paths.  The kernels follow the
+  plan; ``linear_attention_block.persistent_launches`` counts the forward
+  launches that took the persistent path.
 * :class:`KernelWeights` holds the two projection weights in the compute
   type, in both orientations, as the kernels read them; a caller that keeps
   its weights (``models.unet.LinAttnBlock``) makes them once per weight
@@ -45,6 +51,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -272,6 +280,22 @@ SMEM_LIMIT = 232_448  # dynamic shared memory one CTA can take on an H100
 TILE_R = 64  # rows of a tile
 MAX_CLUSTER = 8  # the portable cluster size
 MIN_ROWS = 128  # the fewest rows of an item a CTA of a cluster takes
+# the persistent forward (csrc/linear_attention_fwd.cu, lin_attn_fwd_persistent_kernel)
+TEAMS = 2  # units in flight on an SM: teams of 8 warps a block
+MAX_CLUSTER_PERSISTENT = 16  # the non-portable cluster size
+UNIT_ROWS = (128, 64)  # the rows of an item a unit's slice takes, in the order tried
+SMS = 132  # the H100's SMs, which the plan sizes units for
+# a unit's fp32 vectors: kmax, ksum, their partials and the odd rows'; red; stat; slots
+_VEC_PERSISTENT = (5 * HIDDEN + 8 + 2 + 4) * 4
+# (N, C) -> the batches B, of those timed on an H100 (chip_smoke.py phase 10:
+# the 32px UNet's sites at B = 20, 128 and 256), at which the cluster path
+# beat the persistent one; a batch counts as the timed one nearest to it
+# (in ratio).  The bf16 forward takes the cluster path there.  (64, 256):
+# one 64-row item a unit, Wqkv^T not staged, 9-10% slower at every batch.
+CLUSTER_TIMED_B = (20, 128, 256)
+CLUSTER_FASTER = {(64, 256): (20, 128, 256), (256, 128): (256,), (16, 256): (128,),
+                  (64, 128): (128,)}
+_BARRIERS = 2 * TEAMS * 8  # two mbarriers a team
 _VEC_FWD = (4 * HIDDEN + 8 + 8) * 4  # kmax, ksum and their partials; red; slots
 _VEC_BWD = (6 * HIDDEN + 256 + 8 + 16) * 4  # + inner and its partial; sred
 
@@ -291,18 +315,25 @@ def _pad_last(t: torch.Tensor, width: int) -> torch.Tensor:
     return t if extra == 0 else torch.nn.functional.pad(t, (0, extra))
 
 
-def cluster_size(n: int) -> int:
+def _split(n: int, most: int, least: int) -> int:
     """CTAs that share one item of N rows: doubled while the rows still
-    split evenly into at least 128 a CTA, up to the portable 8.  1024 -> 8
-    CTAs of 128 rows, 256 -> 2 of 128, 64 and 16 -> 1.  A CTA's time is
-    mostly the latencies of its phases, not its rows, so at a batch that
-    fills the card several times over 64-row CTAs only add waves (timed by
-    perf/plan_sweep.py: at N=256 two CTAs an item beat four at 2B=128 and at
-    B=64, and lose only where the batch leaves SMs idle, 2B=20)."""
+    split evenly into at least ``least`` a CTA, up to ``most``."""
     cs = 1
-    while cs < MAX_CLUSTER and n % (2 * cs) == 0 and n // (2 * cs) >= MIN_ROWS:
+    while cs < most and n % (2 * cs) == 0 and n // (2 * cs) >= least:
         cs *= 2
     return cs
+
+
+def cluster_size(n: int) -> int:
+    """The backward's CTAs that share one item of N rows: doubled while the
+    rows still split evenly into at least 128 a CTA, up to the portable 8
+    (the forward's cluster and tiled paths split an item the same way).
+    1024 -> 8 CTAs of 128 rows, 256 -> 2 of 128, 64 and 16 -> 1.  A CTA's
+    time is mostly the latencies of its phases, not its rows, so at a batch
+    that fills the card several times over 64-row CTAs only add waves (timed
+    by perf/plan_sweep.py: at N=256 two CTAs an item beat four at 2B=128 and
+    at B=64, and lose only where the batch leaves SMs idle, 2B=20)."""
+    return _split(n, MAX_CLUSTER, MIN_ROWS)
 
 
 def _row_pad(dtype: torch.dtype) -> int:
@@ -331,6 +362,40 @@ class FwdPlan:
     @property
     def path(self) -> str:
         return "cluster" if self.keep else "tiled"
+
+    def ints(self):
+        return dataclasses.astuple(self)[:-1]
+
+
+@dataclasses.dataclass(frozen=True)
+class PersistentPlan:
+    """The persistent forward's launch plan (``PersistPlan`` in
+    csrc/linear_attention_fwd.cu).  A unit is one item's slice of ``rows``
+    rows, the item split over a cluster of ``cs`` CTAs (the whole item at
+    ``cs`` 1); ``teams`` units are in flight on each SM.  Offsets are bytes
+    into dynamic shared memory, the ``u_*`` ones into a team's unit buffers."""
+
+    cs: int
+    rows: int
+    qrows: int     # rows of the unit's q | k | v: rows up to a multiple of 16
+    teams: int
+    keep_q: int    # q in shared memory beside k | v (else in a team's slot of scratch)
+    stage_w: int   # Wqkv^T in shared memory, once a block
+    keep_cw: int   # (ctx @ Wout)^T in shared memory (else a team's slot of scratch)
+    keep_out: int  # out in shared memory (else in y)
+    off_w: int
+    off_bar: int
+    off_unit: int
+    unit_bytes: int
+    u_qkv: int
+    u_a: int       # the h tile; the partial ctx (cs > 1); (ctx @ Wout)^T
+    u_b: int       # ctx, then out over it
+    u_vec: int
+    smem_bytes: int
+
+    @property
+    def path(self) -> str:
+        return "persistent"
 
     def ints(self):
         return dataclasses.astuple(self)[:-1]
@@ -371,22 +436,114 @@ def _check_plan_shape(n: int, c: int, dtype: torch.dtype, max_c: int) -> None:
             f"kernel takes N >= 1 and C a multiple of 16 in [16, {max_c}], got {n, c}")
 
 
-# (keep, stage_w) in the order plan_fwd tries them
+# (keep, stage_w) in the order the cluster and tiled paths try them
 FWD_OPTIONS = ((1, 1), (1, 0), (0, 1), (0, 0))
+# (stage_w, keep_cw, keep_out) in the order the persistent path tries them:
+# the weight once a block first, then the unit's own buffers
+PERSISTENT_OPTIONS = ((1, 1, 1), (1, 0, 1), (1, 1, 0), (1, 0, 0),
+                      (0, 1, 1), (0, 0, 1), (0, 1, 0), (0, 0, 0))
 
 
-def plan_fwd(n: int, c: int, dtype: torch.dtype, options=FWD_OPTIONS) -> FwdPlan:
-    """The forward kernel's plan for items of (N, C) in ``dtype``, from the
-    shape alone.  Of the buffers that may stay in shared memory it keeps
-    what fits, tried in a fixed order: first q | k | v with out and
-    (ctx @ Wout)^T (the cluster path; without them the tiled path through
-    global scratch), then the staged Wqkv^T (worth 4.0-8.5% where the CTA has
-    128 rows or more, 2% at 64: perf/plan_sweep.py).  Raises where not
-    even the bare tiles fit.  ``options``: the (keep, stage_w) to try, for
-    perf/plan_sweep.py, which times the kernel under each."""
+def _align(n: int, to: int) -> int:
+    return -(-n // to) * to
+
+
+def _persistent_layout(n, c, cs, teams, keep_q, stage_w, keep_cw, keep_out):
+    """The persistent plan with these choices, or None where it does not fit
+    (perf/plan_sweep.py times the kernel under each)."""
+    es, pad = 2, _row_pad(torch.bfloat16)
+    rows = n // cs
+    qrows = _align(rows, 16)
+    if not keep_q and qrows < 2 * TILE_R:
+        return None  # q's tiles come back into k | v's rows past the first tile
+    qkv = qrows * ((3 if keep_q else 2) * HIDDEN + pad) * es
+    h = min(TILE_R, qrows) * (c + pad) * es
+    # with q out of shared memory, the partial ctx and ctx lie in k | v's
+    # rows 64-127, which the ctx sums have consumed
+    ctx_p = HIDDEN * DIM_HEAD * 4 if cs > 1 and keep_q else 0
+    cwt = c * (HIDDEN + pad) * es if keep_cw else 0
+    ctxn = HIDDEN * (DIM_HEAD + pad) * es if keep_q else 0
+    out = qrows * (c + pad) * es if keep_out else 0
+    u_a = qkv
+    u_b = u_a + max(h, ctx_p, cwt)
+    u_vec = u_b + max(ctxn, out)  # out lies over ctx, which it outlives
+    unit = _align(u_vec + _VEC_PERSISTENT, 128)
+    w = 3 * HIDDEN * (c + pad) * es if stage_w else 0
+    off_bar = _align(w, 16)
+    off_unit = _align(off_bar + _BARRIERS, 128)
+    total = off_unit + teams * unit
+    if total > SMEM_LIMIT:
+        return None
+    return PersistentPlan(cs, rows, qrows, teams, keep_q, stage_w, keep_cw, keep_out, 0,
+                          off_bar, off_unit, unit, 0, u_a, u_b, u_vec, total)
+
+
+def plan_persistent(n: int, c: int, b: int = 1) -> Optional[PersistentPlan]:
+    """The bf16 forward's persistent plan for B items of (N, C), or None
+    where two units do not fit in shared memory beside each other.
+
+    The unit comes from the shape and the batch.  For N >= 128 an item's
+    slice over cs CTAs (a power of two up to 16): 128 rows where two such
+    units fit, with q in global scratch and only k | v in shared memory (a
+    unit's time is mostly its chain of barriers and reductions, whatever its
+    rows, so fewer, larger units go faster), else 64 rows with q | k | v
+    kept; 64 first where the batch has fewer 128-row slices than the card
+    has SMs (``SMS``), so that they are spread over more of them.  Below
+    128 rows, one whole item.  Two units in flight on an SM (``TEAMS``), one
+    where the launch has no more units than the card has SMs: a team alone
+    gets all of the SM's registers and shared memory.  Of the buffers that
+    may stay in shared memory (the staged Wqkv^T, the unit's (ctx @ Wout)^T
+    and out) it keeps what fits, in the order of ``PERSISTENT_OPTIONS``."""
+    layouts = [(keep_q, *o) for keep_q in (0, 1) for o in PERSISTENT_OPTIONS]
+    # 128-row slices unless they leave SMs idle that 64-row ones would fill
+    rows = UNIT_ROWS if b * n >= UNIT_ROWS[0] * SMS else UNIT_ROWS[::-1]
+    for cs in dict.fromkeys(_split(n, MAX_CLUSTER_PERSISTENT, r) for r in rows):
+        fits = [lay for lay in layouts if _persistent_layout(n, c, cs, TEAMS, *lay) is not None]
+        if not fits:
+            continue
+        if b * cs > SMS:
+            return _persistent_layout(n, c, cs, TEAMS, *fits[0])
+        # one team alone: the first layout that fits it
+        return next(plan for plan in (_persistent_layout(n, c, cs, 1, *lay) for lay in layouts)
+                    if plan is not None)
+    return None
+
+
+def cluster_faster(n: int, c: int, b: int) -> bool:
+    """Whether the cluster path timed faster than the persistent one at
+    (N, C) and the timed batch nearest B (:data:`CLUSTER_FASTER`)."""
+    timed = min(CLUSTER_TIMED_B, key=lambda t: abs(math.log(b / t)))
+    return timed in CLUSTER_FASTER.get((n, c), ())
+
+
+def plan_fwd(n: int, c: int, dtype: torch.dtype, b: int = 1):
+    """The forward kernel's plan for B items of (N, C) in ``dtype``, from the
+    shape alone: in bf16 the persistent path where two units fit
+    (:func:`plan_persistent`) and the cluster path did not time faster
+    (:func:`cluster_faster`), otherwise, and in fp32, the cluster or the
+    tiled path (:func:`plan_cluster`).  Raises on what no path takes."""
+    _check_plan_shape(n, c, dtype, MAX_C_FWD)
+    if b < 1:
+        raise ValueError(f"the forward kernel takes B >= 1, got {b}")
+    plan = None
+    if dtype == torch.bfloat16 and not cluster_faster(n, c, b):
+        plan = plan_persistent(n, c, b)
+    return plan if plan is not None else plan_cluster(n, c, dtype)
+
+
+def plan_cluster(n: int, c: int, dtype: torch.dtype, options=FWD_OPTIONS) -> FwdPlan:
+    """The forward's cluster or tiled plan for items of (N, C) in ``dtype``:
+    an item over a cluster of :func:`cluster_size` CTAs, keeping what fits
+    of its buffers in shared memory, tried in a fixed order: first q | k | v
+    with out and (ctx @ Wout)^T (the cluster path; without them the tiled
+    path through global scratch), then the staged Wqkv^T (worth 4.0-8.5%
+    where the CTA has 128 rows or more, 2% at 64: perf/plan_sweep.py).
+    Raises where not even the bare tiles fit.  ``options``: the (keep,
+    stage_w) to try, for perf/plan_sweep.py, which times the kernel under
+    each."""
     _check_plan_shape(n, c, dtype, MAX_C_FWD)
     es, pad = dtype.itemsize, _row_pad(dtype)
-    cs = cluster_size(n)
+    cs = _split(n, MAX_CLUSTER, MIN_ROWS)
     rows = n // cs
     tile = TILE_R * max(c + pad, 2 * (HIDDEN + pad)) * es
     ctxn = HIDDEN * (DIM_HEAD + pad) * es
@@ -535,11 +692,16 @@ def _ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _launch_kernel(x, params, *, heads, dim_head, eps, compute_dtype,
-                   weights: Optional[KernelWeights] = None, stage: Optional[int] = None
-                   ) -> torch.Tensor:
+                   weights: Optional[KernelWeights] = None, stage: Optional[int] = None):
     """The forward kernel's launch (``stage``: the ablated build of
-    perf/probe7.py, 1-6; None the production entry point)."""
+    perf/probe7.py, 1-6; None the production entry point).  Returns y and
+    the plan it ran."""
     if weights is None:
         weights = make_kernel_weights(params[0], params[1], x.dtype, backward=False)
     _check_cuda_args(x, params, heads, dim_head, compute_dtype, weights=weights)
@@ -547,27 +709,40 @@ def _launch_kernel(x, params, *, heads, dim_head, eps, compute_dtype,
     c = pad_width(c_true)
     x = _pad_last(x, c)
     params = (*params[:2], *(_pad_last(p, c) for p in params[2:]))
-    plan = plan_fwd(n, c, x.dtype)
+    plan = plan_fwd(n, c, x.dtype, b)
     lib = build.load()
     y = torch.empty_like(x)
-    qkv_scratch = cw_scratch = None
-    if not plan.keep:  # the tiled path's buffers
+    qkv_scratch = cw_scratch = q_scratch = None
+    slots = 0
+    if plan.path == "persistent":
+        # a slot a team of the launch, at most one block a SM
+        slots = _sm_count(x.device.index if x.device.index is not None
+                          else torch.cuda.current_device()) * plan.teams
+        if not plan.keep_cw:
+            cw_scratch = torch.empty((slots, c, HIDDEN), dtype=x.dtype, device=x.device)
+        if not plan.keep_q:
+            q_scratch = torch.empty((slots, plan.qrows, HIDDEN), dtype=x.dtype, device=x.device)
+    elif not plan.keep:  # the tiled path's buffers
         qkv_scratch = torch.empty((b, n, 3 * HIDDEN), dtype=x.dtype, device=x.device)
         cw_scratch = torch.empty((b * plan.cs, c, HIDDEN), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        args = (_DTYPE_CODE[x.dtype], x.data_ptr(), weights.wqkv_t.data_ptr(),
-                weights.wout_t.data_ptr(), *(p.data_ptr() for p in params[2:]),
-                y.data_ptr(), _ptr(qkv_scratch), _ptr(cw_scratch), b, n, c, c_true,
-                float(eps), _plan_array(plan), plan.smem_bytes, stream)
-        if stage is None:
-            err = lib.ldm_lin_attn_fwd(*args)
+        weights_args = (x.data_ptr(), weights.wqkv_t.data_ptr(), weights.wout_t.data_ptr(),
+                        *(p.data_ptr() for p in params[2:]), y.data_ptr())
+        if plan.path == "persistent":
+            args = (*weights_args, _ptr(cw_scratch), _ptr(q_scratch), slots, b, n, c, c_true,
+                    float(eps), _plan_array(plan), plan.smem_bytes, stream)
+            err = (lib.ldm_lin_attn_fwd_persistent(*args) if stage is None
+                   else lib.ldm_lin_attn_fwd_persistent_stage(stage, *args))
         else:
-            err = lib.ldm_lin_attn_fwd_stage(stage, *args)
+            args = (_DTYPE_CODE[x.dtype], *weights_args, _ptr(qkv_scratch), _ptr(cw_scratch), b,
+                    n, c, c_true, float(eps), _plan_array(plan), plan.smem_bytes, stream)
+            err = (lib.ldm_lin_attn_fwd(*args) if stage is None
+                   else lib.ldm_lin_attn_fwd_stage(stage, *args))
     if err != 0:
         raise RuntimeError(f"linear-attention kernel launch failed: CUDA error {err} "
                            f"(shape {b, n, c_true}, {plan})")
-    return y if c == c_true else y[..., :c_true].contiguous()
+    return (y if c == c_true else y[..., :c_true].contiguous()), plan
 
 
 def _launch_bwd_kernel(x, dy, params, *, heads, dim_head, eps, compute_dtype,
@@ -651,8 +826,9 @@ linear_attention_block_bwd.launches = 0  # backward launches (3 kernels each)
 
 
 def _forward_kernel(x, params, weights, **kw) -> torch.Tensor:
-    y = _launch_kernel(x, params, weights=weights, **kw)
+    y, plan = _launch_kernel(x, params, weights=weights, **kw)
     linear_attention_block.launches += 1
+    linear_attention_block.persistent_launches += plan.path == "persistent"
     return y
 
 
@@ -722,3 +898,4 @@ def linear_attention_block(
 
 
 linear_attention_block.launches = 0  # forward kernel launches, counted where they happen
+linear_attention_block.persistent_launches = 0  # of them, those on the persistent path

@@ -14,6 +14,11 @@ points; the run holds stages 1-5 against it and stage 6 against the
 production kernel (bit for bit), and reports each stage's time and its plain
 version's (device time: the calls replayed from a CUDA graph, so that the
 host's launch cost is in neither) and its delta over the stage before.
+
+Both designs of the kernel carry the cuts: the persistent schedule the plan
+picks at this shape (``lin_attn_fwd_persistent_kernel``) and the cluster
+path it replaced (one short CTA an item slice; ``plan_persistent`` turned
+off for the run).  ``--design`` picks one; by default both, in that order.
 """
 
 from __future__ import annotations
@@ -94,8 +99,8 @@ def stage_block(stage, x, wqkv, wout, bout, g1s, g1b, g2s, g2b, *, eps: float = 
         return stage_torch(stage, x, *params, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"no probe implementation for device {x.device}")
-    y = la._launch_kernel(x, params, heads=HEADS, dim_head=DIM_HEAD, eps=eps,
-                          compute_dtype=x.dtype, stage=stage)
+    y, _ = la._launch_kernel(x, params, heads=HEADS, dim_head=DIM_HEAD, eps=eps,
+                             compute_dtype=x.dtype, stage=stage)
     stage_block.launches += 1
     return y
 
@@ -118,15 +123,37 @@ def probe_inputs(device, dtype=DT, b: int = B, n: int = N, c: int = C, seed: int
     return x, params
 
 
+DESIGNS = ("persistent", "cluster")
+
+
 def main(argv: Optional[Sequence[str]] = None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write the rows here as JSON")
     ap.add_argument("--iters", type=int, default=20, help="launches per timing")
+    ap.add_argument("--design", choices=DESIGNS, help="one design only (default: both)")
     a = ap.parse_args(argv)
     dev = require_cuda("probe7")
     tag = card()
     x, params = probe_inputs(dev)
+    rows = []
+    rule = la.plan_persistent
+    for design in [a.design] if a.design else DESIGNS:
+        if design == "cluster":
+            la.plan_persistent = lambda *_, **__: None
+        try:
+            rows += run_stages(design, x, params, a.iters, tag)
+        finally:
+            la.plan_persistent = rule
+    if a.out:
+        with open(a.out, "w") as f:
+            json.dump(rows, f, indent=2)
+    return rows
+
+
+def run_stages(design: str, x, params, iters: int, tag: str) -> list:
+    """Stages 1-6 of one design: checked, timed, one row each."""
     atol, rtol = TOL
+    path = la.plan_fwd(N, C, DT, B).path
     rows, prev = [], 0.0
     with torch.inference_mode():
         for stage in STAGES:
@@ -141,18 +168,15 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
                 ok = bool((diff <= atol + rtol * want.float().abs()).all())
                 check = f"vs plain (tol {atol:g} + {rtol:g}|y|)"
             err = (got.float() - want.float()).abs().max().item()
-            ms = cuda_graph_ms(lambda: stage_block(stage, x, *params), iters=a.iters)
-            plain_ms = cuda_graph_ms(lambda: stage_torch(stage, x, *params), iters=a.iters)
-            rows.append({"stage": stage, "b": B, "n": N, "c": C, "dtype": "bfloat16",
-                         "ms": ms, "delta_ms": ms - prev, "plain_ms": plain_ms,
-                         "max_abs_err": err, "ok": ok, "card": tag})
-            print(f"probe7 stage {stage} ({B}, {N}, {C}) bf16: {ms:.4f} ms "
-                  f"(+{ms - prev:.4f}), plain {plain_ms:.4f} ms, max_abs_err {err:.3e} "
-                  f"{check}: {'ok' if ok else 'FAIL'} [{tag}]", flush=True)
+            ms = cuda_graph_ms(lambda: stage_block(stage, x, *params), iters=iters)
+            plain_ms = cuda_graph_ms(lambda: stage_torch(stage, x, *params), iters=iters)
+            rows.append({"design": design, "path": path, "stage": stage, "b": B, "n": N,
+                         "c": C, "dtype": "bfloat16", "ms": ms, "delta_ms": ms - prev,
+                         "plain_ms": plain_ms, "max_abs_err": err, "ok": ok, "card": tag})
+            print(f"probe7 {design} ({path} path) stage {stage} ({B}, {N}, {C}) bf16: "
+                  f"{ms:.4f} ms (+{ms - prev:.4f}), plain {plain_ms:.4f} ms, max_abs_err "
+                  f"{err:.3e} {check}: {'ok' if ok else 'FAIL'} [{tag}]", flush=True)
             prev = ms
-    if a.out:
-        with open(a.out, "w") as f:
-            json.dump(rows, f, indent=2)
     return rows
 
 

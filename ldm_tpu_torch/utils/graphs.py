@@ -41,6 +41,9 @@ KERNELS = {"linear_attention_fwd": la.linear_attention_block,
            "fused_adam_ema": fused_adam_ema,
            "group_norm_silu": group_norm_silu}
 COUNTED = tuple(KERNELS.values())
+# every count a replay adds to: the launches, and the forward's persistent ones
+COUNTERS = tuple((f, "launches") for f in COUNTED) + (
+    (la.linear_attention_block, "persistent_launches"),)
 WARMUP_STEPS = 3
 
 
@@ -111,14 +114,14 @@ class StepGraph:
                 reset()
             if before_capture is not None:
                 before_capture()
-            before = [f.launches for f in COUNTED]
+            before = [getattr(f, a) for f, a in COUNTERS]
             self.graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self.graph):
                 self.outputs = fn()
             # the launches one capture made: added again at every replay
-            self.launches = [f.launches - n for f, n in zip(COUNTED, before)]
-            for f, n in zip(COUNTED, before):
-                f.launches = n  # a capture runs nothing
+            self.launches = [getattr(f, a) - n for (f, a), n in zip(COUNTERS, before)]
+            for (f, a), n in zip(COUNTERS, before):
+                setattr(f, a, n)  # a capture runs nothing
         self.capture_seconds = time.perf_counter() - t0  # host clock: warm-up and capture
         self.replays = 0
 
@@ -126,8 +129,8 @@ class StepGraph:
         """Launch the step; returns ``fn``'s outputs (static: clone what must
         outlive the next replay)."""
         self.graph.replay()
-        for f, n in zip(COUNTED, self.launches):
-            f.launches += n
+        for (f, a), n in zip(COUNTERS, self.launches):
+            setattr(f, a, getattr(f, a) + n)
         self.replays += 1
         return self.outputs
 

@@ -262,50 +262,206 @@ KERNEL_SHAPES = [(1024, 64), (256, 128), (64, 256), (16, 512), (16, 256), (64, 1
                  (1024, 64), (4096, 64), (1024, 128), (256, 256), (64, 512), (16384, 64)]
 
 
+# (N, C) of every attention site the benchmark's configurations reach: the
+# 32px flagship UNet's 8 (sampling and training), its 128px UNet's 4, the
+# latent UNet's 2; the 64px UNet's, and the smoke config's two narrow ones
+CONFIG_SHAPES = sorted(set(KERNEL_SHAPES) | {(4096, 128), (1024, 256), (256, 512), (16, 128),
+                                             (16, 64), (256, 16), (64, 16)})
+# the batches the kernel sees there: 2B of the samplers and the service, B of
+# the train steps, the small batches of a request, and batches past one
+# unit a team
+BATCHES = (1, 7, 20, 64, 128, 256, 1000)
+
+
+def _persistent_sites(plan, n):
+    """What the plan's units hold: for each unit of a B-item launch, the
+    (item, first row, rows) slices its CTAs own, as the kernel walks them."""
+    def units(b):
+        for u in range(b):
+            yield u, [(u, rank * plan.rows, plan.rows) for rank in range(plan.cs)]
+    return units
+
+
+def _two_team_plan(n, c, cs):
+    """The persistent plan with the unit of ``cs`` CTAs an item and two
+    teams, as the plan tries its layouts; None where two units do not fit."""
+    plans = (la._persistent_layout(n, c, cs, 2, keep_q, *o) for keep_q in (0, 1)
+             for o in la.PERSISTENT_OPTIONS)
+    return next((p for p in plans if p is not None), None)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,c", KERNEL_SHAPES)
 def test_fwd_plan_is_a_function_of_the_shape(n, c, dtype):
-    """plan_fwd: the cluster size from N alone, the rows split evenly, the
-    buffers 16-byte aligned, in order, and inside the 232,448 bytes a CTA can
-    take; what it keeps in shared memory has its room; the same answer every
-    time."""
-    plan = la.plan_fwd(n, c, dtype)
-    assert plan == la.plan_fwd(n, c, dtype)
-    assert plan.cs == la.cluster_size(n) == {16: 1, 64: 1, 256: 2, 1024: 8, 4096: 8, 16384: 8}[n]
-    assert plan.cs * plan.rows == n
-    assert plan.smem_bytes <= la.SMEM_LIMIT == 232_448
-    offs = [plan.off_tile, plan.off_ctxn, plan.off_vec, plan.off_u, plan.off_qkv,
-            plan.smem_bytes]
-    assert offs == sorted(offs) and all(o % 16 == 0 for o in offs)
-    es, pad = dtype.itemsize, 16 // dtype.itemsize
-    tile = plan.off_ctxn - plan.off_tile
-    assert tile >= 64 * (c + pad) * es and tile >= 2 * 64 * (HIDDEN + pad) * es
-    assert tile >= HIDDEN * DIM_HEAD * 4 + 2 * 256 * 4  # the partial ctx blocks and k sums
-    if plan.keep:
-        assert plan.smem_bytes - plan.off_qkv == plan.rows * (3 * HIDDEN + pad) * es
-        assert plan.off_out - plan.off_u == c * (HIDDEN + pad) * es
-        assert plan.off_qkv - plan.off_out >= plan.rows * (c + pad) * es
-    else:
-        assert plan.off_qkv == plan.smem_bytes
-    if plan.stage_w:
-        assert plan.off_qkv - plan.off_u >= 3 * HIDDEN * (c + pad) * es
-    assert plan.path == ("cluster" if plan.keep else "tiled")
-    assert len(plan.ints()) == 10
-    if dtype == torch.bfloat16 and (n, c) in ((1024, 64), (256, 64), (256, 128)):
-        assert plan.keep  # the flagship sites stay on chip
-        assert plan.stage_w == (c == 64)  # Wqkv^T does not fit beside 128 rows at C=128
-    if n >= 4096 or c == 512:
-        assert not plan.keep  # too large for a CTA: through global scratch
+    """plan_fwd: the same answer every time for the same (B, N, C, dtype).
+    bf16 takes the persistent path where two units fit: the rows of an item
+    split evenly over 1-16 CTAs, at least a 64-row tile each (16 at
+    N = 1024), the buffers 16-byte aligned, in order and inside the 232,448
+    bytes a block can take; units of 128 rows where two fit, with q out of
+    shared memory, else 64 with q | k | v kept.  fp32, the shapes whose
+    units do not fit, and those where the cluster path timed faster
+    (la.CLUSTER_FASTER), take the cluster or tiled path: an item over
+    cluster_size(N) CTAs, what is kept in shared memory with its room."""
+    for b in BATCHES:
+        plan = la.plan_fwd(n, c, dtype, b)
+        assert plan == la.plan_fwd(n, c, dtype, b)
+        assert plan.smem_bytes <= la.SMEM_LIMIT == 232_448
+        assert plan.cs * plan.rows == n
+        if dtype == torch.bfloat16 and n <= 1024 and c <= 256:
+            # the 32px sites, the 64px ones up to N = 1024, but where the
+            # cluster path timed faster
+            faster = la.cluster_faster(n, c, b)
+            assert plan.path == ("cluster" if faster else "persistent")
+        if dtype == torch.bfloat16 and plan.path == "tiled":  # two units do not fit
+            assert la.plan_persistent(n, c, b) is None
+        if plan.path == "persistent":
+            # two units in flight an SM, one where the launch has no more
+            # units than the card has SMs
+            units = b * plan.cs
+            assert dtype == torch.bfloat16 and plan.teams == (1 if units <= la.SMS else 2)
+            # slices of 128 rows where two fit (64 where the batch has fewer
+            # 128-row ones than the card has SMs), larger with one team
+            assert plan.cs in (1, 2, 4, 8, 16) and plan.rows in (16, 64, 128, 256)
+            if plan.teams == 2 and n >= 256:
+                assert plan.rows == (128 if b * n >= 128 * la.SMS else 64)
+            assert plan.rows >= 64 or plan.cs == 1
+            assert plan.keep_q == (plan.rows < 128)
+            assert plan.off_w == 0 and plan.u_qkv == 0
+            offs = [plan.off_bar, plan.off_unit]
+            unit = [plan.u_a, plan.u_b, plan.u_vec, plan.unit_bytes]
+            assert offs == sorted(offs) and unit == sorted(unit)
+            assert all(o % 16 == 0 for o in offs + unit)
+            assert plan.off_unit + plan.teams * plan.unit_bytes == plan.smem_bytes
+            assert plan.off_bar >= (3 * HIDDEN * (c + 8) * 2 if plan.stage_w else 0)
+            assert plan.u_a == plan.qrows * ((3 if plan.keep_q else 2) * HIDDEN + 8) * 2
+            assert plan.qrows % 16 == 0 and plan.qrows >= plan.rows
+            assert len(plan.ints()) == 16
+            continue
+        assert plan.cs == la.cluster_size(n) == {16: 1, 64: 1, 256: 2, 1024: 8, 4096: 8,
+                                                 16384: 8}[n]
+        offs = [plan.off_tile, plan.off_ctxn, plan.off_vec, plan.off_u, plan.off_qkv,
+                plan.smem_bytes]
+        assert offs == sorted(offs) and all(o % 16 == 0 for o in offs)
+        es, pad = dtype.itemsize, 16 // dtype.itemsize
+        tile = plan.off_ctxn - plan.off_tile
+        assert tile >= 64 * (c + pad) * es and tile >= 2 * 64 * (HIDDEN + pad) * es
+        assert tile >= HIDDEN * DIM_HEAD * 4 + 2 * 256 * 4  # the partial ctx blocks and k sums
+        if plan.keep:
+            assert plan.smem_bytes - plan.off_qkv == plan.rows * (3 * HIDDEN + pad) * es
+            assert plan.off_out - plan.off_u == c * (HIDDEN + pad) * es
+            assert plan.off_qkv - plan.off_out >= plan.rows * (c + pad) * es
+        else:
+            assert plan.off_qkv == plan.smem_bytes
+        if plan.stage_w:
+            assert plan.off_qkv - plan.off_u >= 3 * HIDDEN * (c + pad) * es
+        assert plan.path == ("cluster" if plan.keep else "tiled")
+        assert len(plan.ints()) == 10
+    if dtype == torch.float32:
+        assert plan.path in ("cluster", "tiled")  # the persistent path is the bf16 forward's
+    if n == 16384:
+        assert plan.path == "tiled"  # too large for a unit, and for a CTA
 
 
 def test_plans_refuse_what_no_path_takes():
     for bad in ((64, 8), (64, 24), (0, 64), (64, 1024)):
         with pytest.raises(ValueError):
             la.plan_fwd(*bad, torch.float32)
+        with pytest.raises(ValueError):
+            la.plan_fwd(*bad, torch.bfloat16, 64)
     with pytest.raises(ValueError):
         la.plan_fwd(64, 64, torch.float16)
-    # rows split evenly, at least 128 a CTA
+    with pytest.raises(ValueError):
+        la.plan_fwd(64, 64, torch.bfloat16, 0)
+    # the backward's split: rows evenly, at least 128 a CTA
     assert [la.cluster_size(n) for n in (96, 100, 128, 384, 512)] == [1, 1, 1, 2, 4]
+    # the persistent forward's: at least 128 rows a CTA where two such units
+    # fit (q out of shared memory), else at least one 64-row tile, up to 16
+    # CTAs
+    assert [la.plan_fwd(n, 64, torch.bfloat16, 256).cs for n in (96, 100, 128, 384, 512)] == \
+        [1, 1, 1, 2, 4]
+    # at 2B=20 those slices would leave SMs idle: 64 rows a CTA
+    assert [la.plan_fwd(n, 64, torch.bfloat16, 20).cs for n in (96, 100, 128, 384, 512)] == \
+        [1, 1, 2, 4, 8]
+
+
+@pytest.mark.parametrize("n,c", CONFIG_SHAPES)
+def test_persistent_plan_fits_two_units(n, c):
+    """Every site the configurations reach that takes the persistent path
+    holds two units at once beside the staged weight (when staged), inside
+    the 232,448 bytes of a block, at every batch (the plan takes one where
+    the batch has no more units than SMs); the sites whose units do not fit
+    say so by taking the tiled path, and those where the cluster path timed
+    faster take that."""
+    for b in BATCHES:
+        picked = la.plan_fwd(n, c, torch.bfloat16, b)
+        if la.cluster_faster(n, c, b):
+            assert picked.path == "cluster"
+            picked = la.plan_persistent(n, c, b)
+        if picked is None or picked.path != "persistent":
+            assert (n, c) in {(4096, 64), (16384, 64), (4096, 128), (64, 512), (256, 512)}
+            assert la.plan_fwd(n, c, torch.bfloat16, b).path == "tiled"
+            assert la.plan_persistent(n, c, b) is None
+            continue
+        plan = _two_team_plan(n, c, picked.cs)
+        assert plan is not None and picked.teams in (1, 2)
+        assert plan.teams == 2 and plan.smem_bytes <= la.SMEM_LIMIT
+        if not plan.keep_q:  # q's tiles come back into k | v's rows past the first 64
+            assert plan.qrows >= 128
+        w = 3 * HIDDEN * (c + 8) * 2 if plan.stage_w else 0
+        assert plan.off_unit >= w + 2 * plan.teams * 8  # the weight, then 2 mbarriers a team
+        # a unit's buffers: q | k | v (or k | v), then the h tile / partial
+        # ctx / ctx_w^T, then ctx and out, then the vectors; with q out of
+        # shared memory the partial ctx and ctx lie in k | v's rows 64-127
+        assert plan.u_b - plan.u_a >= min(64, plan.qrows) * (c + 8) * 2
+        if plan.keep_q:
+            if plan.cs > 1:
+                assert plan.u_b - plan.u_a >= HIDDEN * DIM_HEAD * 4
+            assert plan.u_vec - plan.u_b >= HIDDEN * (DIM_HEAD + 8) * 2
+        else:
+            assert 32 * (2 * HIDDEN + 8) * 2 >= max(HIDDEN * DIM_HEAD * 4,
+                                                    HIDDEN * (DIM_HEAD + 8) * 2)
+        if plan.keep_cw:
+            assert plan.u_b - plan.u_a >= c * (HIDDEN + 8) * 2
+        if plan.keep_out:  # out lies over ctx, which it outlives
+            assert plan.u_vec - plan.u_b >= plan.qrows * (c + 8) * 2
+        assert plan.unit_bytes - plan.u_vec >= 4 * (5 * HIDDEN + 14)
+
+
+@pytest.mark.parametrize("b", BATCHES + (2, 3, 21, 263, 264, 265, 527))
+@pytest.mark.parametrize("n,c", [(1024, 64), (256, 128), (64, 256), (16, 512), (16, 64),
+                                 (100, 64), (384, 64), (32, 64)])
+def test_persistent_units_tile_every_row_once(n, c, b):
+    """The units of a B-item launch, as the kernel walks them (unit u: item
+    u, each CTA of the cluster its slice of N / cs rows), cover every row of
+    every item exactly once, and every unit goes to exactly one team
+    whatever the number of clusters the card holds."""
+    plan = la.plan_persistent(n, c, b)
+    assert plan is not None and plan.path == "persistent"
+    units = dict(_persistent_sites(plan, n)(b))
+    seen = {}
+    for _, slices in units.items():
+        for item, first, rows in slices:
+            for r in range(first, first + rows):
+                seen[item, r] = seen.get((item, r), 0) + 1
+    assert seen == {(i, r): 1 for i in range(b) for r in range(n)}
+    for groups in (1, 3, 8, 66, 132 // plan.cs):
+        stride = plan.teams * groups
+        taken = sorted(u for g in range(groups) for t in range(plan.teams)
+                       for u in range(t * groups + g, len(units), stride))
+        assert taken == list(range(len(units)))
+
+
+@pytest.mark.parametrize("n", [16, 32])
+@pytest.mark.parametrize("b", [20, 256, 264, 265, 600, 1000, 1055, 4096])
+def test_persistent_plan_packs_whole_items(n, b):
+    """At N < 64 a unit is one whole item, on one CTA, its rows padded to
+    the mma's 16 and not to a 64-row tile; two teams once the batch has more
+    items than the card has SMs."""
+    plan = la.plan_fwd(n, 64, torch.bfloat16, b)
+    assert plan.path == "persistent" and plan.cs == 1 and plan.rows == n
+    assert plan.qrows == n and plan.keep_q  # the whole item, no padding rows
+    assert plan.teams == (1 if b <= la.SMS else 2)
+    assert plan == la.plan_persistent(n, 64, b)
 
 
 @pytest.mark.parametrize("where", ["env", "checkout", "installed"])
