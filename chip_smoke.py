@@ -18,12 +18,13 @@ CUDA graphs and replayed; the eager loops are timed beside them.  Phases, each p
 failure raises and exits nonzero:
 
 1. device: a CUDA card or exit; its name and power limit; TF32 off.
-2. build: nvcc builds every kernel source of ldm_tpu_torch/csrc/, one
-   compiler per source, started together; ptxas registers, shared memory
-   and spills per kernel; from cuobjdump's SASS, the tensor-core (HMMA,
-   HGMMA) and atomic instructions of each linear-attention, ResNet-block
-   and GroupNorm kernel: the bf16 kernels with a product must have the
-   first, the fp32 kernels none, and no kernel the second.
+2. build: nvcc builds the production sources of ldm_tpu_torch/csrc/ (not
+   the probes'), one compiler per source, started together; each library's
+   build seconds, ptxas registers, shared memory and spills per kernel;
+   from cuobjdump's SASS, the tensor-core (HMMA, HGMMA) and atomic
+   instructions of each linear-attention, ResNet-block and GroupNorm
+   kernel: the bf16 kernels with a product must have the first, the fp32
+   kernels none, and no kernel the second.
 3. forward kernel vs plain: at the 8 attention sites of the 32px UNet at
    2B=20 and 2B=128, at the 64px and 128px sites at 2B=4, and at the two
    narrow sites of configs/smoke_synthetic.yaml ((256, 8) and (64, 16), the
@@ -322,7 +323,9 @@ failure raises and exits nonzero:
    convolutions (a yardstick the port never calls).  Then ``ResNetBlockFn``
    at B=8 on a decoder site: its input and weight gradients against plain
    autograd, and the kernel launched.
-9. the probes' entry points, each with the counts set to 0 just before it:
+9. the probes' two libraries (resnet_block_probe.cu,
+   linear_attention_fwd_probe.cu) built and read as in phase 2; then the
+   probes' entry points, each one's launches counted from 0:
    ``perf.probe13.main`` (the kernel launched at each of its sites),
    ``perf.probe13b.main`` (every mode vs its plain version; ``full`` bit
    for bit the production kernel) and ``perf.probe7.main`` (stages 1-5 vs
@@ -400,7 +403,7 @@ from ldm_tpu_torch.diffusion.flow import RectifiedFlow
 from ldm_tpu_torch.experiments import augmentation as aug
 from ldm_tpu_torch.factory import build_classifier, build_diffusion, build_model, load_config
 from ldm_tpu_torch.models import unet as unet_module
-from ldm_tpu_torch.ops import build
+from ldm_tpu_torch.ops import build, launch_counts
 from ldm_tpu_torch.ops import fused_adam_ema as fa
 from ldm_tpu_torch.ops import group_norm as gn
 from ldm_tpu_torch.ops import linear_attention as la
@@ -419,7 +422,8 @@ from ldm_tpu_torch.training.diffusion_trainer import DiffusionTrainer
 from ldm_tpu_torch.training.latent_trainer import build_ldm, load_latent_scaling
 from ldm_tpu_torch.training.resnet_trainer import ResNetTrainer
 from ldm_tpu_torch.training.state import ema_decay_tensor, step_generator
-from ldm_tpu_torch.utils.graphs import KERNELS, WARMUP_STEPS
+from ldm_tpu_torch.utils import launches as registry
+from ldm_tpu_torch.utils.graphs import WARMUP_STEPS
 from ldm_tpu_torch.utils.images import load_image_folder
 from ldm_tpu_torch.utils.logging import global_norm
 
@@ -516,21 +520,19 @@ CONSISTENCY_STEPS = (1, 2, 4)
 DISTILL_FWD, DISTILL_BWD = 24, 8  # a distill step: teacher 2B, EMA target, student; backward
 
 
-# every kernel wrapper's count of launches, by the kernel's name in the result
-COUNTED = {**KERNELS, "resnet_block_probe": probe13b.probe_block,
-           "linear_attention_fwd_stage": probe7.stage_block}
+# the launches counted (utils/launches.py), by the kernel's name in the
+# result: every hand-written kernel's and the two probes'
+COUNTED = (*launch_counts(), probe13b.LIB.name, probe7.LIB.name)
 # the kernels neither main path runs (the ResNet block is wired into no UNet)
-OFF_PATH = ("resnet_block_fwd", "resnet_block_probe", "linear_attention_fwd_stage")
+OFF_PATH = ("resnet_block_fwd", probe13b.LIB.name, probe7.LIB.name)
 
 
 def zero_counts() -> None:
-    for f in COUNTED.values():
-        f.launches = 0
-    la.linear_attention_block.persistent_launches = 0
+    registry.restore({})
 
 
 def check_persistent(launches: int, b: int, sites, what: str) -> dict:
-    """``linear_attention_block.persistent_launches`` since the last
+    """The forward's launches on the persistent path since the last
     :func:`zero_counts`, after ``launches`` bf16 forward launches of a UNet
     whose attention sites are ``sites``, each at batch ``b``: as many as the
     plan sends down the persistent path, those sites a step.  Names the
@@ -538,7 +540,7 @@ def check_persistent(launches: int, b: int, sites, what: str) -> dict:
     plans = [(site, la.plan_fwd(n, c, torch.bfloat16, b)) for site, n, c in sites]
     kept = [f"{site} {plan.path}" for site, plan in plans if plan.path != "persistent"]
     want = launches // len(sites) * (len(sites) - len(kept))
-    got = la.linear_attention_block.persistent_launches
+    got = registry.read(la.PERSISTENT)
     print(f"{what}: {got} of {launches} forward launches on the persistent path (want "
           f"{want}: {len(sites) - len(kept)} of {len(sites)} a step; {', '.join(kept) or 'none'} "
           f"on another path at batch {b})")
@@ -548,7 +550,7 @@ def check_persistent(launches: int, b: int, sites, what: str) -> dict:
 
 
 def read_counts() -> dict:
-    return {name: f.launches for name, f in COUNTED.items()}
+    return {name: registry.read(name) for name in COUNTED}
 
 
 def phase(name: str) -> None:
@@ -646,12 +648,26 @@ def sass_counts(lib: str) -> dict:
     return counts
 
 
-def check_sass() -> None:
-    """Phase 2: every bf16 kernel with a product has tensor-core
-    instructions, no fp32 kernel has, no kernel has an atomic."""
-    for name in ("linear_attention_fwd.cu", "linear_attention_bwd.cu", "resnet_block_fwd.cu",
-                 "resnet_block_probe.cu", "group_norm_silu.cu"):
-        for kernel_name, n in sass_counts(str(build.build()[name][0])).items():
+def print_build(built: dict) -> None:
+    """Each library's build seconds and what ptxas said of its kernels."""
+    for name, (lib, log, seconds) in built.items():
+        print(f"built {lib} from {name} in {seconds:.1f} s with nvcc "
+              f"{' '.join(build.NVCC_FLAGS)}")
+        for line in log.splitlines():
+            if "Compiling entry" in line:
+                print(f"  ptxas: {line.strip().split(chr(39))[1]}")
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"  ptxas: {line.strip()}")
+
+
+def check_sass(built: dict) -> None:
+    """Phases 2 and 9, over the libraries ``build.build`` returned: every
+    bf16 kernel with a product has tensor-core instructions, no fp32 kernel
+    has, no kernel has an atomic (the Adam pass's library is not read)."""
+    for name, (lib, _, _) in built.items():
+        if name == "fused_adam_ema.cu":
+            continue
+        for kernel_name, n in sass_counts(str(lib)).items():
             bf16 = "bfloat16" in kernel_name
             # the kernels with products: the whole attention forward (STAGE 6;
             # the stage-1 cut has none), the backward's item and dWqkv kernels,
@@ -1119,12 +1135,12 @@ def check_unet_grads(config) -> None:
     y = torch.arange(8).to(DEV)
     for use_amp in (False, True):
         m_kernel, m_plain = seeded_pair(dataclasses.replace(config, use_amp=use_amp), seed=5)
-        before = la.linear_attention_block_bwd.launches
+        before = registry.read(la.BWD_LIB.name)
         for m in (m_kernel, m_plain):
             m.train().zero_grad(set_to_none=True)
             torch.mean((eps - m(x, t, y)) ** 2).backward()
         torch.cuda.synchronize()
-        if la.linear_attention_block_bwd.launches - before != 8:
+        if registry.read(la.BWD_LIB.name) - before != 8:
             raise AssertionError("the kernel-path backward did not launch the kernels 8 times")
         worst, dead = 0.0, []
         plain = dict(m_plain.named_parameters())
@@ -2011,14 +2027,14 @@ def check_resnet_block_fn() -> int:
     args, kw = rb_inputs(8, "dec2", 16, 192, 64, torch.float32, seed=7)
     dy = torch.randn(8, 16, 16, 64, generator=torch.Generator().manual_seed(8)).to(DEV)
     grads = []
-    rb.resnet_block.launches = 0
+    before = registry.read(rb.LIB.name)
     for fn in (rb.resnet_block, rb.resnet_block_torch):
         leaves = [a.detach().clone().requires_grad_() for a in args]
         y = fn(*leaves, **kw)
         (y * dy).sum().backward()
         grads.append([leaf.grad for leaf in leaves])
     torch.cuda.synchronize()
-    launches = rb.resnet_block.launches
+    launches = registry.read(rb.LIB.name) - before
     names = ("x", "temb", "n1s", "n1b", "w1", "b1", "n2s", "n2b", "w2", "b2", "ws", "bs")
     worst = 0.0
     for name, g, w in zip(names, *grads):
@@ -2035,17 +2051,24 @@ def check_resnet_block_fn() -> int:
 
 
 def check_probes() -> dict:
-    """Phase 9: the three probe entry points, counts set to 0 before each."""
-    rb.resnet_block.launches = 0
+    """Phase 9: the probes' own libraries built and read as phase 2 reads
+    the production set, then the three probe entry points, each one's
+    launches counted from 0."""
+    t0 = time.perf_counter()
+    built = build.build("resnet_block_probe", "linear_attention_fwd_probe")
+    print_build(built)
+    print(f"probe build wall time {time.perf_counter() - t0:.1f} s (compiled in parallel)")
+    check_sass(built)
+    before = registry.read(rb.LIB.name)
     rows13 = probe13.main(["--iters", "5"])
-    launches13 = rb.resnet_block.launches
+    launches13 = registry.read(rb.LIB.name) - before
     for r in rows13:
         if r["launches"] < 1 or not r["rel_err"] <= RB_TOL[torch.bfloat16]:
             raise AssertionError(f"probe13 {r}")
 
-    probe13b.probe_block.launches = 0
+    before = registry.read(probe13b.LIB.name)
     rows13b = probe13b.main(["--iters", "5"])
-    launches13b = probe13b.probe_block.launches
+    launches13b = registry.read(probe13b.LIB.name) - before
     bad = [r["mode"] for r in rows13b if not r["ok"]]
     if bad or launches13b < len(probe13b.MODES):
         raise AssertionError(f"probe13b modes {bad} off their plain versions, "
@@ -2058,9 +2081,9 @@ def check_probes() -> dict:
         raise AssertionError("probe13b full mode differs from the production kernel")
     print("probe13b full mode bit-identical to the production ResNet-block kernel (B=8)")
 
-    probe7.stage_block.launches = 0
+    before = registry.read(probe7.LIB.name)
     rows7 = probe7.main(["--iters", "5"])
-    launches7 = probe7.stage_block.launches
+    launches7 = registry.read(probe7.LIB.name) - before
     bad = [r["stage"] for r in rows7 if not r["ok"]]
     if bad or launches7 < len(probe7.STAGES):
         raise AssertionError(f"probe7 stages {bad} failed, {launches7} launches")
@@ -2138,12 +2161,12 @@ def protocol_launches(family: str, config, ddim_steps=None, negative_control=Tru
         # ancestral T=400 (or DDIM); broken: DDIM-5, cfg 0
         c_steps, c_broken, per = ddim_steps or T_STEPS, 5, 8
     per_broken = per if family == "flow" else 8
-    want = {"A": {"linear_attention_block": 8 * steps + 16 * val_batches,
-                  "linear_attention_block_bwd": 8 * steps, "fused_adam_ema": steps,
+    want = {"A": {"linear_attention_fwd": 8 * steps + 16 * val_batches,
+                  "linear_attention_bwd": 8 * steps, "fused_adam_ema": steps,
                   "group_norm_silu": GN_PIXEL * 2 * val_batches},
-            "C": {"linear_attention_block": per * (chunks * c_steps + WARMUP_STEPS),
+            "C": {"linear_attention_fwd": per * (chunks * c_steps + WARMUP_STEPS),
                   "group_norm_silu": GN_PIXEL * per // 8 * (chunks * c_steps + WARMUP_STEPS)},
-            "C_broken": {"linear_attention_block": per_broken * (chunks * c_broken
+            "C_broken": {"linear_attention_fwd": per_broken * (chunks * c_broken
                                                                  + WARMUP_STEPS),
                          "group_norm_silu": GN_PIXEL * per_broken // 8
                          * (chunks * c_broken + WARMUP_STEPS)}}
@@ -2152,8 +2175,8 @@ def protocol_launches(family: str, config, ddim_steps=None, negative_control=Tru
     for name, n in classifier_steps(n_train, 10 * PROTOCOL_PER_CLASS,
                                     config.batch_size).items():
         want[name] = {"fused_adam_ema": n}
-    return {phase: {"linear_attention_block": 0, "linear_attention_block_bwd": 0,
-                    "resnet_block": 0, "fused_adam_ema": 0, "group_norm_silu": 0}
+    return {phase: {"linear_attention_fwd": 0, "linear_attention_bwd": 0,
+                    "resnet_block_fwd": 0, "fused_adam_ema": 0, "group_norm_silu": 0}
             | want.get(phase, {}) for phase in phases}
 
 
@@ -2321,13 +2344,13 @@ def run_protocol(family: str, tag: str) -> dict:
         print(f"{family} wall seconds by phase: "
               + ", ".join(f"{k} {v:.3f}" for k, v in result.seconds.items()))
         print(f"{family} attention launches by phase (forward / backward): "
-              + ", ".join(f"{k} {v['linear_attention_block']} / "
-                          f"{v['linear_attention_block_bwd']}"
+              + ", ".join(f"{k} {v['linear_attention_fwd']} / "
+                          f"{v['linear_attention_bwd']}"
                           for k, v in result.launches.items()))
         want = protocol_launches(family, config)
         if result.launches != want:
             raise AssertionError(f"{family} launches by phase {result.launches}, want {want}")
-        if counts["linear_attention_fwd"] != sum(v["linear_attention_block"]
+        if counts["linear_attention_fwd"] != sum(v["linear_attention_fwd"]
                                                  for v in want.values()):
             raise AssertionError(f"{family}: {counts} launches in the run")
         (phase_c, *_) = dt.diffusion.sampler_graphs()
@@ -2517,8 +2540,8 @@ def check_drill(tag: str) -> dict:
                 raise AssertionError(f"wandb got Phase A's losses {got}, metrics.jsonl {want}")
             # the attention launches by phase
             print("attention launches by phase (forward / backward): "
-                  + ", ".join(f"{k} {v['linear_attention_block']} / "
-                              f"{v['linear_attention_block_bwd']}"
+                  + ", ".join(f"{k} {v['linear_attention_fwd']} / "
+                              f"{v['linear_attention_bwd']}"
                               for k, v in result.launches.items()))
             want_launches = protocol_launches("pixel", config, ddim_steps=DRILL_DDIM_STEPS,
                                               negative_control=False)
@@ -2526,9 +2549,9 @@ def check_drill(tag: str) -> dict:
                 raise AssertionError(f"launches by phase {result.launches}, want "
                                      f"{want_launches}")
             if counts["linear_attention_fwd"] != sum(
-                    v["linear_attention_block"] for v in want_launches.values()) or \
+                    v["linear_attention_fwd"] for v in want_launches.values()) or \
                     counts["linear_attention_bwd"] != want_launches["A"][
-                        "linear_attention_block_bwd"]:
+                        "linear_attention_bwd"]:
                 raise AssertionError(f"{counts} launches in the run")
             img_s = 10 * PROTOCOL_PER_CLASS / result.seconds["C"]
             print(f"MNIST drill: {wall:.3f} s in all; by phase "
@@ -3005,21 +3028,21 @@ def run_latent_protocol(workdir: str, ae_ckpt: str, tag: str) -> dict:
     steps = n_train // config.batch_size
     val_batches = (PROTOCOL_SIZE // 2 - n_train) // config.batch_size  # the last one dropped
     chunks = -(-10 * PROTOCOL_PER_CLASS // SAMPLE_B)
-    zero = {"linear_attention_block": 0, "linear_attention_block_bwd": 0, "resnet_block": 0,
+    zero = {"linear_attention_fwd": 0, "linear_attention_bwd": 0, "resnet_block_fwd": 0,
             "fused_adam_ema": 0, "group_norm_silu": 0}
     want = {phase: dict(zero) for phase in ["A", "C", "C_broken"] + PROTOCOL_EXPS}
     # the GroupNorm pass: the VAE's encode in each train step and validation
     # batch, a validation batch's two UNet forwards, Phase C's sampler steps
     # and one decode a chunk
-    want["A"].update(linear_attention_block=2 * steps + 4 * val_batches,
-                     linear_attention_block_bwd=2 * steps, fused_adam_ema=steps,
+    want["A"].update(linear_attention_fwd=2 * steps + 4 * val_batches,
+                     linear_attention_bwd=2 * steps, fused_adam_ema=steps,
                      group_norm_silu=GN_VAE_ENC * steps
                      + val_batches * (GN_VAE_ENC + 2 * GN_LATENT))
     for name, n in classifier_steps(n_train, 10 * PROTOCOL_PER_CLASS,
                                     config.batch_size).items():
         want[name]["fused_adam_ema"] = n
-    want["C"]["linear_attention_block"] = 2 * (chunks * t_steps + WARMUP_STEPS)
-    want["C_broken"]["linear_attention_block"] = 2 * chunks * t_steps
+    want["C"]["linear_attention_fwd"] = 2 * (chunks * t_steps + WARMUP_STEPS)
+    want["C_broken"]["linear_attention_fwd"] = 2 * chunks * t_steps
     want["C"]["group_norm_silu"] = (GN_LATENT * (chunks * t_steps + WARMUP_STEPS)
                                     + GN_VAE_DEC * chunks)
     want["C_broken"]["group_norm_silu"] = GN_LATENT * chunks * t_steps + GN_VAE_DEC * chunks
@@ -3028,7 +3051,7 @@ def run_latent_protocol(workdir: str, ae_ckpt: str, tag: str) -> dict:
     print("latent wall seconds by phase: "
           + ", ".join(f"{k} {v:.3f}" for k, v in result.seconds.items()))
     print("latent attention launches by phase (forward / backward): "
-          + ", ".join(f"{k} {v['linear_attention_block']} / {v['linear_attention_block_bwd']}"
+          + ", ".join(f"{k} {v['linear_attention_fwd']} / {v['linear_attention_bwd']}"
                       for k, v in result.launches.items()))
     if result.launches != want:
         raise AssertionError(f"latent launches by phase {result.launches}, want {want}")
@@ -4251,7 +4274,7 @@ def check_resolution(tag: str) -> dict:
     for size in RES_SP_SIZES:
         row = sp[f"{size}px"]
         for name, m, _ in p41.ROWS:
-            want = dict.fromkeys(KERNELS, 0) | (
+            want = dict.fromkeys(launch_counts(), 0) | (
                 {"linear_attention_fwd": 8, "linear_attention_bwd": 8} if m == 1 else {})
             if row[name]["launches_per_step"] != want:
                 raise AssertionError(f"probe 41 {size}px {name}: {row[name]}")
@@ -4372,7 +4395,7 @@ def check_fused_edges(tag: str) -> None:
     elements (scalar tails), every third one at an address 4 bytes off 16
     (the scalar path), every fifth one without a gradient, with and without
     the EMA; bit for bit and launches as the groups give them."""
-    per_launch = build.load().ldm_fused_adam_ema_leaves()
+    per_launch = fa.LIB.ldm_fused_adam_ema_leaves()
     n_leaves = per_launch + 52
     g = torch.Generator(device=DEV).manual_seed(44)
     sizes = torch.randint(1, 9000, (n_leaves,), generator=torch.Generator().manual_seed(45))
@@ -4394,9 +4417,9 @@ def check_fused_edges(tag: str) -> None:
         runs = []
         for fn in (fa.fused_adam_ema, fa.fused_adam_ema_torch):
             p, grads, m, v, e = ([None if t is None else t.clone() for t in ts] for ts in base)
-            before = fa.fused_adam_ema.launches
+            before = registry.read(fa.LIB.name)
             fn(p, grads, m, v, e if ema else None, count, d, 1e-3, 0.9, 0.999, 1e-8)
-            runs.append((p, m, v, e, fa.fused_adam_ema.launches - before))
+            runs.append((p, m, v, e, registry.read(fa.LIB.name) - before))
         torch.cuda.synchronize()
         (kp, km, kv, ke, launches), (pp, pm, pv, pe, _) = runs
         same = all(torch.equal(a, b) for xs, ys in ((kp, pp), (km, pm), (kv, pv), (ke, pe))
@@ -4577,7 +4600,7 @@ def check_bench(config, sampler_device_ms: float, train_graphed_ms: float, tag: 
     want_train = 1e3 / train_graphed_ms
     count = flops.sampler_flops_per_img_step(build_model(config))
     want_mfu = count * bench.T * line["value"] / flops.H100_SXM_BF16_PEAK_FLOPS
-    zero = dict.fromkeys(KERNELS, 0.0)
+    zero = dict.fromkeys(launch_counts(), 0.0)
     want_launches = {"sampler_b64": zero | {"linear_attention_fwd": 8.0 * bench.T,
                                             "group_norm_silu": float(GN_PIXEL * bench.T)},
                      "train_step": zero | {"linear_attention_fwd": 8.0,
@@ -4641,17 +4664,11 @@ def main(argv=None) -> None:
 
     phase("2 build")
     t0 = time.perf_counter()
-    for name, (lib, log, seconds) in build.build().items():
-        print(f"built {lib} from {name} in {seconds:.1f} s with nvcc "
-              f"{' '.join(build.NVCC_FLAGS)}")
-        for line in log.splitlines():
-            if "Compiling entry" in line:
-                print(f"  ptxas: {line.strip().split(chr(39))[1]}")
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"  ptxas: {line.strip()}")
-    print(f"build wall time {time.perf_counter() - t0:.1f} s (sources compiled in parallel)")
-    check_sass()
-    build.load()
+    built = build.build()
+    print_build(built)
+    print(f"build wall time {time.perf_counter() - t0:.1f} s (the production sources compiled "
+          f"in parallel)")
+    check_sass(built)
 
     phase("3 forward kernel vs plain")
     kernel = check_kernel(tag)
@@ -4975,7 +4992,7 @@ def main(argv=None) -> None:
         "source": "ldm_tpu_torch/csrc/resnet_block_probe.cu",
         "replaces": "perf/probe13b.py:40",
         "launches": launches13b,
-        "launches_per_step": per_step("resnet_block_probe"),
+        "launches_per_step": per_step(probe13b.LIB.name),
         "max_abs_err": max(r["rel_err"] for r in rows13b),
         "err_unit": "max_abs_err / max|plain|, worst mode",
         **times({"ms": rows13b[-1]["ms"], "plain_ms": rows13b[-1]["plain_ms"], **probe_full}),
@@ -4985,10 +5002,10 @@ def main(argv=None) -> None:
     }, {
         "name": "linear_attention_fwd_stage",
         "route": "cuda",
-        "source": "ldm_tpu_torch/csrc/linear_attention_fwd.cu",
+        "source": "ldm_tpu_torch/csrc/linear_attention_fwd_probe.cu",
         "replaces": "perf/probe7.py:30",
         "launches": launches7,
-        "launches_per_step": per_step("linear_attention_fwd_stage"),
+        "launches_per_step": per_step(probe7.LIB.name),
         "max_abs_err": max(r["max_abs_err"] for r in rows7),
         **times({"ms": rows7[-1]["ms"], "plain_ms": rows7[-1]["plain_ms"], **stage6}),
         "ms_by_stage": {r["stage"]: r["ms"] for r in rows7},

@@ -72,6 +72,7 @@ from ldm_tpu_torch.diffusion.flow import RectifiedFlow
 from ldm_tpu_torch.models.autoencoder import Autoencoder
 from ldm_tpu_torch.models.resnet import ResNetBase
 from ldm_tpu_torch.models.unet import UNet
+from ldm_tpu_torch.ops import launch_counts
 from ldm_tpu_torch.perf.common import card
 from ldm_tpu_torch.perf.flops import (
     H100_SXM_BF16_PEAK_FLOPS,
@@ -83,7 +84,6 @@ from ldm_tpu_torch.perf.flops import (
 from ldm_tpu_torch.training.autoencoder_trainer import AutoencoderTrainer
 from ldm_tpu_torch.training.diffusion_trainer import DiffusionTrainer
 from ldm_tpu_torch.training.resnet_trainer import ResNetTrainer
-from ldm_tpu_torch.utils.graphs import launch_counts
 
 OUR_BATCHES = (64, 128, 256)
 QUICK_BATCHES = (64,)  # the best of OUR_BATCHES on the card (PERF.md)

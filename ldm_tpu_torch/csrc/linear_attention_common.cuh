@@ -1,5 +1,5 @@
 // Shared device helpers of the fused linear-attention kernels
-// (linear_attention_fwd.cu, linear_attention_bwd.cu): the block shape, the
+// (linear_attention_fwd.cuh, linear_attention_bwd.cu): the block shape, the
 // reductions in a fixed order inside a CTA and across a thread-block cluster
 // (through distributed shared memory), and the tile products.
 //

@@ -27,7 +27,7 @@ trainers do.  With one seed two runs give the same F1s and FIDs, bit for bit
 JAX package's, whose draws torch cannot replay.
 
 ``result.seconds`` holds each phase's wall time, and ``result.launches`` the
-kernel launches each phase made, by kernel (``utils.graphs.COUNTED``).
+kernel launches each phase made, by kernel (``ops.launch_counts``).
 """
 
 from __future__ import annotations
@@ -53,6 +53,7 @@ from ldm_tpu_torch.factory import (
     load_config,
 )
 from ldm_tpu_torch.models.resnet import ResNetBase
+from ldm_tpu_torch.ops import launch_counts
 from ldm_tpu_torch.ops.fid import fid_from_features, pixel_fid
 from ldm_tpu_torch.models.latent import SD_SCALING
 from ldm_tpu_torch.training.diffusion_trainer import DiffusionTrainer
@@ -64,7 +65,6 @@ from ldm_tpu_torch.training.latent_trainer import (
 )
 from ldm_tpu_torch.training.resnet_trainer import ResNetTrainer
 from ldm_tpu_torch.training.state import step_generator
-from ldm_tpu_torch.utils.graphs import COUNTED
 from ldm_tpu_torch.utils.images import save_images
 from ldm_tpu_torch.utils.logging import MetricsLogger
 
@@ -96,8 +96,8 @@ class AugmentationResult:
 
 
 class _Phases:
-    """Wall seconds and kernel launches by phase; the launches are the
-    counts of the wrappers that count them, read around the phase."""
+    """Wall seconds and kernel launches by phase; the launches are
+    :func:`launch_counts`, read around the phase."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -105,7 +105,7 @@ class _Phases:
         self.launches: Dict[str, Dict[str, int]] = {}
 
     def run(self, name: str, fn, *args, **kw):
-        before = [f.launches for f in COUNTED]
+        before = launch_counts()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
@@ -113,7 +113,7 @@ class _Phases:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.seconds[name] = time.perf_counter() - t0
-        self.launches[name] = {f.__name__: f.launches - n for f, n in zip(COUNTED, before)}
+        self.launches[name] = {k: v - before[k] for k, v in launch_counts().items()}
         return out
 
 

@@ -17,14 +17,17 @@ serves self-attention (M = N) and cross-attention (k and v from a context):
   blocks of queries so that the scores of one block stay under
   :data:`BLOCK_ELEMENTS` elements.
 
-``softmax_attention.calls`` counts the calls by kind, in Python: a replayed
-CUDA graph adds nothing to it (its capture counted once).
+The calls are counted by kind as ``softmax_attention.self`` and
+``softmax_attention.cross`` (``utils/launches.py``; a replayed CUDA graph
+adds its capture's).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ldm_tpu_torch.utils import launches
 
 KINDS = ("self", "cross")
 # score elements of one block of queries in the plain version (1 GiB in fp32)
@@ -66,7 +69,7 @@ def softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``kind`` "self" or "cross"."""
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
-    softmax_attention.calls[kind] += 1
+    launches.count(f"softmax_attention.{kind}")
     if not takes_fused(q):
         return softmax_attention_torch(q, k, v)
     from torch.nn.attention import sdpa_kernel
@@ -74,5 +77,3 @@ def softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with sdpa_kernel(_fused_backends()):
         return F.scaled_dot_product_attention(q, k, v)
 
-
-softmax_attention.calls = dict.fromkeys(KINDS, 0)  # calls by kind, counted where they happen

@@ -5,9 +5,14 @@ under ``ldm_tpu_torch/csrc/`` into its own shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds, not minutes), for
 Hopper's ``sm_90a`` target; the sources' compilers run at the same time.
 Each library lands in :func:`build_dir`, named by a hash of its source, the
-shared headers and the flags, so an edited file never loads a stale build.
-It is written to a temporary name and renamed into place, so concurrent
-processes never load a half-written file.
+headers it includes and the flags, so an edited file never loads a stale
+build.  It is written to a temporary name and renamed into place, so
+concurrent processes never load a half-written file.
+
+This module knows sources by name and nothing of what they export: the
+module that calls a library declares its entry points (:class:`Library`).
+A source whose name ends in ``_probe`` is a probe's, built only when asked
+for by name; the production set is every other source.
 
 Nothing here runs at import: the CPU tests import every module on machines
 without ``nvcc``.
@@ -19,12 +24,14 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import time
-import types
 from pathlib import Path
+
+from ldm_tpu_torch.utils import launches
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 # the root of the checkout when the package runs from source
@@ -63,36 +70,55 @@ def build_dir() -> Path:
 
 
 def sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+    """The production sources: every one but the probes'."""
+    return sorted(s for s in CSRC.glob("*.cu") if not s.stem.endswith("_probe"))
 
 
-def headers() -> list[Path]:
-    return sorted(CSRC.glob("*.cuh"))
+def launch_counts() -> dict:
+    """Each production library's launches so far (``utils/launches.py``),
+    by its source's name: its caller counts under that name
+    (:meth:`Library.count`)."""
+    return {s.stem: launches.read(s.stem) for s in sources()}
+
+
+def includes(source: Path) -> list[Path]:
+    """The headers beside ``source`` that it includes, directly or through
+    another of them, sorted by name."""
+    found, todo = set(), [source]
+    while todo:
+        for name in re.findall(r'^\s*#\s*include\s*"([^"]+)"', todo.pop().read_text(), re.M):
+            header = source.parent / name
+            if header.is_file() and header not in found:
+                found.add(header)
+                todo.append(header)
+    return sorted(found)
 
 
 def lib_path(source: Path) -> Path:
-    """Where the library built from ``source`` (with the current headers and
-    flags) lives."""
+    """Where the library built from ``source`` (with the headers it includes
+    and the flags) lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in [source, *headers()]:
+    for src in [source, *includes(source)]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return build_dir() / f"libldm_tpu_torch_{source.stem}_{h.hexdigest()[:16]}.so"
 
 
 @functools.lru_cache(maxsize=None)
-def build() -> dict[str, tuple[Path, str, float]]:
-    """Compile every source's library that is not built yet, one ``nvcc`` per
+def build(*names: str) -> dict[str, tuple[Path, str, float]]:
+    """Compile the libraries of the named sources (``csrc/<name>.cu``; none
+    named: the production set) that are not built yet, one ``nvcc`` per
     source, all started together.
 
-    Returns, for each source's name: the library's path, the compiler's output
-    (``-Xptxas -v`` reports each kernel's registers, shared memory and
+    Returns, for each source's file name: the library's path, the compiler's
+    output (``-Xptxas -v`` reports each kernel's registers, shared memory and
     spills; empty when the library was already there) and the seconds its
     build took.  Raises if an ``nvcc`` fails.
     """
+    srcs = [CSRC / f"{name}.cu" for name in names] if names else sources()
     jobs, done, tmps = {}, {}, []
     try:
-        for src in sources():
+        for src in srcs:
             out = lib_path(src)
             if out.exists():
                 done[src.name] = (out, "", 0.0)
@@ -123,68 +149,31 @@ def build() -> dict[str, tuple[Path, str, float]]:
     return done
 
 
-@functools.lru_cache(maxsize=None)
-def load() -> types.SimpleNamespace:
-    """Every source's built library, loaded, with every entry point's C
-    signature declared; the entry points are the namespace's attributes."""
-    libs = {name: ctypes.CDLL(str(path)) for name, (path, _, _) in build().items()}
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fwd = libs["linear_attention_fwd.cu"].ldm_lin_attn_fwd
-    # dtype, x, wqkv_t, wout_t, bout, g1s, g1b, g2s, g2b, y, qkv scratch,
-    # ctx@Wout scratch, B, N, C, the true C, eps, plan (host ints), smem bytes,
-    # stream
-    fwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, f,
-                    ctypes.POINTER(ctypes.c_int), i, p]
-    fwd.restype = i
-    stage = libs["linear_attention_fwd.cu"].ldm_lin_attn_fwd_stage
-    stage.argtypes = [i] + fwd.argtypes  # stage, then the forward's arguments
-    stage.restype = i
-    persistent = libs["linear_attention_fwd.cu"].ldm_lin_attn_fwd_persistent
-    # x, wqkv_t, wout_t, bout, g1s, g1b, g2s, g2b, y, ctx@Wout scratch, q
-    # scratch, their slots, B, N, C, the true C, eps, plan (host ints), smem
-    # bytes, stream
-    persistent.argtypes = [p] * 11 + [i, i, i, i, i, f, ctypes.POINTER(ctypes.c_int), i, p]
-    persistent.restype = i
-    persistent_stage = libs["linear_attention_fwd.cu"].ldm_lin_attn_fwd_persistent_stage
-    persistent_stage.argtypes = [i] + persistent.argtypes
-    persistent_stage.restype = i
-    bwd_lib = libs["linear_attention_bwd.cu"]
-    splits = bwd_lib.ldm_lin_attn_bwd_splits
-    splits.argtypes = [i, i, i]  # B, N, C
-    splits.restype = i
-    bwd = bwd_lib.ldm_lin_attn_bwd
-    # dtype, x, dy, wqkv, wqkv_t, wout, wout_t, bout, g1s, g1b, g2s, dx, dwqkv,
-    # dwout, dvec, 11 scratch buffers, B, N, C, the true C, splits, eps, plan
-    # (host ints), smem bytes, stream
-    bwd.argtypes = [i] + [p] * 25 + [i, i, i, i, i, f, ctypes.POINTER(ctypes.c_int), i, p]
-    bwd.restype = i
-    rb = libs["resnet_block_fwd.cu"].ldm_resnet_block_fwd
-    # dtype, x, temb, n1s, n1b, w1, b1, n2s, n2b, w2, b2, ws, bs, y, h1 scratch,
-    # padded-weight scratch, statistics scratch, B, H, W, C_in, C_out, groups,
-    # eps, plan (host ints), stream
-    rb.argtypes = [i] + [p] * 16 + [i] * 6 + [f, ctypes.POINTER(ctypes.c_int), p]
-    rb.restype = i
-    rb_probe = libs["resnet_block_probe.cu"].ldm_resnet_block_probe
-    rb_probe.argtypes = [i] + rb.argtypes  # mode, then the block's arguments
-    rb_probe.restype = i
-    adam = libs["fused_adam_ema.cu"].ldm_fused_adam_ema
-    # leaves, the leaf table (7 rows of 64-bit words), d, lr, b1, b2, 1 - b1,
-    # 1 - b2, eps, stream, launches made (out)
-    adam.argtypes = [i, ctypes.POINTER(ctypes.c_longlong), p, f, f, f, f, f, f, p,
-                     ctypes.POINTER(ctypes.c_int)]
-    adam.restype = i
-    adam_leaves = libs["fused_adam_ema.cu"].ldm_fused_adam_ema_leaves
-    adam_leaves.argtypes = []
-    adam_leaves.restype = i
-    gn = libs["group_norm_silu.cu"].ldm_group_norm_silu
-    # x, gamma, beta, y, B, H*W, C, G, eps, silu, plan (host ints), stream
-    gn.argtypes = [p] * 4 + [i] * 4 + [f, i, ctypes.POINTER(ctypes.c_int), p]
-    gn.restype = i
-    return types.SimpleNamespace(ldm_lin_attn_fwd=fwd, ldm_lin_attn_fwd_stage=stage,
-                                 ldm_lin_attn_fwd_persistent=persistent,
-                                 ldm_lin_attn_fwd_persistent_stage=persistent_stage,
-                                 ldm_lin_attn_bwd=bwd, ldm_lin_attn_bwd_splits=splits,
-                                 ldm_resnet_block_fwd=rb, ldm_resnet_block_probe=rb_probe,
-                                 ldm_fused_adam_ema=adam,
-                                 ldm_fused_adam_ema_leaves=adam_leaves,
-                                 ldm_group_norm_silu=gn)
+class Library:
+    """The library of ``csrc/<name>.cu``, built and loaded at the first call
+    of one of its ``entry_points`` ({function: (argtypes, restype)}), each
+    declared with its C signature: ``Library(...).<function>(*args)``.  A
+    production source's first load builds the production set
+    (:func:`build`), a probe's that source alone.  Its caller counts the
+    kernel's launches under the source's name (:meth:`count`)."""
+
+    def __init__(self, name: str, entry_points: dict):
+        self.name, self.entry_points, self.cdll = name, entry_points, None
+
+    def count(self, n: int = 1) -> None:
+        launches.count(self.name, n)
+
+    def declare(self, lib: ctypes.CDLL) -> ctypes.CDLL:
+        for function, (argtypes, restype) in self.entry_points.items():
+            f = getattr(lib, function)
+            f.argtypes, f.restype = argtypes, restype
+        return lib
+
+    def __getattr__(self, function: str):
+        if function not in self.entry_points:
+            raise AttributeError(f"{function} is no declared entry point of {self.name}")
+        if self.cdll is None:
+            source = CSRC / f"{self.name}.cu"
+            built = build() if source in sources() else build(self.name)
+            self.cdll = self.declare(ctypes.CDLL(str(built[source.name][0])))
+        return getattr(self.cdll, function)

@@ -17,7 +17,8 @@ in fp32, with ``c1 = 1 - b1**count`` and ``c2 = 1 - b2**count`` where
   written after the JAX function's lines and rounding where they round.
 * :func:`fused_adam_ema` dispatches: CPU tensors take the plain version; CUDA
   tensors launch ``csrc/fused_adam_ema.cu`` (one launch for up to 448 leaves)
-  or raise.  ``fused_adam_ema.launches`` counts the kernel's launches.
+  or raise; they count its launches as ``fused_adam_ema``
+  (``utils/launches.py``, through ``LIB.count``).
 
 Both update ``params``, the moments and the EMA in place and leave the step
 counts alone: the caller increments them after the pass.  A leaf whose
@@ -85,6 +86,16 @@ def _check(params, grads, exp_avgs, exp_avg_sqs, emas, count, d) -> None:
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
+LIB = build.Library("fused_adam_ema", {
+    # leaves, the leaf table (7 rows of 64-bit words), d, lr, b1, b2, 1 - b1,
+    # 1 - b2, eps, stream, launches made (out)
+    "ldm_fused_adam_ema": ([ctypes.c_int, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
+                            *[ctypes.c_float] * 6, ctypes.c_void_p,
+                            ctypes.POINTER(ctypes.c_int)], ctypes.c_int),
+    # the leaves one launch takes
+    "ldm_fused_adam_ema_leaves": ([], ctypes.c_int)})
+
+
 def _launch_kernel(params, grads, exp_avgs, exp_avg_sqs, emas, count, d,
                    lr, b1, b2, eps) -> int:
     """The kernel's launches over the table of the leaves, built anew from the
@@ -108,11 +119,10 @@ def _launch_kernel(params, grads, exp_avgs, exp_avg_sqs, emas, count, d,
     rows.append([params[i].numel() for i in leaves])
     table = (ctypes.c_longlong * (7 * n))(*(w for row in rows for w in row))
     launches = ctypes.c_int(0)
-    lib = build.load()
     device = params[0].device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.ldm_fused_adam_ema(n, table, ptr(d), lr, b1, b2, 1.0 - b1, 1.0 - b2, eps,
+        err = LIB.ldm_fused_adam_ema(n, table, ptr(d), lr, b1, b2, 1.0 - b1, 1.0 - b2, eps,
                                      stream, ctypes.byref(launches))
     if err != 0:
         raise RuntimeError(f"fused Adam + EMA launch failed: CUDA error {err} ({n} leaves)")
@@ -143,8 +153,5 @@ def fused_adam_ema(params: Tensors, grads: Sequence[Optional[torch.Tensor]],
                                     lr, b1, b2, eps)
     if device.type != "cuda":
         raise ValueError(f"fused_adam_ema runs on CPU or CUDA tensors, got {device}")
-    fused_adam_ema.launches += _launch_kernel(params, grads, exp_avgs, exp_avg_sqs, emas,
-                                              count, d, lr, b1, b2, eps)
-
-
-fused_adam_ema.launches = 0  # kernel launches (one per table group), counted where they happen
+    LIB.count(_launch_kernel(params, grads, exp_avgs, exp_avg_sqs, emas, count, d, lr, b1, b2,
+                             eps))

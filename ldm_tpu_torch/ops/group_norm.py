@@ -10,7 +10,8 @@ channels_last; a ResNet block puts a SiLU after its norms.
   memory_format=channels_last)``, then ``F.silu`` with ``silu``.
 * :func:`group_norm_silu` dispatches: a CPU tensor takes the plain version;
   a CUDA tensor launches ``csrc/group_norm_silu.cu`` (one launch a call) or
-  raises.  ``group_norm_silu.launches`` counts the kernel's launches.
+  raises; it counts its launches as ``group_norm_silu``
+  (``utils/launches.py``).
 * :func:`plan_group_norm` chooses the launch's shape from (H*W, C, G) alone:
   the threads a CTA, the CTAs that share an item (a thread-block cluster) or
   the items that share a CTA, and the chunks a thread holds in registers.
@@ -136,6 +137,13 @@ def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> None:
                              f"got {None if t is None else (tuple(t.shape), t.dtype, t.device)}")
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+LIB = build.Library("group_norm_silu", {
+    # x, gamma, beta, y, B, H*W, C, G, eps, silu, plan (host ints), stream
+    "ldm_group_norm_silu": ([_P] * 4 + [_I] * 4 + [ctypes.c_float, _I, ctypes.POINTER(_I), _P],
+                            _I)})
+
+
 def _launch_kernel(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int,
                    eps: float, silu: bool) -> torch.Tensor:
     _check(x, weight, bias)
@@ -144,10 +152,9 @@ def _launch_kernel(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, gr
     y = torch.empty_like(x, memory_format=_CL)
     if b == 0:
         return y
-    lib = build.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ldm_group_norm_silu(x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+        err = LIB.ldm_group_norm_silu(x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
                                       y.data_ptr(), b, h * w, c, groups, eps, int(silu),
                                       (ctypes.c_int * len(plan))(*plan), stream)
     if err != 0:
@@ -167,8 +174,5 @@ def group_norm_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, g
     if x.device.type != "cuda":
         raise ValueError(f"no GroupNorm implementation for device {x.device}")
     y = _launch_kernel(x, weight, bias, groups, eps, silu)
-    group_norm_silu.launches += 1
+    LIB.count()
     return y
-
-
-group_norm_silu.launches = 0  # kernel launches (one a call), counted where they happen

@@ -26,8 +26,8 @@ block, Residual(PreNorm(LinearAttention)), runs as one op:
   requires grad, it runs :class:`LinearAttentionBlockFn`; otherwise a CPU
   tensor takes the plain forward and a CUDA tensor the forward kernel.  A
   CUDA tensor launches a kernel or raises: there is no fallback to the plain
-  versions.  ``linear_attention_block.launches`` and
-  ``linear_attention_block_bwd.launches`` count the kernels' launches.
+  versions.  The launches are counted as ``linear_attention_fwd`` and
+  ``linear_attention_bwd`` (``utils/launches.py``).
 * :func:`plan_fwd` chooses the forward's schedule from (B, N, C, dtype):
   in bf16, where two units fit in shared memory, the persistent path
   (:func:`plan_persistent`: one block a SM, two teams of 8 warps each
@@ -36,8 +36,8 @@ block, Residual(PreNorm(LinearAttention)), runs as one op:
   memory) or the tiled path (through global scratch).  :func:`plan_bwd`
   chooses the backward's from (N, C, dtype): the CTAs that share an item
   (:func:`cluster_size`) and the same two paths.  The kernels follow the
-  plan; ``linear_attention_block.persistent_launches`` counts the forward
-  launches that took the persistent path.
+  plan; ``linear_attention_fwd.persistent`` counts the forward launches
+  that took the persistent path.
 * :class:`KernelWeights` holds the two projection weights in the compute
   type, in both orientations, as the kernels read them; a caller that keeps
   its weights (``models.unet.LinAttnBlock``) makes them once per weight
@@ -59,6 +59,7 @@ import torch
 
 from ldm_tpu_torch.ops import build
 from ldm_tpu_torch.ops.collectives import copy_to_model, reduce_from_model
+from ldm_tpu_torch.utils import launches
 
 HIDDEN = 128  # heads * dim_head the kernel is written for
 DIM_HEAD = 32
@@ -280,7 +281,7 @@ SMEM_LIMIT = 232_448  # dynamic shared memory one CTA can take on an H100
 TILE_R = 64  # rows of a tile
 MAX_CLUSTER = 8  # the portable cluster size
 MIN_ROWS = 128  # the fewest rows of an item a CTA of a cluster takes
-# the persistent forward (csrc/linear_attention_fwd.cu, lin_attn_fwd_persistent_kernel)
+# the persistent forward (csrc/linear_attention_fwd.cuh, lin_attn_fwd_persistent_kernel)
 TEAMS = 2  # units in flight on an SM: teams of 8 warps a block
 MAX_CLUSTER_PERSISTENT = 16  # the non-portable cluster size
 UNIT_ROWS = (128, 64)  # the rows of an item a unit's slice takes, in the order tried
@@ -344,7 +345,7 @@ def _row_pad(dtype: torch.dtype) -> int:
 @dataclasses.dataclass(frozen=True)
 class FwdPlan:
     """The forward kernel's launch plan (``FwdPlan`` in
-    csrc/linear_attention_fwd.cu): cluster size, rows a CTA, what stays in
+    csrc/linear_attention_fwd.cuh): cluster size, rows a CTA, what stays in
     shared memory, byte offsets of the buffers there, and the total."""
 
     cs: int
@@ -370,7 +371,7 @@ class FwdPlan:
 @dataclasses.dataclass(frozen=True)
 class PersistentPlan:
     """The persistent forward's launch plan (``PersistPlan`` in
-    csrc/linear_attention_fwd.cu).  A unit is one item's slice of ``rows``
+    csrc/linear_attention_fwd.cuh).  A unit is one item's slice of ``rows``
     rows, the item split over a cluster of ``cs`` CTAs (the whole item at
     ``cs`` 1); ``teams`` units are in flight on each SM.  Offsets are bytes
     into dynamic shared memory, the ``u_*`` ones into a team's unit buffers."""
@@ -683,6 +684,27 @@ def _check_cuda_args(x, params, heads, dim_head, compute_dtype, max_c=MAX_C_FWD,
         )
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+FWD_LIB = build.Library("linear_attention_fwd", {
+    # dtype, x, wqkv_t, wout_t, bout, g1s, g1b, g2s, g2b, y, qkv scratch,
+    # ctx@Wout scratch, B, N, C, the true C, eps, plan (host ints), smem
+    # bytes, stream
+    "ldm_lin_attn_fwd": ([_I] + [_P] * 11 + [_I] * 4 + [_F, ctypes.POINTER(_I), _I, _P], _I),
+    # x, wqkv_t, wout_t, bout, g1s, g1b, g2s, g2b, y, ctx@Wout scratch, q
+    # scratch, their slots, B, N, C, the true C, eps, plan (host ints), smem
+    # bytes, stream
+    "ldm_lin_attn_fwd_persistent": ([_P] * 11 + [_I] * 5 + [_F, ctypes.POINTER(_I), _I, _P],
+                                    _I)})
+BWD_LIB = build.Library("linear_attention_bwd", {  # a launch is 3 CUDA kernels
+    "ldm_lin_attn_bwd_splits": ([_I, _I, _I], _I),  # B, N, C
+    # dtype, x, dy, wqkv, wqkv_t, wout, wout_t, bout, g1s, g1b, g2s, dx,
+    # dwqkv, dwout, dvec, 11 scratch buffers, B, N, C, the true C, splits,
+    # eps, plan (host ints), smem bytes, stream
+    "ldm_lin_attn_bwd": ([_I] + [_P] * 25 + [_I] * 5 + [_F, ctypes.POINTER(_I), _I, _P], _I)})
+# the forward's launches on the persistent path
+PERSISTENT = FWD_LIB.name + ".persistent"
+
+
 def _plan_array(plan) -> ctypes.Array:
     ints = plan.ints()
     return (ctypes.c_int * len(ints))(*ints)
@@ -697,11 +719,23 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _call_production(plan, args) -> int:
+    """The production entry point of the plan's path, counted (a failed
+    launch raises)."""
+    FWD_LIB.count()
+    if plan.path != "persistent":
+        return FWD_LIB.ldm_lin_attn_fwd(*args)
+    launches.count(PERSISTENT)
+    return FWD_LIB.ldm_lin_attn_fwd_persistent(*args)
+
+
 def _launch_kernel(x, params, *, heads, dim_head, eps, compute_dtype,
-                   weights: Optional[KernelWeights] = None, stage: Optional[int] = None):
-    """The forward kernel's launch (``stage``: the ablated build of
-    perf/probe7.py, 1-6; None the production entry point).  Returns y and
-    the plan it ran."""
+                   weights: Optional[KernelWeights] = None, call=_call_production):
+    """The forward's launch: checks, pads, plans, allocates the output and
+    the scratch, then ``call(plan, args)`` calls an entry point with the
+    arguments of the plan's path's production entry point and returns its
+    error code: the production entry points, or probe 7's stage builds
+    (perf/probe7.py).  Returns y."""
     if weights is None:
         weights = make_kernel_weights(params[0], params[1], x.dtype, backward=False)
     _check_cuda_args(x, params, heads, dim_head, compute_dtype, weights=weights)
@@ -710,7 +744,6 @@ def _launch_kernel(x, params, *, heads, dim_head, eps, compute_dtype,
     x = _pad_last(x, c)
     params = (*params[:2], *(_pad_last(p, c) for p in params[2:]))
     plan = plan_fwd(n, c, x.dtype, b)
-    lib = build.load()
     y = torch.empty_like(x)
     qkv_scratch = cw_scratch = q_scratch = None
     slots = 0
@@ -732,17 +765,14 @@ def _launch_kernel(x, params, *, heads, dim_head, eps, compute_dtype,
         if plan.path == "persistent":
             args = (*weights_args, _ptr(cw_scratch), _ptr(q_scratch), slots, b, n, c, c_true,
                     float(eps), _plan_array(plan), plan.smem_bytes, stream)
-            err = (lib.ldm_lin_attn_fwd_persistent(*args) if stage is None
-                   else lib.ldm_lin_attn_fwd_persistent_stage(stage, *args))
         else:
             args = (_DTYPE_CODE[x.dtype], *weights_args, _ptr(qkv_scratch), _ptr(cw_scratch), b,
                     n, c, c_true, float(eps), _plan_array(plan), plan.smem_bytes, stream)
-            err = (lib.ldm_lin_attn_fwd(*args) if stage is None
-                   else lib.ldm_lin_attn_fwd_stage(stage, *args))
+        err = call(plan, args)
     if err != 0:
         raise RuntimeError(f"linear-attention kernel launch failed: CUDA error {err} "
                            f"(shape {b, n, c_true}, {plan})")
-    return (y if c == c_true else y[..., :c_true].contiguous()), plan
+    return y if c == c_true else y[..., :c_true].contiguous()
 
 
 def _launch_bwd_kernel(x, dy, params, *, heads, dim_head, eps, compute_dtype,
@@ -762,14 +792,13 @@ def _launch_bwd_kernel(x, dy, params, *, heads, dim_head, eps, compute_dtype,
     x, dy = _pad_last(x, c), _pad_last(dy, c)
     params = (*params[:2], *(_pad_last(p, c) for p in params[2:]))
     plan = plan_bwd(n, c, x.dtype)
-    lib = build.load()
     f32 = dict(dtype=torch.float32, device=x.device)
     cdt = dict(dtype=x.dtype, device=x.device)
     dx = torch.empty_like(x)
     dwqkv = torch.empty((c, 3 * HIDDEN), **f32)
     dwout = torch.empty((HIDDEN, c), **f32)
     dvec = torch.empty((5, c), **f32)  # dbout, dg1s, dg1b, dg2s, dg2b
-    splits = lib.ldm_lin_attn_bwd_splits(b, n, c)
+    splits = BWD_LIB.ldm_lin_attn_bwd_splits(b, n, c)
     ctas = b * plan.cs
     scratch = dict(
         qkv=None if plan.keep else torch.empty((b, n, 3 * HIDDEN), **cdt),
@@ -786,7 +815,7 @@ def _launch_bwd_kernel(x, dy, params, *, heads, dim_head, eps, compute_dtype,
     )
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ldm_lin_attn_bwd(
+        err = BWD_LIB.ldm_lin_attn_bwd(
             _DTYPE_CODE[x.dtype], x.data_ptr(), dy.data_ptr(),
             *(w.data_ptr() for w in weights), *(p.data_ptr() for p in params[2:6]),
             dx.data_ptr(), dwqkv.data_ptr(), dwout.data_ptr(), dvec.data_ptr(),
@@ -796,7 +825,7 @@ def _launch_bwd_kernel(x, dy, params, *, heads, dim_head, eps, compute_dtype,
     if err != 0:
         raise RuntimeError(f"linear-attention backward launch failed: CUDA error {err} "
                            f"(shape {b, n, c_true}, {plan})")
-    linear_attention_block_bwd.launches += 1
+    BWD_LIB.count()
     if c != c_true:
         dx, dwqkv = dx[..., :c_true].contiguous(), dwqkv[:c_true]
         dwout, dvec = dwout[:, :c_true], dvec[:, :c_true]
@@ -820,16 +849,6 @@ def linear_attention_block_bwd(
     if x.device.type != "cuda":
         raise ValueError(f"no linear-attention implementation for device {x.device}")
     return _launch_bwd_kernel(x, dy, params, weights=weights, **kw)
-
-
-linear_attention_block_bwd.launches = 0  # backward launches (3 kernels each)
-
-
-def _forward_kernel(x, params, weights, **kw) -> torch.Tensor:
-    y, plan = _launch_kernel(x, params, weights=weights, **kw)
-    linear_attention_block.launches += 1
-    linear_attention_block.persistent_launches += plan.path == "persistent"
-    return y
 
 
 class LinearAttentionBlockFn(torch.autograd.Function):
@@ -856,7 +875,7 @@ class LinearAttentionBlockFn(torch.autograd.Function):
             # refuse now what the backward would refuse after the forward
             _check_cuda_args(x, params, heads, dim_head, compute_dtype, max_c=MAX_C_BWD,
                              weights=weights)
-            y = _forward_kernel(x, params, weights, **kw)
+            y = _launch_kernel(x, params, weights=weights, **kw)
         elif x.device.type == "cpu":
             y = linear_attention_block_torch(x, *params, **kw)
         else:
@@ -894,8 +913,4 @@ def linear_attention_block(
         return linear_attention_block_torch(x, *params, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"no linear-attention implementation for device {x.device}")
-    return _forward_kernel(x, params, weights, **kw)
-
-
-linear_attention_block.launches = 0  # forward kernel launches, counted where they happen
-linear_attention_block.persistent_launches = 0  # of them, those on the persistent path
+    return _launch_kernel(x, params, weights=weights, **kw)

@@ -25,8 +25,9 @@ is no shortcut.  Like the JAX op it is not wired into the UNet.
   the backward recomputes through :func:`resnet_block_torch`, the reference's
   own policy (there is no backward kernel for this block).
 * :func:`resnet_block` dispatches as ``linear_attention_block`` does.  A
-  CUDA tensor launches the kernel or raises; ``resnet_block.launches``
-  counts the kernel's launches (one per block, three CUDA kernels each).
+  CUDA tensor launches the kernel or raises, and counts its launches as
+  ``resnet_block_fwd`` (``utils/launches.py``; one per block, three CUDA
+  kernels each).
 """
 
 from __future__ import annotations
@@ -280,6 +281,15 @@ def _check_cuda_args(x, temb, params, ws, bs, groups, compute_dtype, use_shortcu
         )
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# dtype, x, temb, n1s, n1b, w1, b1, n2s, n2b, w2, b2, ws, bs, y, h1 scratch,
+# padded-weight scratch, statistics scratch, B, H, W, C_in, C_out, groups,
+# eps, plan (host ints), stream: ldm_resnet_block_fwd's arguments, which the
+# probes' entry points share
+BLOCK_ARGTYPES = [_I] + [_P] * 16 + [_I] * 6 + [ctypes.c_float, ctypes.POINTER(_I), _P]
+LIB = build.Library("resnet_block_fwd", {"ldm_resnet_block_fwd": (BLOCK_ARGTYPES, _I)})
+
+
 def launch_args(x, temb, params, ws, bs, *, groups, eps, compute_dtype, use_shortcut,
                 plan=None):
     """Check the arguments, plan the launch, allocate the output and the
@@ -320,10 +330,10 @@ def resnet_block_cuda(
         y, args, _scratch = launch_args(x, temb, params, ws, bs, groups=groups, eps=eps,
                                         compute_dtype=compute_dtype,
                                         use_shortcut=use_shortcut, plan=plan)
-        err = build.load().ldm_resnet_block_fwd(_DTYPE_CODE[x.dtype], *args)
+        err = LIB.ldm_resnet_block_fwd(_DTYPE_CODE[x.dtype], *args)
     if err != 0:
         raise RuntimeError(f"resnet-block kernel launch failed: CUDA error {err}")
-    resnet_block.launches += 1
+    LIB.count()
     return y
 
 
@@ -381,6 +391,3 @@ def resnet_block(
         return ResNetBlockFn.apply(*inputs, groups, eps, compute_dtype, use_shortcut)
     kw = dict(groups=groups, eps=eps, compute_dtype=compute_dtype, use_shortcut=use_shortcut)
     return _forward(x, temb, inputs[2:10], ws, bs, kw)
-
-
-resnet_block.launches = 0  # kernel launches (one per block), counted where they happen

@@ -8,7 +8,7 @@ import subprocess
 
 import torch
 
-from ldm_tpu_torch.utils.graphs import launch_counts
+from ldm_tpu_torch.ops import launch_counts
 
 
 def require_cuda(name: str) -> torch.device:

@@ -94,7 +94,7 @@ def rb_inputs(b, side, cin, cout, seed):
             t(rng.randn(cin, cout) / np.sqrt(cin)) if sc else t(np.zeros((1, 1))),
             t(0.1 * rng.randn(cout)) if sc else t(np.zeros((1, 1)))), sc
 
-build.load()
+build.build()
 rows = {}
 for i, (site, n, c) in enumerate(SITES):
     for b in (256, 128, 20):

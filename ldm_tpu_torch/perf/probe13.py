@@ -22,8 +22,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ldm_tpu_torch.ops.resnet_block import resnet_block, resnet_block_torch
+from ldm_tpu_torch.ops.resnet_block import LIB, resnet_block, resnet_block_torch
 from ldm_tpu_torch.perf.common import card, cuda_graph_ms, require_cuda
+from ldm_tpu_torch.utils import launches
 
 B = 256
 DT = torch.bfloat16
@@ -83,7 +84,7 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     for name, side, cin, cout in SITES:
         args, use_sc = site_args(B, side, cin, cout, DT, dev)
         kw = dict(groups=GROUPS, compute_dtype=DT, use_shortcut=use_sc)
-        before = resnet_block.launches
+        before = launches.read(LIB.name)
         with torch.inference_mode():
             got = resnet_block(*args, **kw).float()
             want = resnet_block_torch(*args, **kw).float()
@@ -92,7 +93,7 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
             p_ms = cuda_graph_ms(lambda: resnet_block_torch(*args, **kw), iters=a.iters)
         row = {"site": name, "b": B, "dtype": "bfloat16", "kernel_ms": k_ms,
                "plain_ms": p_ms, "rel_err": err,
-               "launches": resnet_block.launches - before, "card": tag}
+               "launches": launches.read(LIB.name) - before, "card": tag}
         rows.append(row)
         print(f"probe13 {name} 2B={B} bf16: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
               f"kernel/plain {k_ms / p_ms:.2f}, rel_err {err:.2e} [{tag}]", flush=True)

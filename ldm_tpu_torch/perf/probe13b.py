@@ -27,6 +27,7 @@ mode against it and reports its time and the delta over the mode before.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 from typing import Optional, Sequence
 
@@ -38,6 +39,9 @@ from ldm_tpu_torch.ops import resnet_block as rb
 from ldm_tpu_torch.perf.common import card, cuda_graph_ms, require_cuda
 from ldm_tpu_torch.perf.probe13 import GROUPS, site_args
 
+# the probe's entry point: the mode, then the block's arguments
+LIB = build.Library("resnet_block_probe", {
+    "ldm_resnet_block_probe": ([ctypes.c_int] + rb.BLOCK_ARGTYPES, ctypes.c_int)})
 MODES = ("noop", "gnonly", "center", "full")
 _MODE_CODE = {m: i for i, m in enumerate(MODES)}  # resnet_block.cuh's MODE_*
 B, SIDE, C = 256, 32, 64
@@ -84,8 +88,8 @@ def probe_block_torch(mode, x, temb, n1s, n1b, w1, b1, n2s, n2b, w2, b2,
 
 def probe_block(mode, x, temb, n1s, n1b, w1, b1, n2s, n2b, w2, b2,
                 *, groups: int = GROUPS, eps: float = 1e-5) -> torch.Tensor:
-    """One mode of the ablated kernel for a CUDA tensor (counted in
-    ``probe_block.launches``), the plain version for a CPU tensor."""
+    """One mode of the ablated kernel for a CUDA tensor (counted under its
+    library's name), the plain version for a CPU tensor."""
     if mode not in _MODE_CODE:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     params = (n1s, n1b, w1, b1, n2s, n2b, w2, b2)
@@ -97,15 +101,11 @@ def probe_block(mode, x, temb, n1s, n1b, w1, b1, n2s, n2b, w2, b2,
         y, args, _scratch = rb.launch_args(x, temb, params, None, None, groups=groups,
                                            eps=eps, compute_dtype=x.dtype,
                                            use_shortcut=False)
-        err = build.load().ldm_resnet_block_probe(
-            _MODE_CODE[mode], rb._DTYPE_CODE[x.dtype], *args)
+        err = LIB.ldm_resnet_block_probe(_MODE_CODE[mode], rb._DTYPE_CODE[x.dtype], *args)
     if err != 0:
         raise RuntimeError(f"resnet-block probe ({mode}) launch failed: CUDA error {err}")
-    probe_block.launches += 1
+    LIB.count()
     return y
-
-
-probe_block.launches = 0
 
 
 def main(argv: Optional[Sequence[str]] = None) -> list:

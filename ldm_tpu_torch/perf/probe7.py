@@ -4,7 +4,8 @@ perf/probe7.py: which stage of the kernel costs what?
 
     python -m ldm_tpu_torch.perf.probe7 [--out rows.json] [--iters 20]
 
-``csrc/linear_attention_fwd.cu`` built with a compile-time STAGE, cut after
+``csrc/linear_attention_fwd_probe.cu``: the forward's kernels built with a
+compile-time STAGE in a library of their own, built when the probe runs, cut after
 stage 1 GN1 | 2 + qkv | 3 + q softmax | 4 + k path (max, exp, sum) |
 5 + ctx / ctx@Wout / out | 6 the whole block (+ GN2 and the residual).
 Stages 1-5 write y = x + (what the stage made, lane c % 128), so each
@@ -24,12 +25,14 @@ off for the run).  ``--design`` picks one; by default both, in that order.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from ldm_tpu_torch.ops import build
 from ldm_tpu_torch.ops import linear_attention as la
 from ldm_tpu_torch.perf.common import card, cuda_graph_ms, require_cuda
 
@@ -40,6 +43,10 @@ B, N, C = 128, 1024, 64
 DT = torch.bfloat16
 # |kernel - plain| <= 3e-2 + 2^-7 |plain|: the forward kernel's bf16 check
 TOL = (3e-2, 2.0**-7)
+# the stage builds' entry points: the stage, then the production ones' arguments
+LIB = build.Library("linear_attention_fwd_probe", {
+    f"{name}_stage": ([ctypes.c_int] + argtypes, restype)
+    for name, (argtypes, restype) in la.FWD_LIB.entry_points.items()})
 
 
 def stage_torch(stage, x, wqkv, wout, bout, g1s, g1b, g2s, g2b, *, eps: float = 1e-5):
@@ -90,8 +97,8 @@ def stage_torch(stage, x, wqkv, wout, bout, g1s, g1b, g2s, g2b, *, eps: float = 
 
 
 def stage_block(stage, x, wqkv, wout, bout, g1s, g1b, g2s, g2b, *, eps: float = 1e-5):
-    """One stage of the ablated kernel for a CUDA tensor (counted in
-    ``stage_block.launches``), the plain version for a CPU tensor."""
+    """One stage of the ablated kernel for a CUDA tensor (counted under its
+    library's name), the plain version for a CPU tensor."""
     if stage not in STAGES:
         raise ValueError(f"stage must be one of {STAGES}, got {stage!r}")
     params = (wqkv, wout, bout, g1s, g1b, g2s, g2b)
@@ -99,13 +106,15 @@ def stage_block(stage, x, wqkv, wout, bout, g1s, g1b, g2s, g2b, *, eps: float = 
         return stage_torch(stage, x, *params, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"no probe implementation for device {x.device}")
-    y, _ = la._launch_kernel(x, params, heads=HEADS, dim_head=DIM_HEAD, eps=eps,
-                             compute_dtype=x.dtype, stage=stage)
-    stage_block.launches += 1
-    return y
 
+    def call(plan, args):
+        LIB.count()
+        if plan.path == "persistent":
+            return LIB.ldm_lin_attn_fwd_persistent_stage(stage, *args)
+        return LIB.ldm_lin_attn_fwd_stage(stage, *args)
 
-stage_block.launches = 0
+    return la._launch_kernel(x, params, heads=HEADS, dim_head=DIM_HEAD, eps=eps,
+                             compute_dtype=x.dtype, call=call)
 
 
 def probe_inputs(device, dtype=DT, b: int = B, n: int = N, c: int = C, seed: int = 0):

@@ -30,6 +30,10 @@ from ldm_tpu_torch.perf.common import card, require_cuda
 from ldm_tpu_torch.perf.probe13 import GROUPS, UNET_SITES, site_args
 
 DT = torch.bfloat16
+# the -DRB_CLOCKS build's entry points: the block's, and its stamps (out)
+CLOCKED = build.Library("resnet_block_fwd", {
+    **rb.LIB.entry_points,
+    "ldm_resnet_block_clocks": ([ctypes.POINTER(ctypes.c_longlong)], ctypes.c_int)})
 PHASES = ("prologue", "first fill", "units", "tile to shared memory", "rows written",
           "statistics")
 
@@ -42,10 +46,7 @@ def build_clocked(tmp: str) -> ctypes.CDLL:
     r = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
     if r.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{' '.join(cmd)}\n{r.stdout}\n{r.stderr}")
-    dll = ctypes.CDLL(lib)
-    dll.ldm_resnet_block_fwd.argtypes = build.load().ldm_resnet_block_fwd.argtypes
-    dll.ldm_resnet_block_clocks.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
-    return dll
+    return CLOCKED.declare(ctypes.CDLL(lib))
 
 
 def main(argv: Optional[Sequence[str]] = None) -> list:

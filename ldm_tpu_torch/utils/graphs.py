@@ -15,9 +15,9 @@ device, read a Python number that changes from step to step (it would be
 frozen at its value at capture), or draw from a ``torch.Generator`` made per
 call.  Whatever of that a step needs is done eagerly around the replay.
 
-The kernel wrappers count their launches in Python, which a replay does not
-run: the graph records how many launches of each wrapper its capture made and
-adds them at every replay, so the counts stay what an eager loop would give.
+The ops count their launches in Python (``utils/launches.py``), which a
+replay does not run: the graph records what its capture counted and adds it
+at every replay, so the counts stay what an eager loop would give.
 """
 
 from __future__ import annotations
@@ -28,28 +28,9 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from ldm_tpu_torch.ops import linear_attention as la
-from ldm_tpu_torch.ops import resnet_block as rb
-from ldm_tpu_torch.ops.fused_adam_ema import fused_adam_ema
-from ldm_tpu_torch.ops.group_norm import group_norm_silu
+from ldm_tpu_torch.utils import launches
 
-# every kernel wrapper that counts its launches in a ``launches`` attribute,
-# by the kernel's name in the results
-KERNELS = {"linear_attention_fwd": la.linear_attention_block,
-           "linear_attention_bwd": la.linear_attention_block_bwd,
-           "resnet_block_fwd": rb.resnet_block,
-           "fused_adam_ema": fused_adam_ema,
-           "group_norm_silu": group_norm_silu}
-COUNTED = tuple(KERNELS.values())
-# every count a replay adds to: the launches, and the forward's persistent ones
-COUNTERS = tuple((f, "launches") for f in COUNTED) + (
-    (la.linear_attention_block, "persistent_launches"),)
 WARMUP_STEPS = 3
-
-
-def launch_counts() -> dict:
-    """Every counted kernel's launches so far, by the kernel's name."""
-    return {name: f.launches for name, f in KERNELS.items()}
 
 
 def use_graphs(device, graph: Optional[bool], mesh=None) -> bool:
@@ -114,14 +95,13 @@ class StepGraph:
                 reset()
             if before_capture is not None:
                 before_capture()
-            before = [getattr(f, a) for f, a in COUNTERS]
+            before = launches.snapshot()
             self.graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self.graph):
                 self.outputs = fn()
-            # the launches one capture made: added again at every replay
-            self.launches = [getattr(f, a) - n for (f, a), n in zip(COUNTERS, before)]
-            for (f, a), n in zip(COUNTERS, before):
-                setattr(f, a, n)  # a capture runs nothing
+            # what one capture counted: added again at every replay
+            self.launches = launches.since(before)
+            launches.restore(before)  # a capture runs nothing
         self.capture_seconds = time.perf_counter() - t0  # host clock: warm-up and capture
         self.replays = 0
 
@@ -129,8 +109,7 @@ class StepGraph:
         """Launch the step; returns ``fn``'s outputs (static: clone what must
         outlive the next replay)."""
         self.graph.replay()
-        for (f, a), n in zip(COUNTERS, self.launches):
-            setattr(f, a, getattr(f, a) + n)
+        launches.add(self.launches)
         self.replays += 1
         return self.outputs
 

@@ -19,7 +19,7 @@ from ldm_tpu.ops.linear_attention import (
     linear_attention_block_xla,
 )
 from ldm_tpu_torch.models.unet import UNet
-from ldm_tpu_torch.ops import linear_attention as la
+from ldm_tpu_torch.ops import launch_counts, linear_attention as la
 
 HEADS, DIM_HEAD = 4, 32
 HIDDEN = HEADS * DIM_HEAD
@@ -125,15 +125,14 @@ def test_grad_mode_dispatch_goes_through_the_function():
     CPU."""
     args, dy = make_inputs(2, 16, 64, seed=6)
     t = [torch.from_numpy(a).requires_grad_() for a in args]
-    before = (la.linear_attention_block.launches, la.linear_attention_block_bwd.launches)
+    before = launch_counts()
     y = la.linear_attention_block(*t, **KW)
     assert type(y.grad_fn).__name__ == "LinearAttentionBlockFnBackward"
     y.backward(torch.from_numpy(dy))
     want = port_bwd(args, dy)
     for name, a, w in zip(GRADS, t, want):
         torch.testing.assert_close(a.grad, w, rtol=0, atol=0, msg=name)
-    assert (la.linear_attention_block.launches,
-            la.linear_attention_block_bwd.launches) == before
+    assert launch_counts() == before
     with torch.no_grad():
         assert la.linear_attention_block(*t, **KW).grad_fn is None
 

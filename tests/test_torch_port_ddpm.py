@@ -20,7 +20,7 @@ from ldm_tpu_torch.factory import build_model, load_config
 from ldm_tpu_torch.serving.builder import checkpoint_path
 from ldm_tpu_torch.diffusion.schedule import DiffusionSchedule
 from ldm_tpu_torch.models.unet import UNet
-from ldm_tpu_torch.ops import linear_attention as la
+from ldm_tpu_torch.ops import launch_counts
 from ldm_tpu_torch.utils.flax_import import unet_from_flax
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -151,7 +151,7 @@ def test_generate_main_end_to_end_on_cpu(tmp_path, amp):
     cfg = tmp_path / "tiny.yaml"
     cfg.write_text(TINY_YAML.format(workdir=tmp_path / "runs", amp=amp))
     seeded_weights(cfg)
-    before = la.linear_attention_block.launches
+    before = launch_counts()
     out = tmp_path / "x.npy"
     res = generate.main([str(cfg), "--device", "cpu", "--per-class", "2", "--out", str(out)])
     assert res.images.dtype == np.uint8 and res.images.shape == (20, 8, 8, 3)
@@ -160,7 +160,7 @@ def test_generate_main_end_to_end_on_cpu(tmp_path, amp):
     again = generate.main([str(cfg), "--device", "cpu", "--per-class", "2",
                            "--out", str(tmp_path / "y.npy")])
     np.testing.assert_array_equal(again.x0, res.x0)
-    assert la.linear_attention_block.launches == before
+    assert launch_counts() == before
     assert len(res.paths) == 20 and all(os.path.exists(p) for p in res.paths)
 
 

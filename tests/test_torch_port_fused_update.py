@@ -28,10 +28,10 @@ from ldm_tpu.training.state import TrainState as JaxState
 from ldm_tpu.training.state import fused_apply_gradients as jax_fused
 from ldm_tpu.training.state import make_optimizer
 from ldm_tpu_torch.models.unet import LinAttnBlock
-from ldm_tpu_torch.ops import build
 from ldm_tpu_torch.ops import fused_adam_ema as fa
 from ldm_tpu_torch.training import state as state_mod
 from ldm_tpu_torch.training.state import TrainState, ema_decay_at, fused_apply_gradients
+from ldm_tpu_torch.utils import launches
 
 LR, STEPS, ATOL = 3e-3, 4, 1e-6
 # (7, 5), (5,) and (3,) as the JAX test has them, and one of odd numel no
@@ -252,7 +252,7 @@ def kernel_path(monkeypatch):
     """The wrapper's CUDA route on CPU memory: the library, the stream and
     the device context replaced; the plain version refused."""
     lib = FakeLibrary()
-    monkeypatch.setattr(build, "load", lambda: lib)
+    monkeypatch.setattr(fa.LIB, "cdll", lib)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(cuda_stream=0))
@@ -261,9 +261,10 @@ def kernel_path(monkeypatch):
         raise AssertionError("a CUDA tensor reached the plain version")
 
     monkeypatch.setattr(fa, "fused_adam_ema_torch", refused)
-    fa.fused_adam_ema.launches = 0
+    before = launches.snapshot()
+    launches.restore({})
     yield lib
-    fa.fused_adam_ema.launches = 0
+    launches.restore(before)
 
 
 def pass_args(ema: bool, no_grad_leaf: bool):
@@ -300,7 +301,7 @@ def test_cuda_tensors_reach_the_kernel_path(kernel_path, ema, no_grad_leaf):
     versions = [[None if t is None else t._version for t in x] if x is not None else None
                 for x in args[:6]]
     fa.fused_adam_ema(*as_cuda(args), LR, 0.9, 0.999, 1e-8)
-    assert fa.fused_adam_ema.launches == 1 and len(kernel_path.calls) == 1
+    assert launches.read(fa.LIB.name) == 1 and len(kernel_path.calls) == 1
     # the table: no empty leaf, no leaf with neither a gradient nor an EMA
     call = kernel_path.calls[0]
     listed = [i for i in range(len(SHAPES)) if ema or not (no_grad_leaf and i == 1)]
@@ -334,7 +335,7 @@ def test_kernel_path_refuses_what_the_kernel_does_not_take(kernel_path, bad):
         count[2] = count[2].as_subclass(torch.Tensor)
     with pytest.raises(ValueError):
         fa.fused_adam_ema(params, grads, m, v, e, count, d, LR, 0.9, 0.999, 1e-8)
-    assert fa.fused_adam_ema.launches == 0 and not kernel_path.calls
+    assert launches.read(fa.LIB.name) == 0 and not kernel_path.calls
 
 
 @pytest.mark.parametrize("ema", [True, False])
@@ -361,7 +362,7 @@ def test_eager_update_on_the_kernel_path_rekeys_the_attention_weights(kernel_pat
     with monkeypatch.context() as mp:
         mp.setattr(state_mod, "fused_adam_ema", PLAIN)
         plain.update()
-    assert fa.fused_adam_ema.launches == 1
+    assert launches.read(fa.LIB.name) == 1
     assert all(m._weights_key() != k for m, k in zip(models, keys))
     for part in ["model"] + (["ema"] if ema else []):
         for (name, a), b in zip(getattr(state, part).state_dict().items(),

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from ldm_tpu_torch.models import autoencoder as ae
 from ldm_tpu_torch.models import unet as um
 from ldm_tpu_torch.ops import group_norm as gn
+from ldm_tpu_torch.utils import launches
 
 CL = torch.channels_last
 PIXEL = dict(in_channels=3, out_channels=3, channels=64, channel_multipliers=(1, 2, 4, 8),
@@ -174,21 +175,21 @@ def launcher(monkeypatch):
         return old_chain(x.as_subclass(torch.Tensor), weight, bias, groups, eps, silu)
 
     monkeypatch.setattr(gn, "_launch_kernel", launch)
-    before = gn.group_norm_silu.launches
+    before = launches.snapshot()
     yield calls
-    gn.group_norm_silu.launches = before
+    launches.restore(before)
 
 
 @pytest.mark.parametrize("silu", [False, True])
 def test_a_bf16_cuda_tensor_outside_autograd_takes_the_kernel(launcher, silu):
     norm = um.GroupNorm(32, 64, eps=1e-6)
     x, _, _ = site_inputs(16, 64, torch.bfloat16, seed=1)
-    before = gn.group_norm_silu.launches
+    before = launches.read(gn.LIB.name)
     with torch.no_grad():
         y = norm.forward_silu(x.as_subclass(FakeCuda)) if silu else norm(x.as_subclass(FakeCuda))
     assert [(c.shape, c.groups, c.eps, c.silu) for c in launcher] == \
         [((2, 64, 4, 4), 32, 1e-6, silu)]
-    assert gn.group_norm_silu.launches == before + 1
+    assert launches.read(gn.LIB.name) == before + 1
     assert torch.equal(y.as_subclass(torch.Tensor),
                        old_chain(x, norm.weight, norm.bias, 32, 1e-6, silu))
     with torch.inference_mode():
@@ -204,10 +205,10 @@ def test_everything_else_keeps_the_plain_chain(launcher, case):
     dtype = torch.float32 if case == "fp32" else torch.bfloat16
     x, _, _ = site_inputs(64, 64, dtype, seed=2)
     fake = x if case == "cpu" else x.as_subclass(FakeCuda)
-    before = gn.group_norm_silu.launches
+    before = launches.read(gn.LIB.name)
     with torch.set_grad_enabled(case == "grad on"):
         y = norm.forward_silu(fake)
-    assert launcher == [] and gn.group_norm_silu.launches == before
+    assert launcher == [] and launches.read(gn.LIB.name) == before
     assert torch.equal(y.as_subclass(torch.Tensor).detach(),
                        old_chain(x, norm.weight, norm.bias, 8, 1e-5, True).detach())
 

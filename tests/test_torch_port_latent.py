@@ -384,8 +384,8 @@ def test_protocol_with_the_latent_generator(tmp_path, monkeypatch):
         assert v is not None and np.isfinite(v)
     assert set(res.test_f1) == {"exp1", "exp2", "exp3", "exp4", "exp5", "exp2_broken"}
     assert os.path.exists(os.path.join(dt.config.checkpoints, "latent_scaling.json"))
-    assert res.launches["A"] == {"linear_attention_block": 0, "linear_attention_block_bwd": 0,
-                                 "resnet_block": 0, "fused_adam_ema": 0,
+    assert res.launches["A"] == {"linear_attention_fwd": 0, "linear_attention_bwd": 0,
+                                 "resnet_block_fwd": 0, "fused_adam_ema": 0,
                                  "group_norm_silu": 0}  # the CPU runs the plain versions
     with pytest.raises(ValueError, match="latent config"):
         port_main.main([proto, "--generator-config", proto, "--device", "cpu"])

@@ -20,7 +20,7 @@ from ldm_tpu.ops.linear_attention import (
     linear_attention_block_pallas,
     linear_attention_block_xla,
 )
-from ldm_tpu_torch.ops import linear_attention as la
+from ldm_tpu_torch.ops import launch_counts, linear_attention as la
 
 HEADS, DIM_HEAD = 4, 32
 HIDDEN = HEADS * DIM_HEAD
@@ -80,11 +80,11 @@ def test_plain_matches_xla_bf16(b, n, c):
 
 def test_cpu_tensor_takes_plain_path_and_counts_no_launch():
     args = torch_args(make_inputs(2, 16, 64, seed=4))
-    before = la.linear_attention_block.launches
+    before = launch_counts()
     got = la.linear_attention_block(*args, **KW)
     want = la.linear_attention_block_torch(*args, **KW)
     assert torch.equal(got, want)
-    assert la.linear_attention_block.launches == before
+    assert launch_counts() == before
 
 
 def test_other_devices_raise():
@@ -153,8 +153,9 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
     """Importing the kernels' modules builds nothing and needs no nvcc."""
     env = dict(os.environ, PATH="/usr/bin:/bin", CUDA_HOME=str(tmp_path))
     code = ("import ldm_tpu_torch.ops.linear_attention as la, ldm_tpu_torch.ops.build as b; "
-            "assert b.build.cache_info().currsize == b.load.cache_info().currsize == 0; "
-            "print(la.linear_attention_block.launches, la.linear_attention_block_bwd.launches)")
+            "assert b.build.cache_info().currsize == 0; "
+            "assert la.FWD_LIB.cdll is None and la.BWD_LIB.cdll is None; "
+            "print(la.launches.read(la.FWD_LIB.name), la.launches.read(la.BWD_LIB.name))")
     r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                        text=True, timeout=120, cwd=os.path.dirname(os.path.dirname(__file__)))
     assert r.returncode == 0, r.stderr

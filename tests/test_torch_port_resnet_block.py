@@ -24,6 +24,7 @@ from ldm_tpu_torch.models.unet import ResNetBlock
 from ldm_tpu_torch.ops import linear_attention as la
 from ldm_tpu_torch.ops import resnet_block as rb
 from ldm_tpu_torch.perf import probe7, probe13b
+from ldm_tpu_torch.utils import launches
 from ldm_tpu_torch.utils.flax_import import resnet_block_args, resnet_block_from_flax
 
 GROUPS = 8
@@ -168,11 +169,11 @@ def test_fn_backward_skips_unneeded_grads():
 
 def test_cpu_tensor_takes_plain_path_and_counts_no_launch():
     t = torch_args(make_args(16, 24, seed=8)[0])
-    before = rb.resnet_block.launches
+    before = launches.read(rb.LIB.name)
     got = rb.resnet_block(*t, use_shortcut=True)
     want = rb.resnet_block_torch(*t, groups=GROUPS, use_shortcut=True)
     assert torch.equal(got, want)
-    assert rb.resnet_block.launches == before
+    assert launches.read(rb.LIB.name) == before
 
 
 def test_other_devices_raise():

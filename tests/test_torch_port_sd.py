@@ -27,7 +27,7 @@ from ldm_tpu_torch.models import sd_unet
 from ldm_tpu_torch.models.autoencoder import Autoencoder
 from ldm_tpu_torch.models.latent import SD_SCALING, LatentDiffusionModel
 from ldm_tpu_torch.ops import attention
-from ldm_tpu_torch.utils import profiling
+from ldm_tpu_torch.utils import launches, profiling
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(in_channels=4, out_channels=4, model_channels=32, channel_mult=[1, 2],
@@ -130,22 +130,24 @@ def test_the_published_topology_calls_16_self_and_16_cross_attentions():
     with torch.device("meta"):
         unet = factory.build_model(config)
     assert len(transformer_blocks(unet)) == 16
-    attention.softmax_attention.calls.update(self=0, cross=0)
+    before = launches.snapshot()
     with torch.no_grad():
         unet(torch.zeros(1, 16, 16, 4, device="meta"),
              torch.zeros(1, dtype=torch.int64, device="meta"),
              torch.zeros(1, 77, 1024, device="meta"))
-    assert attention.softmax_attention.calls == {"self": 16, "cross": 16}
+    assert launches.since(before) == {"softmax_attention.self": 16,
+                                      "softmax_attention.cross": 16}
 
 
 def test_one_self_and_one_cross_call_a_transformer_block():
     model = tiny_model()
     x, ctx, _ = inputs()
-    attention.softmax_attention.calls.update(self=0, cross=0)
+    before = launches.snapshot()
     with torch.no_grad():
         model(x, torch.tensor([1, 2]), ctx)
     n = len(transformer_blocks(model))
-    assert n == 11 and attention.softmax_attention.calls == {"self": n, "cross": n}
+    assert n == 11 and launches.since(before) == {"softmax_attention.self": n,
+                                                  "softmax_attention.cross": n}
 
 
 def test_the_timestep_embedding_is_cos_first_over_half():
